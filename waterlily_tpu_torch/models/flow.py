@@ -1,0 +1,250 @@
+"""Flow state and the BDIM predictor-corrector momentum step.
+
+PyTorch counterpart of `waterlily_tpu/models/flow.py` (the port of
+`src/Flow.jl`).  The per-cell kernels of the reference (conv_diff!, BDIM!,
+projection, CFL) are functions over a `FlowState` of tensors; the
+conv–diff RHS and the BDIM update route 3-D float32 CUDA fields to the hand
+kernels K12 and K14 of `ops/stencil3d.py`, where the convection schemes and
+the boundary-slab fluxes (`_phi_slabs`) also live beside the kernel that
+mirrors them.
+
+Layout: velocity ``u[i, x, y(, z)]`` component-first, pressure
+``p[x, y(, z)]``, BDIM moments ``mu0`` like ``u`` and ``mu1[i, j, ...]``.
+The time-step history and the pressure iteration counts are host lists
+(`Flow.jl:127`).
+
+Supported: constant tuple ``ubc``, constant tuple ``u0``, no body force,
+non-periodic directions, no convective exit, the multigrid solver.  The rest
+raises `NotImplementedError` naming the ROADMAP item that ports it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional
+
+import torch
+
+from ..ops import multigrid as mg
+from ..ops import stencil3d as st
+from ..ops.bc import bc_vector, exit_bc
+from ..ops.grid import interior, set_interior, shift, zero_ghost
+from ..ops.stencil3d import cds, median3, quick, vanleer
+
+__all__ = [
+    "quick", "cds", "vanleer", "median3",
+    "FlowState", "FlowCfg", "Flow", "init_state",
+    "conv_diff", "bdim_update", "project", "cfl", "mom_step_impl",
+    "div_field", "scale_interior",
+]
+
+ROADMAP_FLOW_CONFIGS = "ROADMAP queue 1, item 10 (remaining flow configurations)"
+
+
+@dataclasses.dataclass
+class FlowState:
+    """Fields of a flow (`Flow{D,T}`, `Flow.jl:114-131`): ``u0`` is the
+    previous velocity, ``V``/``mu0``/``mu1`` the BDIM body velocity and
+    kernel moments, ``nu`` a 0-d tensor on the fields' device."""
+    u: torch.Tensor
+    u0: torch.Tensor
+    p: torch.Tensor
+    V: torch.Tensor
+    mu0: torch.Tensor
+    mu1: torch.Tensor
+    nu: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class FlowCfg:
+    """Static configuration of a flow (the JAX `FlowCfg` restricted to the
+    supported features)."""
+    shape: tuple[int, ...]          # padded grid Ng = N + 2
+    ubc: tuple[float, ...]          # constant Dirichlet velocity
+    scheme: Callable = quick
+    dtype: Any = torch.float32
+    tol: float = 2e-3               # pressure solver tolerance
+    itmx: int = 32                  # pressure solver max iterations
+    smooth_it: int = 4              # MG smoother sweeps (`Poisson.jl:135`)
+    fine_smooth_it: int = 0         # fine post-V-cycle sweeps (0 → smooth_it)
+    fine_presmooth: bool = True     # fine Jacobi pre-smooth of each V-cycle
+
+    @property
+    def D(self) -> int:
+        return len(self.shape)
+
+
+def scale_interior(u: torch.Tensor, s) -> torch.Tensor:
+    """u *= s on interior faces only (`scale_u!`, `Flow.jl:211-214`)."""
+    d = u.dim() - 1
+    return set_interior(u, interior(u, d) * s, d)
+
+
+def div_field(u: torch.Tensor) -> torch.Tensor:
+    """Cell-centered divergence (`div`, `Flow.jl:17-23`); ghost entries 0."""
+    s = torch.zeros(u.shape[1:], dtype=u.dtype, device=u.device)
+    for i in range(u.shape[0]):
+        s = s + (shift(u[i], i, 1) - u[i])
+    return zero_ghost(s)
+
+
+def conv_diff(u: torch.Tensor, scheme: Callable, nu) -> torch.Tensor:
+    """Convective + diffusive momentum RHS (`conv_diff!`, `Flow.jl:38-62`,
+    non-periodic): `stencil3d.conv_diff_plain`, or the K12 kernel for 3-D
+    float32 CUDA fields.  Every cell of the result is defined; the ghost
+    rows matter because `bdim_update` reads ``f*`` at them."""
+    if st.use_kernels(u[0]):
+        return st.conv_diff_k(u, nu, st.scheme_id(scheme))
+    return st.conv_diff_plain(u, nu, scheme)
+
+
+def bdim_update(u, u0, f, V, mu0, mu1, dt) -> torch.Tensor:
+    """BDIM convolution (`BDIM!`, `Flow.jl:176-180`):
+    ``f* = u0 + dt·f − V``, ``u += μ1·∇f* + V + μ0·f*`` on interior faces;
+    the K14 kernel for 3-D float32 CUDA fields."""
+    if st.use_kernels(u[0]):
+        return st.bdim_k(u, u0, f, V, mu0, mu1, dt)
+    return st.bdim_plain(u, u0, f, V, mu0, mu1, dt)
+
+
+def project(u: torch.Tensor, p: torch.Tensor, levels, masks, dt_w: float,
+            cfg: FlowCfg):
+    """Pressure projection (`mom_project!`, `Flow.jl:223-232`): solve
+    ``A x = div(u)`` warm-started from ``p·dt_w``, ``u_i -= L_i ∂_i x``,
+    ``p = x/dt_w``.  Returns ``(u, p, iters, stats)``."""
+    z = div_field(u)
+    x = p * dt_w
+    res = mg.solve_mg(levels, masks, x, z, tol=cfg.tol, itmx=cfg.itmx,
+                      smooth_it=cfg.smooth_it,
+                      fine_smooth_it=cfg.fine_smooth_it,
+                      fine_presmooth=cfg.fine_presmooth)
+    x = res.x
+    L = levels[0].L
+    u = u.clone()
+    for i in range(cfg.D):
+        gradp = x - shift(x, i, -1)
+        u[i] = u[i] + (-zero_ghost(L[i] * gradp))
+    p = x / dt_w
+    u = bc_vector(u, cfg.ubc)
+    return u, p, res.iters, res.stats
+
+
+def cfl(u: torch.Tensor, nu, dt_max: float = 10.0) -> torch.Tensor:
+    """New time step from the max outflow flux (`CFL`, `Flow.jl:234-244`),
+    a 0-d tensor on the device."""
+    s = torch.zeros(u.shape[1:], dtype=u.dtype, device=u.device)
+    for i in range(u.shape[0]):
+        s = s + torch.clamp(shift(u[i], i, 1), min=0.0) + torch.clamp(-u[i], min=0.0)
+    m = torch.max(interior(s))
+    return torch.clamp(1.0 / (m + 5 * nu), max=dt_max)
+
+
+def _phase(state: FlowState, u_adv, u_into, dt, cfg: FlowCfg):
+    """One momentum phase (`mom_predict!`/`mom_correct!`, `Flow.jl:190-210`)."""
+    f = conv_diff(u_adv, cfg.scheme, state.nu)
+    return bdim_update(u_into, state.u0, f, state.V, state.mu0, state.mu1, dt)
+
+
+def mom_step_impl(cfg: FlowCfg, state: FlowState, levels, masks, dt: float,
+                  t0: float = 0.0):
+    """One time step (`mom_step!`, `Flow.jl:156-167`): predictor advected by
+    u0, projection (w=1), corrector advected by the projected u, blend ½,
+    projection (w=½), then the CFL limit.  ``dt`` is a host float already
+    rounded to ``cfg.dtype``; ``t0`` only matters for time-dependent BCs,
+    which are not ported.  Returns ``(state', dt_next (0-d tensor),
+    [iters1, iters2], [stats1, stats2])``."""
+    u0 = state.u
+    state = dataclasses.replace(state, u0=u0)
+    u = scale_interior(u0, 0.0)
+    u = _phase(state, u0, u, dt, cfg)
+    u = bc_vector(u, cfg.ubc)
+    u, p, n1, s1 = project(u, state.p, levels, masks, dt, cfg)
+    u = _phase(state, u, u, dt, cfg)
+    u = scale_interior(u, 0.5)
+    u = bc_vector(u, cfg.ubc)
+    u, p, n2, s2 = project(u, p, levels, masks, 0.5 * dt, cfg)
+    state = dataclasses.replace(state, u=u, p=p)
+    dt_next = cfl(u, state.nu)
+    return state, dt_next, [n1, n2], [s1, s2]
+
+
+def init_state(cfg: FlowCfg, nu, device, u0=None) -> FlowState:
+    """Initial `FlowState` (`Flow`, `Flow.jl:133-147`): uniform ``u0`` (or
+    ``ubc``) on all faces, BCs, the constructor-time `exitBC!(u,u,0)`, and
+    the moments of an empty domain."""
+    D, shape, dtype = cfg.D, cfg.shape, cfg.dtype
+    vals = cfg.ubc if u0 is None else tuple(float(v) for v in u0)
+    u = torch.tensor(vals, dtype=dtype, device=device).reshape(
+        (D,) + (1,) * D).expand((D,) + shape).clone()
+    u = bc_vector(u, cfg.ubc)
+    u = exit_bc(u, u, 0.0)
+    mu0 = bc_vector(torch.ones((D,) + shape, dtype=dtype, device=device),
+                    (0.0,) * D)
+    return FlowState(
+        u=u, u0=u, p=torch.zeros(shape, dtype=dtype, device=device),
+        V=torch.zeros((D,) + shape, dtype=dtype, device=device), mu0=mu0,
+        mu1=torch.zeros((D, D) + shape, dtype=dtype, device=device),
+        nu=torch.tensor(nu, dtype=dtype, device=device))
+
+
+class Flow:
+    """Host-side flow container: a `FlowState`, a `FlowCfg` and the host
+    time-step history (`Flow`, `Flow.jl:131-148`)."""
+
+    def __init__(self, N: tuple[int, ...], ubc, dt: float = 0.25,
+                 nu: float = 0.0, g: Optional[Callable] = None, u0=None,
+                 perdir: tuple[int, ...] = (), exit_bc: bool = False,
+                 scheme: Callable = quick, dtype=torch.float32,
+                 tol: float = 2e-3, itmx: int = 32,
+                 smooth_it: Optional[int] = None,
+                 fine_smooth_it: Optional[int] = None,
+                 mp_smooth: Optional[bool] = None,
+                 fine_presmooth: Optional[bool] = None,
+                 device="cpu"):
+        if callable(ubc) or callable(u0) or g is not None:
+            raise NotImplementedError(
+                f"callable ubc/g/u0 are not ported yet: {ROADMAP_FLOW_CONFIGS}")
+        if perdir or exit_bc:
+            raise NotImplementedError(
+                f"perdir={perdir!r}, exit_bc={exit_bc!r}: periodic and "
+                f"convective-exit boundaries are not ported yet: "
+                f"{ROADMAP_FLOW_CONFIGS}")
+        if mp_smooth:
+            raise NotImplementedError(
+                "mp_smooth=True (bf16 smoothing) is not ported yet: ROADMAP "
+                "queue 2, K4/K5/K7 mixed-precision kernels")
+        shape = tuple(n + 2 for n in N)
+        self.cfg = FlowCfg(
+            shape=shape, ubc=tuple(float(v) for v in ubc), scheme=scheme,
+            dtype=dtype, tol=tol, itmx=itmx,
+            smooth_it=4 if smooth_it is None else int(smooth_it),
+            fine_smooth_it=0 if fine_smooth_it is None else int(fine_smooth_it),
+            fine_presmooth=True if fine_presmooth is None else bool(fine_presmooth))
+        self.device = torch.device(device)
+        self.state = init_state(self.cfg, nu, self.device, u0)
+        self.dt = [float(dt)]           # host-side Δt history (`Flow.jl:127`)
+        self.pois_n: list[int] = []     # pressure iterations per projection
+
+    @property
+    def u(self):
+        return self.state.u
+
+    @property
+    def p(self):
+        return self.state.p
+
+    @property
+    def mu0(self):
+        return self.state.mu0
+
+    @property
+    def V(self):
+        return self.state.V
+
+    @property
+    def nu(self):
+        return float(self.state.nu)
+
+    @property
+    def time(self) -> float:
+        """Current flow time = sum(dt[:-1]) (`time`, `Flow.jl:174`)."""
+        return float(sum(self.dt[:-1]))
