@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,19 +8,24 @@ Phases (each prints its own lines; any failure exits non-zero):
 1. the card (``nvidia-smi`` name and power limit) and the toolchain;
 2. build the CUDA kernels of ``waterlily_tpu_torch/csrc`` with ``nvcc``;
 3. each kernel against its plain PyTorch version in float32 on random inputs
-   at the shapes the main path gives it (258³ fine level, 130³ and 18³ MG
-   levels, a non-cubic (50, 34, 34)), and the median time of each at 258³;
-4. the main path at full width: the 256³ static sphere of ``bench.py``
+   at the shapes the main paths give it (258³ fine level, 130³ and 18³ MG
+   levels, a non-cubic (50, 34, 34)), and the median time of each case at
+   258³;
+4. both engines at full width: the 256³ static sphere of ``bench.py``
    (radius N/8, ν = radius/1e3, float32, the library's solver defaults),
    built with ``Simulation`` and stepped 10 times with
-   ``sim_step(remeasure=False)``; the launch counts of that run show it went
-   through every kernel;
-5. the same slice with the kernels against the slice with ``plain_ops()``
-   on a 64³ sphere, 5 steps.
+   ``sim_step(remeasure=False)``, first with ``engine="flat"`` (the fused
+   engine, what ``"auto"`` picks on CUDA), then with ``engine="3d"``.  The
+   launch counts of each run show it went through its own kernel set, and
+   the two runs together launch all eight kernels;
+5. on a 64³ sphere, 5 steps: the flat engine with the kernels (built with
+   ``engine="auto"``) against the flat engine with ``plain_ops()``, and
+   against the 3d engine with the kernels.
 
-Before its last line it prints one JSON object with each kernel's launches,
-error and times, and the card's name and power limit; the last line is
-``{"ok": true, "device": {...}}``.  Needs no JAX and no network.
+Before its last line it prints one JSON object with each kernel's launches
+(summed over the two phase-4 runs), error and times, and the card's name
+and power limit; the last line is ``{"ok": true, "device": {...}}``.  Needs
+no JAX and no network.
 """
 from __future__ import annotations
 
@@ -32,14 +37,28 @@ import time
 
 SEED = 0
 FINE = 256
-TOL = {"conv_diff_k": 2e-5, "bdim_k": 2e-5, "mult_k": 1e-5, "gs_incr_k": 1e-5}
-REPLACES = {
-    "conv_diff_k": "waterlily_tpu/ops/pallas3d.py:274",
-    "bdim_k": "waterlily_tpu/ops/pallas3d.py:372",
-    "mult_k": "waterlily_tpu/ops/pallas3d.py:504",
-    "gs_incr_k": "waterlily_tpu/ops/pallas3d.py:416",
+STEPS = 10
+UBC = (1.0, 0.25, -0.5)      # all three components non-zero for BC! corners
+_STENCIL = "waterlily_tpu_torch/csrc/stencil3d.cu"
+_FUSED = "waterlily_tpu_torch/csrc/fused3d.cu"
+# name: (tolerance relative to max|plain|, CUDA source, TPU kernel replaced)
+KERNELS = {
+    "conv_diff_k": (2e-5, _STENCIL, "waterlily_tpu/ops/pallas3d.py:274"),
+    "bdim_k": (2e-5, _STENCIL, "waterlily_tpu/ops/pallas3d.py:372"),
+    "mult_k": (1e-5, _STENCIL, "waterlily_tpu/ops/pallas3d.py:504"),
+    "gs_incr_k": (1e-5, _STENCIL, "waterlily_tpu/ops/pallas3d.py:416"),
+    "conv_diff_bdim_k": (2e-5, _FUSED, "waterlily_tpu/ops/pallas_flat.py:376"),
+    "incr_gs_k": (1e-5, _FUSED, "waterlily_tpu/ops/pallas_flat.py:896"),
+    "bc_div_k": (1e-6, _FUSED, "waterlily_tpu/ops/pallas_flat.py:1143"),
+    "projbc_k": (1e-5, _FUSED, "waterlily_tpu/ops/pallas_flat.py:1201"),
 }
-SOURCE = "waterlily_tpu_torch/csrc/stencil3d.cu"
+# the kernels each engine launches on the sphere (a body band is set, so the
+# flat engine runs K1 and no K12)
+PATH_KERNELS = {
+    "flat": {"conv_diff_bdim_k", "bdim_k", "mult_k", "gs_incr_k",
+             "incr_gs_k", "bc_div_k", "projbc_k"},
+    "3d": {"conv_diff_k", "bdim_k", "mult_k", "gs_incr_k"},
+}
 
 
 class SmokeError(RuntimeError):
@@ -65,12 +84,18 @@ def nvcc_version(nvcc: str) -> str:
 
 
 # ------------------------------------------------------------ phase 3
-def kernel_cases(torch, np, st, ps, bc_vector, shape, rng, dev):
-    """(kernel name, case label, kernel thunk, plain thunk) at one shape."""
+def kernel_cases(torch, st, fz, ps, bc_vector, shape, rng, dev):
+    """(kernel name, case label, kernel thunk, plain thunk) at one shape.
+    A thunk returns a tensor or a tuple of tensors to compare."""
     f32 = torch.float32
 
     def g(*s):
         return torch.as_tensor(rng.standard_normal(s + shape), dtype=f32, device=dev)
+
+    def zero_ghost(a):
+        out = torch.zeros(shape, dtype=f32, device=dev)
+        out[1:-1, 1:-1, 1:-1] = a[1:-1, 1:-1, 1:-1]
+        return out
 
     u, u0, f, V = g(3), g(3), g(3), 0.1 * g(3)
     mu0, mu1 = g(3).abs(), 0.3 * g(3, 3)
@@ -78,8 +103,7 @@ def kernel_cases(torch, np, st, ps, bc_vector, shape, rng, dev):
                                   device=dev), (0.0,) * 3)
     lev = ps.make_level(L)
     x = g()
-    r = torch.zeros(shape, dtype=f32, device=dev)
-    r[1:-1, 1:-1, 1:-1] = g()[1:-1, 1:-1, 1:-1]
+    r, eps = zero_ghost(g()), zero_ghost(0.3 * g())
     nu = torch.tensor(0.03, dtype=f32, device=dev)
     cases = []
     for sid, scheme in enumerate(st.SCHEMES):
@@ -94,6 +118,34 @@ def kernel_cases(torch, np, st, ps, bc_vector, shape, rng, dev):
         cases.append(("gs_incr_k", str(cols),
                       lambda cols=cols: st.gs_incr_k(x, r, lev.L, lev.D, lev.iD, cols, 0.9),
                       lambda cols=cols: st.gs_incr_plain(x, r, lev.L, lev.D, lev.iD, cols, 0.9)))
+    # K1 with a body slab in the middle third of x: u_new everywhere, f on
+    # the slab only (its other rows are never written)
+    lo, hi = shape[0] // 3, 2 * shape[0] // 3
+    for kb, sc in ((0.0, 1.0), (1.0, 0.5)):
+        def k1(kb=kb, sc=sc):
+            un, fk = fz.conv_diff_bdim_k(u, u0, nu, 0.3, kb, sc, 0, (lo, hi))
+            return un, fk[:, lo:hi]
+
+        def p1(kb=kb, sc=sc):
+            un, fp = fz.conv_diff_bdim_plain(u, u0, nu, 0.3, kb, sc, st.quick)
+            return un, fp[:, lo:hi]
+        cases.append(("conv_diff_bdim_k", f"kb={kb:g},s={sc:g}", k1, p1))
+    # K7 (K6 with no colours) with its norms, each compared on its own scale
+    for cols in ([0, 1, 0, 1], []):
+        def k7(cols=cols):
+            xo, ro, nv = fz.incr_gs_k(x, r, eps, lev.L, lev.D, lev.iD, cols, 0.9, True)
+            return xo, ro, nv[0:1], nv[1:2]
+
+        def p7(cols=cols):
+            xo, ro, nv = fz.incr_gs_plain(x, r, eps, lev.L, lev.D, lev.iD, cols, 0.9, True)
+            return xo, ro, nv[0:1], nv[1:2]
+        cases.append(("incr_gs_k", str(cols), k7, p7))
+    cases.append(("bc_div_k", "", lambda: fz.bc_div_k(u, UBC),
+                  lambda: fz.bc_div_plain(u, UBC)))
+    for cfl in (False, True):
+        cases.append(("projbc_k", f"cfl={cfl}",
+                      lambda cfl=cfl: fz.projbc_k(u, x, lev.L, UBC, cfl),
+                      lambda cfl=cfl: fz.projbc_plain(u, x, lev.L, UBC, cfl)))
     return cases
 
 
@@ -115,7 +167,8 @@ def median_ms(torch, fn, launches: int, runs: int = 5) -> float:
     return statistics.median(times)
 
 
-def phase_kernels(torch, np, wt, dev):
+def phase_kernels(torch, np, dev):
+    from waterlily_tpu_torch.ops import fused3d as fz
     from waterlily_tpu_torch.ops import poisson as ps
     from waterlily_tpu_torch.ops import stencil3d as st
     from waterlily_tpu_torch.ops.bc import bc_vector
@@ -123,44 +176,39 @@ def phase_kernels(torch, np, wt, dev):
     rng = np.random.default_rng(SEED)
     fine = (FINE + 2,) * 3
     shapes = [fine, (130,) * 3, (18,) * 3, (50, 34, 34)]
-    stats = {k: {"max_abs_err": 0.0, "ms": None, "plain_ms": None} for k in TOL}
+    stats = {k: {"max_abs_err": 0.0, "ms": None, "plain_ms": None} for k in KERNELS}
+    seen = set()
     for shape in shapes:
-        for name, label, kern, plain in kernel_cases(torch, np, st, ps,
-                                                     bc_vector, shape, rng, dev):
+        for name, label, kern, plain in kernel_cases(torch, st, fz, ps, bc_vector,
+                                                     shape, rng, dev):
+            seen.add(name)
+            tol = KERNELS[name][0]
             got, want = kern(), plain()
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
             torch.cuda.synchronize()
-            for a, b in zip(got, want):
+            check(len(got) == len(want), f"{name} {label}: output count differs")
+            for k, (a, b) in enumerate(zip(got, want)):
                 check(bool(torch.isfinite(a).all()), f"{name} {label} {shape}: non-finite")
                 err = (a - b).abs().max().item()
                 scale = max(b.abs().max().item(), 1e-30)
                 rel = err / scale
-                print(f"phase3 {name:12s} {label:12s} {str(shape):16s} "
-                      f"max|d|={err:.3e} rel={rel:.3e} tol={TOL[name]:.0e}",
-                      flush=True)
-                check(rel <= TOL[name], f"{name} {label} at {shape}: relative "
-                      f"error {rel:.3e} > {TOL[name]:.0e}")
+                print(f"phase3 {name:16s} {label:14s} {str(shape):16s} out{k} "
+                      f"max|d|={err:.3e} rel={rel:.3e} tol={tol:.0e}", flush=True)
+                check(rel <= tol, f"{name} {label} at {shape} output {k}: "
+                      f"relative error {rel:.3e} > {tol:.0e}")
                 stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
-            if shape == fine and stats[name]["ms"] is None:
-                # time the first case of each kernel at the fine level
-                # (conv_diff: quick; gs_incr: Jacobi, the fine pre-smooth)
-                stats[name]["ms"] = median_ms(torch, kern, 20)
-                stats[name]["plain_ms"] = median_ms(torch, plain, 4)
-                print(f"phase3 time {name:12s} {label:12s} at {shape}: kernel "
-                      f"{stats[name]['ms']:.4f} ms, plain "
-                      f"{stats[name]['plain_ms']:.4f} ms per call", flush=True)
             del got, want
+            if shape == fine:
+                ms, pms = median_ms(torch, kern, 20), median_ms(torch, plain, 4)
+                print(f"phase3 time {name:16s} {label:14s} at {shape}: kernel "
+                      f"{ms:.4f} ms, plain {pms:.4f} ms per call", flush=True)
+                if stats[name]["ms"] is None:
+                    # the JSON keeps the first case of each kernel (conv_diff:
+                    # quick; gs_incr: Jacobi; K1: predictor; K7: 4 colours)
+                    stats[name]["ms"], stats[name]["plain_ms"] = ms, pms
         torch.cuda.empty_cache()
-    # the fine smoother with the default 4 colours, for the record
-    lev_rng = np.random.default_rng(SEED + 1)
-    cases = kernel_cases(torch, np, st, ps, bc_vector, fine, lev_rng, dev)
-    name, label, kern, plain = [c for c in cases if c[1] == "[0, 1, 0, 1]"][0]
-    k4, p4 = median_ms(torch, kern, 20), median_ms(torch, plain, 4)
-    print(f"phase3 time gs_incr_k    [0, 1, 0, 1] at {fine}: kernel {k4:.4f} ms, "
-          f"plain {p4:.4f} ms per call", flush=True)
-    del cases
-    torch.cuda.empty_cache()
+    check(seen == set(KERNELS), f"phase3: kernels without a case: {set(KERNELS) - seen}")
     return stats
 
 
@@ -173,20 +221,25 @@ def sphere_sim(torch, wt, n: int, dev, **kw):
                          body=body, dtype=torch.float32, device=dev, **kw)
 
 
-def phase_main(torch, wt, st, dev):
+def phase_main(torch, wt, st, dev, engine: str):
+    """One engine's run of the 256³ sphere, with its own launch counts."""
+    tag = f"phase4 [{engine}]"
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     st.reset_launch_counts()
     t0 = time.perf_counter()
-    sim = sphere_sim(torch, wt, FINE, dev)
+    sim = sphere_sim(torch, wt, FINE, dev, engine=engine)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     build_peak = torch.cuda.max_memory_allocated()
-    print(f"phase4 build {FINE}^3: {build_s:.2f} s, levels "
-          f"{[tuple(l.D.shape) for l in sim.levels]}, peak during build "
+    check(sim.engine == engine, f"{tag}: Simulation runs engine {sim.engine}")
+    print(f"{tag} build {FINE}^3: {build_s:.2f} s, levels "
+          f"{[tuple(l.D.shape) for l in sim.levels]}, band_x "
+          f"{sim.flow.cfg.band_x}, peak during build "
           f"{build_peak / 2**30:.3f} GiB", flush=True)
     events = []
-    for k in range(10):
+    for _ in range(STEPS):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -200,58 +253,68 @@ def phase_main(torch, wt, st, dev):
     peak = torch.cuda.max_memory_allocated()
     u, p = sim.flow.u, sim.flow.p
     itmx = sim.flow.cfg.itmx
-    print(f"phase4 ms/step (steps 3-10, mean) {ms_step:.3f}; per step "
+    print(f"{tag} ms/step (steps 3-{STEPS}, mean) {ms_step:.3f}; per step "
           f"{[round(t, 3) for t in step_ms]}", flush=True)
-    print(f"phase4 pois_n {sim.pois_n}; dt {[round(d, 5) for d in sim.flow.dt]}",
+    print(f"{tag} pois_n {sim.pois_n}; dt {[round(d, 5) for d in sim.flow.dt]}",
           flush=True)
-    print(f"phase4 max_memory_allocated {peak} B ({peak / 2**30:.3f} GiB)", flush=True)
-    print(f"phase4 launch counts {counts}", flush=True)
+    print(f"{tag} max_memory_allocated {peak} B ({peak / 2**30:.3f} GiB)", flush=True)
+    print(f"{tag} launch counts {counts}; wrapper calls per step "
+          f"{sum(counts.values()) / STEPS:.1f}", flush=True)
     check(tuple(u.shape) == (3,) + (FINE + 2,) * 3 and tuple(p.shape) == (FINE + 2,) * 3,
-          "phase4: wrong field shapes")
+          f"{tag}: wrong field shapes")
     check(bool(torch.isfinite(u).all()) and bool(torch.isfinite(p).all()),
-          "phase4: u or p not finite")
-    check(all(0.0 < d <= 10.0 for d in sim.flow.dt), "phase4: dt out of (0, 10]")
-    check(len(sim.pois_n) == 20 and all(1 <= n <= itmx for n in sim.pois_n),
-          f"phase4: a pressure solve left [1, itmx={itmx}]: {sim.pois_n}")
-    pmean = sim.flow.p[1:-1, 1:-1, 1:-1][sim.levels[0].iD[1:-1, 1:-1, 1:-1] != 0].mean().item()
-    print(f"phase4 pressure mean over active cells {pmean:.3e}", flush=True)
+          f"{tag}: u or p not finite")
+    check(all(0.0 < d <= 10.0 for d in sim.flow.dt), f"{tag}: dt out of (0, 10]")
+    check(len(sim.pois_n) == 2 * STEPS and all(1 <= n <= itmx for n in sim.pois_n),
+          f"{tag}: a pressure solve left [1, itmx={itmx}]: {sim.pois_n}")
+    pmean = p[1:-1, 1:-1, 1:-1][sim.levels[0].iD[1:-1, 1:-1, 1:-1] != 0].mean().item()
+    print(f"{tag} pressure mean over active cells {pmean:.3e}", flush=True)
     check(abs(pmean) < 1e-3 * max(p.abs().max().item(), 1.0),
-          "phase4: pressure gauge not pinned")
+          f"{tag}: pressure gauge not pinned")
     for k, n in counts.items():
-        check(n > 0, f"phase4: kernel {k} was not launched by the main path")
+        if k in PATH_KERNELS[engine]:
+            check(n > 0, f"{tag}: kernel {k} was not launched")
+        else:
+            check(n == 0, f"{tag}: kernel {k} of the other engine was launched")
+    del sim, u, p
     return dict(counts=counts, ms_step=ms_step, step_ms=step_ms, peak=peak,
-                build_s=build_s, pois_n=list(sim.pois_n))
+                build_s=build_s)
 
 
 def phase_compare(torch, wt, st, dev):
     n = 64
     sims = {}
-    for mode in ("kernels", "plain"):
-        sim = sphere_sim(torch, wt, n, dev)
-        if mode == "plain":
+    for mode in ("flat", "flat-plain", "3d"):
+        if mode == "flat":
+            sim = sphere_sim(torch, wt, n, dev)              # engine="auto"
+            check(sim.engine == "flat", f"phase5: auto picked {sim.engine} on CUDA")
+        else:
+            sim = sphere_sim(torch, wt, n, dev, engine=mode.split("-")[0])
+        if mode == "flat-plain":
             with st.plain_ops():
                 sim.sim_step_n(5)
         else:
             sim.sim_step_n(5)
         torch.cuda.synchronize()
         sims[mode] = sim
-    k, pl = sims["kernels"], sims["plain"]
-    du = (k.flow.u - pl.flow.u).abs().max().item()
-    dp = (k.flow.p - pl.flow.p).abs().max().item()
-    su = pl.flow.u.abs().max().item()
-    sp = pl.flow.p.abs().max().item()
-    print(f"phase5 {n}^3 5 steps: pois_n kernels {k.pois_n} plain {pl.pois_n}",
-          flush=True)
-    print(f"phase5 max|du|={du:.3e} (tol {1e-4 * su:.3e}), max|dp|={dp:.3e} "
-          f"(tol {1e-3 * sp:.3e})", flush=True)
-    check(len(k.pois_n) == len(pl.pois_n) and all(
-        abs(a - b) <= 1 for a, b in zip(k.pois_n, pl.pois_n)),
-        "phase5: iteration counts differ by more than one")
-    check(du <= 1e-4 * su, "phase5: u differs from the plain path")
-    check(dp <= 1e-3 * sp, "phase5: p differs from the plain path")
+    k = sims["flat"]
+    for other in ("flat-plain", "3d"):
+        o = sims[other]
+        du = (k.flow.u - o.flow.u).abs().max().item()
+        dp = (k.flow.p - o.flow.p).abs().max().item()
+        su, sp = o.flow.u.abs().max().item(), o.flow.p.abs().max().item()
+        print(f"phase5 {n}^3 5 steps, flat vs {other}: pois_n {k.pois_n} vs "
+              f"{o.pois_n}; max|du|={du:.3e} (tol {1e-4 * su:.3e}), "
+              f"max|dp|={dp:.3e} (tol {1e-3 * sp:.3e})", flush=True)
+        check(len(k.pois_n) == len(o.pois_n) and all(
+            abs(a - b) <= 1 for a, b in zip(k.pois_n, o.pois_n)),
+            f"phase5: iteration counts of flat and {other} differ by more than one")
+        check(du <= 1e-4 * su, f"phase5: u of flat differs from {other}")
+        check(dp <= 1e-3 * sp, f"phase5: p of flat differs from {other}")
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import numpy as np
     import torch
 
@@ -278,14 +341,18 @@ def main() -> int:
     print(f"phase2 nvcc build + load {time.perf_counter() - t0:.2f} s "
           f"({_build.build_info['path']})", flush=True)
 
-    stats = phase_kernels(torch, np, wt, dev)
-    main_run = phase_main(torch, wt, st, dev)
+    stats = phase_kernels(torch, np, dev)
+    runs = {e: phase_main(torch, wt, st, dev, e) for e in ("flat", "3d")}
+    launches = {k: sum(r["counts"][k] for r in runs.values()) for k in KERNELS}
+    check(all(n > 0 for n in launches.values()),
+          f"phase4: a kernel was launched by neither engine: {launches}")
     phase_compare(torch, wt, st, dev)
 
-    kernels = [{"name": k, "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES[k], "launches": main_run["counts"][k],
-                "max_abs_err": stats[k]["max_abs_err"], "ms": stats[k]["ms"],
-                "plain_ms": stats[k]["plain_ms"]} for k in TOL]
+    kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
+                "launches": launches[k], "max_abs_err": stats[k]["max_abs_err"],
+                "ms": stats[k]["ms"], "plain_ms": stats[k]["plain_ms"]}
+               for k, (_, src, rep) in KERNELS.items()]
+    print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,432 @@
+// Fused kernels of the flat engine (engine="flat"), on the dense layout, for
+// Hopper (sm_90a).  Plain C interface, loaded with ctypes by
+// waterlily_tpu_torch/ops/_build.py; every entry launches on the stream it is
+// given, allocates nothing, and returns cudaGetLastError().
+//
+// Layout, indexing and thread shape: see stencil_common.cuh.  The TPU
+// kernels these replace (waterlily_tpu/ops/pallas_flat.py) run on the (x,
+// y*z) lane layout; here the same formulas run one thread per cell on dense
+// (nx, ny, nz) fields.
+//
+// What bounds them on an H100 (3.35 TB/s HBM3): all do < 1 flop per byte,
+// so each is bound by memory traffic; the bytes each must move per cell are
+// given beside it (floor = bytes x cells / 3.35 TB/s).  The stencil reuse is
+// left to L1/L2 as in stencil3d.cu.  Reductions are deterministic: per-block
+// partials in a fixed tree order, then one block that folds them (a float
+// atomicAdd would change the L1 norm, and with it the iteration count, from
+// run to run); the CFL max is an integer atomicMax on the bits of a
+// non-negative float, which is order-free.
+
+#include "stencil_common.cuh"
+
+namespace {
+
+constexpr int NT = BZ * BY;  // threads per block
+constexpr int RT = 1024;     // threads of the final reduction block
+
+// ------------------------------------------------------------ reductions
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_down_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Sum and max of (s, m) over the block, in a fixed order; the result is in
+// thread 0.  `nthreads` is a multiple of 32, at most 1024.
+__device__ __forceinline__ void block_sum_max(float& s, float& m,
+                                              int nthreads) {
+  __shared__ float ws[32], wm[32];
+  int t = threadIdx.x + blockDim.x * threadIdx.y;
+  int lane = t & 31, warp = t >> 5, nw = nthreads >> 5;
+  s = warp_sum(s);
+  m = warp_max(m);
+  if (lane == 0) {
+    ws[warp] = s;
+    wm[warp] = m;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    s = lane < nw ? ws[lane] : 0.f;
+    m = lane < nw ? wm[lane] : 0.f;
+    s = warp_sum(s);
+    m = warp_max(m);
+  }
+}
+
+__device__ __forceinline__ int64_t block_linear() {
+  return blockIdx.x + (int64_t)gridDim.x * (blockIdx.y + (int64_t)gridDim.y *
+                                                             blockIdx.z);
+}
+
+// out[0] = sum of partials[0, n), out[1] = max of partials[n, 2n): each
+// thread folds a fixed stride of the partials, then the block tree.
+__global__ void fold_partials_kernel(const float* __restrict__ partials,
+                                     int64_t n, float* __restrict__ out) {
+  float s = 0.f, m = 0.f;
+  for (int64_t k = threadIdx.x; k < n; k += RT) {
+    s += partials[k];
+    m = fmaxf(m, partials[n + k]);
+  }
+  block_sum_max(s, m, RT);
+  if (threadIdx.x == 0) {
+    out[0] = s;
+    out[1] = m;
+  }
+}
+
+// ------------------------------------------------------------ K1
+// Replaces waterlily_tpu/ops/pallas_flat.py:376 conv_diff_k in its fused
+// mode (cheap=(u0, dt, keep_base, scale), f_rows): the conv-diff RHS
+//   f_i = sum_j phi - phi(+e_j)   on interior cells, 0 on ghosts
+// (the flat engine's ghost rule, models/flowflat.py:81 -- not K12's, which
+// defines f at ghosts), and the far-field BDIM + interior scale
+//   u_new_i = scale (keep_base u_i + mm_i (u0_i + dt f_i))   interior
+//           = u_i                                            ghosts
+// with mm_i zero on component i's face-1 plane (pallas_flat.py:573-585).
+// f is written only on x rows [f_lo, f_hi): the caller reads it on the body
+// slab alone.  Bytes: reads u (3), u0 (3), writes u_new (3), f (3): 48
+// B/cell, 0.25 ms at 258^3 at the HBM roofline; like K12 each thread
+// recomputes its 6 fluxes from cached reads.
+template <int SCHEME>
+__global__ void conv_diff_bdim_kernel(const float* __restrict__ u,
+                                      const float* __restrict__ u0,
+                                      const float* __restrict__ nu_ptr,
+                                      float dt, float keep_base, float scale,
+                                      int f_lo, int f_hi,
+                                      float* __restrict__ u_new,
+                                      float* __restrict__ f, Grid3 g) {
+  int z = blockIdx.x * BZ + threadIdx.x;
+  int y = blockIdx.y * BY + threadIdx.y;
+  int i = blockIdx.z / g.nx;
+  int x = blockIdx.z - i * g.nx;
+  if (z >= g.nz || y >= g.ny) return;
+  int64_t ci = (int64_t)i * g.n + at(g, x, y, z);
+  bool m = interior(g, x, y, z);
+  float fi = m ? conv_diff_at<SCHEME>(u, g, *nu_ptr, i, x, y, z) : 0.f;
+  if (x >= f_lo && x < f_hi) f[ci] = fi;
+  float ui = u[ci];
+  if (m) {
+    int face = i == 0 ? x : (i == 1 ? y : z);
+    float mm = face == 1 ? 0.f : 1.f;
+    ui = scale * (keep_base * ui + mm * (u0[ci] + dt * fi));
+  }
+  u_new[ci] = ui;
+}
+
+// ------------------------------------------------------------ BC!
+// The BC! update (ops/bc.py bc_vector, src/core.jl:199-224) is a sequence of
+// where-steps over directions j = x, y, z: Dirichlet U on the ghost slabs
+// and the first interior face of the normal component, copies of the
+// neighbour slab into the ghost slabs of the tangential ones.  A corner or
+// edge ghost reads what an earlier step wrote elsewhere, so one thread per
+// cell composes the index map: undo the steps last-first.  Returns true when
+// a step wrote U at (x, y, z); otherwise moves (x, y, z) to the cell whose
+// pre-BC value lands there.
+__device__ __forceinline__ bool bc_source(const Grid3& g, int i, int& x,
+                                          int& y, int& z) {
+  if (i == 2) {
+    if (z == 0 || z == 1 || z == g.nz - 1) return true;
+  } else if (z == 0) {
+    z = 1;
+  } else if (z == g.nz - 1) {
+    z = g.nz - 2;
+  }
+  if (i == 1) {
+    if (y == 0 || y == 1 || y == g.ny - 1) return true;
+  } else if (y == 0) {
+    y = 1;
+  } else if (y == g.ny - 1) {
+    y = g.ny - 2;
+  }
+  if (i == 0) {
+    if (x == 0 || x == 1 || x == g.nx - 1) return true;
+  } else if (x == 0) {
+    x = 1;
+  } else if (x == g.nx - 1) {
+    x = g.nx - 2;
+  }
+  return false;
+}
+
+struct Ubc {
+  float v[3];
+};
+
+// BC'd value of component i at (x, y, z)
+__device__ __forceinline__ float bc_value(const float* __restrict__ u,
+                                          const Ubc& U, const Grid3& g, int i,
+                                          int x, int y, int z) {
+  if (bc_source(g, i, x, y, z)) return U.v[i];
+  return u[(int64_t)i * g.n + at(g, x, y, z)];
+}
+
+// ------------------------------------------------------------ K8
+// Replaces waterlily_tpu/ops/pallas_flat.py:1143 bc_div_k (with the x ghost
+// rows of _bc_ghost_rows, :1107, in-kernel): u_bc = BC!(u) and
+//   div = sum_i u_bc_i(+e_i) - u_bc_i   on interior cells, 0 on ghosts.
+// Bytes: reads u (3), writes u_bc (3) and div: 28 B/cell, 0.14 ms at 258^3
+// at the HBM roofline.
+__global__ void bc_div_kernel(const float* __restrict__ u, Ubc U,
+                              float* __restrict__ u_bc,
+                              float* __restrict__ div, Grid3 g) {
+  int z = blockIdx.x * BZ + threadIdx.x;
+  int y = blockIdx.y * BY + threadIdx.y;
+  int x = blockIdx.z;
+  if (z >= g.nz || y >= g.ny) return;
+  int64_t c = at(g, x, y, z);
+  bool m = interior(g, x, y, z);
+  float s = 0.f;
+  for (int i = 0; i < 3; ++i) {
+    float v = bc_value(u, U, g, i, x, y, z);
+    u_bc[(int64_t)i * g.n + c] = v;
+    if (m) {
+      int p[3] = {x, y, z};
+      p[i] += 1;
+      s = s + (bc_value(u, U, g, i, p[0], p[1], p[2]) - v);
+    }
+  }
+  div[c] = s;
+}
+
+// ------------------------------------------------------------ K9
+// Replaces waterlily_tpu/ops/pallas_flat.py:1201 projbc_k (+ _proj_row,
+// :1188): u_i -= L_i (x - x(-e_i)) on interior cells, then BC!, then with
+// want_cfl the CFL summand
+//   s = sum_i max(0, u_i(+e_i)) + max(0, -u_i)
+// maxed over the interior into *smax (atomicMax on the float bits; s >= 0).
+// A ghost thread recomputes the projected value at its BC source cell (the
+// x ghost rows copy the projected neighbour row, as _proj_row does).
+// Bytes: reads u (3), x, L (3), writes u (3): 40 B/cell, 0.21 ms at 258^3
+// at the HBM roofline.
+__device__ __forceinline__ float proj_value(const float* __restrict__ u,
+                                            const float* __restrict__ xp,
+                                            const float* __restrict__ L,
+                                            const Ubc& U, const Grid3& g,
+                                            int i, int x, int y, int z) {
+  if (bc_source(g, i, x, y, z)) return U.v[i];
+  int64_t c = at(g, x, y, z);
+  float v = u[(int64_t)i * g.n + c];
+  if (interior(g, x, y, z))
+    v = v - L[(int64_t)i * g.n + c] * (xp[c] - xp[c - stride(g, i)]);
+  return v;
+}
+
+template <bool CFL>
+__global__ void projbc_kernel(const float* __restrict__ u,
+                              const float* __restrict__ xp,
+                              const float* __restrict__ L, Ubc U,
+                              float* __restrict__ u_out,
+                              float* __restrict__ smax, Grid3 g) {
+  int z = blockIdx.x * BZ + threadIdx.x;
+  int y = blockIdx.y * BY + threadIdx.y;
+  int x = blockIdx.z;
+  bool valid = z < g.nz && y < g.ny;
+  float s = 0.f;
+  if (valid) {
+    int64_t c = at(g, x, y, z);
+    bool m = interior(g, x, y, z);
+    for (int i = 0; i < 3; ++i) {
+      float v = proj_value(u, xp, L, U, g, i, x, y, z);
+      u_out[(int64_t)i * g.n + c] = v;
+      if (CFL && m) {
+        int p[3] = {x, y, z};
+        p[i] += 1;
+        float up = proj_value(u, xp, L, U, g, i, p[0], p[1], p[2]);
+        s = s + fmaxf(up, 0.f) + fmaxf(-v, 0.f);
+      }
+    }
+  }
+  if (CFL) {
+    float unused = 0.f;
+    block_sum_max(unused, s, NT);
+    if (threadIdx.x == 0 && threadIdx.y == 0)
+      atomicMax(reinterpret_cast<int*>(smax), __float_as_int(s));
+  }
+}
+
+// ------------------------------------------------------------ K6 / K7
+// Replaces waterlily_tpu/ops/pallas_flat.py:896 incr_gs (the fused fine
+// tail of each MG iteration) and, with no colours, :1307 increment_k:
+//   r1 = r - w A eps;  e = RB sweeps of r1 (e = r1 iD, then each colour);
+//   x' = x + w (eps + e);  r' = r1 - w A e          (interior cells)
+// with no colours: x' = x + w eps, r' = r - w A eps.  Ghosts keep x and r.
+// With norms it also reduces (sum |r'|, max |r'|) over every cell.
+// Launches: a head pass (r1 into r_out, e), K15's colour sweep per colour,
+// a tail pass (x', r' and the per-block norm partials), the fold of the
+// partials; the TPU kernel's communication-avoiding cascade (halo it+1)
+// exists for VMEM windows and is later work here.  Bytes with 4 colours:
+// head 36, sweeps 4 x 26, tail 40: ~180 B/cell, 0.92 ms at 258^3; with no
+// colours one tail pass of 32 B/cell, 0.16 ms.
+__global__ void incr_head_kernel(const float* __restrict__ r,
+                                 const float* __restrict__ eps,
+                                 const float* __restrict__ L,
+                                 const float* __restrict__ D,
+                                 const float* __restrict__ iD, float omega,
+                                 float* __restrict__ r1,
+                                 float* __restrict__ e, Grid3 g) {
+  int z = blockIdx.x * BZ + threadIdx.x;
+  int y = blockIdx.y * BY + threadIdx.y;
+  int x = blockIdx.z;
+  if (z >= g.nz || y >= g.ny) return;
+  int64_t c = at(g, x, y, z);
+  float rv = r[c], ev = 0.f;
+  if (interior(g, x, y, z)) {
+    rv = rv - omega * apply_A(eps, L, D, g, c);
+    ev = rv * iD[c];
+  }
+  r1[c] = rv;
+  e[c] = ev;
+}
+
+// rin may alias r_out: each thread reads rin at its own cell only, before it
+// writes r_out there.  e == nullptr: the increment alone.
+template <bool NORMS>
+__global__ void incr_tail_kernel(const float* __restrict__ x,
+                                 const float* rin,
+                                 const float* __restrict__ eps,
+                                 const float* __restrict__ e,
+                                 const float* __restrict__ L,
+                                 const float* __restrict__ D, float omega,
+                                 float* __restrict__ x_out, float* r_out,
+                                 float* __restrict__ partials, Grid3 g) {
+  int z = blockIdx.x * BZ + threadIdx.x;
+  int y = blockIdx.y * BY + threadIdx.y;
+  int xi = blockIdx.z;
+  float a = 0.f;
+  if (z < g.nz && y < g.ny) {
+    int64_t c = at(g, xi, y, z);
+    float xv = x[c], rv = rin[c];
+    if (interior(g, xi, y, z)) {
+      if (e != nullptr) {
+        xv = xv + omega * (eps[c] + e[c]);
+        rv = rv - omega * apply_A(e, L, D, g, c);
+      } else {
+        xv = xv + omega * eps[c];
+        rv = rv - omega * apply_A(eps, L, D, g, c);
+      }
+    }
+    x_out[c] = xv;
+    r_out[c] = rv;
+    a = fabsf(rv);
+  }
+  if (NORMS) {
+    float m = a;
+    block_sum_max(a, m, NT);
+    if (threadIdx.x == 0 && threadIdx.y == 0) {
+      int64_t b = block_linear();
+      int64_t nb = (int64_t)gridDim.x * gridDim.y * gridDim.z;
+      partials[b] = a;
+      partials[nb + b] = m;
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// blocks of the per-cell grid of one scalar field: the length of each half
+// of the norm partials buffer of wlt_incr_gs
+int64_t wlt_reduce_blocks(int64_t nx, int64_t ny, int64_t nz) {
+  dim3 gr = grid_of(make_grid(nx, ny, nz), 1);
+  return (int64_t)gr.x * gr.y * gr.z;
+}
+
+int wlt_conv_diff_bdim(const float* u, const float* u0, const float* nu,
+                       float dt, float keep_base, float scale, int f_lo,
+                       int f_hi, float* u_new, float* f, int64_t nx,
+                       int64_t ny, int64_t nz, int scheme_id, void* stream) {
+  Grid3 g = make_grid(nx, ny, nz);
+  dim3 block(BZ, BY);
+  dim3 grid = grid_of(g, 3);
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (scheme_id) {
+    case 0:
+      conv_diff_bdim_kernel<0><<<grid, block, 0, s>>>(
+          u, u0, nu, dt, keep_base, scale, f_lo, f_hi, u_new, f, g);
+      break;
+    case 1:
+      conv_diff_bdim_kernel<1><<<grid, block, 0, s>>>(
+          u, u0, nu, dt, keep_base, scale, f_lo, f_hi, u_new, f, g);
+      break;
+    case 2:
+      conv_diff_bdim_kernel<2><<<grid, block, 0, s>>>(
+          u, u0, nu, dt, keep_base, scale, f_lo, f_hi, u_new, f, g);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+int wlt_bc_div(const float* u, float u0, float u1, float u2, float* u_bc,
+               float* div, int64_t nx, int64_t ny, int64_t nz, void* stream) {
+  Grid3 g = make_grid(nx, ny, nz);
+  Ubc U = {{u0, u1, u2}};
+  bc_div_kernel<<<grid_of(g, 1), dim3(BZ, BY), 0, (cudaStream_t)stream>>>(
+      u, U, u_bc, div, g);
+  return (int)cudaGetLastError();
+}
+
+// smax == nullptr: no CFL reduction
+int wlt_projbc(const float* u, const float* xp, const float* L, float u0,
+               float u1, float u2, float* u_out, float* smax, int64_t nx,
+               int64_t ny, int64_t nz, void* stream) {
+  Grid3 g = make_grid(nx, ny, nz);
+  Ubc U = {{u0, u1, u2}};
+  cudaStream_t s = (cudaStream_t)stream;
+  dim3 grid = grid_of(g, 1), block(BZ, BY);
+  if (smax == nullptr) {
+    projbc_kernel<false><<<grid, block, 0, s>>>(u, xp, L, U, u_out, nullptr, g);
+    return (int)cudaGetLastError();
+  }
+  cudaError_t err = cudaMemsetAsync(smax, 0, sizeof(float), s);
+  if (err != cudaSuccess) return (int)err;
+  projbc_kernel<true><<<grid, block, 0, s>>>(u, xp, L, U, u_out, smax, g);
+  return (int)cudaGetLastError();
+}
+
+// e: scratch field (unused with no colours); partials: 2 x
+// wlt_reduce_blocks floats and norms: 2 floats, both nullptr without norms
+int wlt_incr_gs(const float* x, const float* r, const float* eps,
+                const float* L, const float* D, const float* iD, float* e,
+                float* x_out, float* r_out, const int* colors, int ncolors,
+                float omega, float* partials, float* norms, int64_t nx,
+                int64_t ny, int64_t nz, void* stream) {
+  Grid3 g = make_grid(nx, ny, nz);
+  dim3 block(BZ, BY);
+  dim3 grid = grid_of(g, 1);
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
+  const float* rin = r;
+  const float* ep = nullptr;
+  if (ncolors > 0) {
+    incr_head_kernel<<<grid, block, 0, s>>>(r, eps, L, D, iD, omega, r_out, e,
+                                            g);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    for (int k = 0; k < ncolors; ++k) {
+      gs_sweep_kernel<<<grid, block, 0, s>>>(r_out, L, iD, e, colors[k], g);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    }
+    rin = r_out;
+    ep = e;
+  }
+  if (norms == nullptr) {
+    incr_tail_kernel<false><<<grid, block, 0, s>>>(
+        x, rin, eps, ep, L, D, omega, x_out, r_out, nullptr, g);
+    return (int)cudaGetLastError();
+  }
+  incr_tail_kernel<true><<<grid, block, 0, s>>>(x, rin, eps, ep, L, D, omega,
+                                                x_out, r_out, partials, g);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  int64_t nb = (int64_t)grid.x * grid.y * grid.z;
+  fold_partials_kernel<<<1, RT, 0, s>>>(partials, nb, norms);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

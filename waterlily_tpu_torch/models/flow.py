@@ -27,7 +27,8 @@ import torch
 from ..ops import multigrid as mg
 from ..ops import stencil3d as st
 from ..ops.bc import bc_vector, exit_bc
-from ..ops.grid import interior, set_interior, shift, zero_ghost
+from ..ops.fused3d import cfl_max, div_field, proj_correct
+from ..ops.grid import interior, set_interior
 from ..ops.stencil3d import cds, median3, quick, vanleer
 
 __all__ = [
@@ -67,6 +68,10 @@ class FlowCfg:
     smooth_it: int = 4              # MG smoother sweeps (`Poisson.jl:135`)
     fine_smooth_it: int = 0         # fine post-V-cycle sweeps (0 → smooth_it)
     fine_presmooth: bool = True     # fine Jacobi pre-smooth of each V-cycle
+    # x rows [lo, hi) outside which the BDIM moments are the far field (μ0 = 1
+    # but the face-1 planes, μ1 = 0, V = 0): the flat engine runs the full
+    # BDIM on that slab only; set by `Simulation` from the measure
+    band_x: Optional[tuple[int, int]] = None
 
     @property
     def D(self) -> int:
@@ -77,14 +82,6 @@ def scale_interior(u: torch.Tensor, s) -> torch.Tensor:
     """u *= s on interior faces only (`scale_u!`, `Flow.jl:211-214`)."""
     d = u.dim() - 1
     return set_interior(u, interior(u, d) * s, d)
-
-
-def div_field(u: torch.Tensor) -> torch.Tensor:
-    """Cell-centered divergence (`div`, `Flow.jl:17-23`); ghost entries 0."""
-    s = torch.zeros(u.shape[1:], dtype=u.dtype, device=u.device)
-    for i in range(u.shape[0]):
-        s = s + (shift(u[i], i, 1) - u[i])
-    return zero_ghost(s)
 
 
 def conv_diff(u: torch.Tensor, scheme: Callable, nu) -> torch.Tensor:
@@ -118,24 +115,14 @@ def project(u: torch.Tensor, p: torch.Tensor, levels, masks, dt_w: float,
                       fine_smooth_it=cfg.fine_smooth_it,
                       fine_presmooth=cfg.fine_presmooth)
     x = res.x
-    L = levels[0].L
-    u = u.clone()
-    for i in range(cfg.D):
-        gradp = x - shift(x, i, -1)
-        u[i] = u[i] + (-zero_ghost(L[i] * gradp))
-    p = x / dt_w
-    u = bc_vector(u, cfg.ubc)
-    return u, p, res.iters, res.stats
+    u = bc_vector(proj_correct(u, x, levels[0].L), cfg.ubc)
+    return u, x / dt_w, res.iters, res.stats
 
 
 def cfl(u: torch.Tensor, nu, dt_max: float = 10.0) -> torch.Tensor:
     """New time step from the max outflow flux (`CFL`, `Flow.jl:234-244`),
     a 0-d tensor on the device."""
-    s = torch.zeros(u.shape[1:], dtype=u.dtype, device=u.device)
-    for i in range(u.shape[0]):
-        s = s + torch.clamp(shift(u[i], i, 1), min=0.0) + torch.clamp(-u[i], min=0.0)
-    m = torch.max(interior(s))
-    return torch.clamp(1.0 / (m + 5 * nu), max=dt_max)
+    return torch.clamp(1.0 / (cfl_max(u) + 5 * nu), max=dt_max)
 
 
 def _phase(state: FlowState, u_adv, u_into, dt, cfg: FlowCfg):

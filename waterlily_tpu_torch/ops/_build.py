@@ -1,33 +1,38 @@
 """Build and load the CUDA kernels of `csrc/`.
 
-The kernels are compiled on first use with `nvcc` into a shared library with
-a plain C interface (`-gencode arch=compute_90a,code=sm_90a -shared
--Xcompiler -fPIC`), placed in ``build/`` at the repository root and loaded
-with `ctypes`.  The library name carries a hash of the source and flags, so
-an edited source is rebuilt and a stale library is never loaded.  Nothing is
-built or loaded at import time.
+The kernels are compiled on first use with `nvcc`, one process per source,
+all started together (`-gencode arch=compute_90a,code=sm_90a -Xcompiler
+-fPIC -c`), then linked into one shared library with a plain C interface,
+placed in ``build/`` at the repository root and loaded with `ctypes`.  The
+library name carries a hash of every source, the shared header and the
+flags, so a process started after a source was edited rebuilds it and never
+loads a stale library.  Nothing is built or loaded at import time.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["SOURCE", "BUILD_DIR", "nvcc_path", "build", "load"]
+__all__ = ["SOURCES", "BUILD_DIR", "nvcc_path", "build", "load"]
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "stencil3d.cu"
+SOURCES = (_PKG / "csrc" / "stencil3d.cu", _PKG / "csrc" / "fused3d.cu")
+_HEADER = _PKG / "csrc" / "stencil_common.cuh"
 BUILD_DIR = _PKG.parent / "build"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+          "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
+_F = ctypes.c_float
 _SIGNATURES = {
     # name: argtypes (restype is int: a cudaError_t)
     "wlt_conv_diff": [_P, _P, _P, _I64, _I64, _I64, ctypes.c_int, _P],
@@ -37,9 +42,15 @@ _SIGNATURES = {
     "wlt_gs_incr": [_P, _P, _P, _P, _P, _P, _P, _P,
                     ctypes.POINTER(ctypes.c_int), ctypes.c_int,
                     ctypes.c_float, _I64, _I64, _I64, _P],
+    "wlt_conv_diff_bdim": [_P, _P, _P, _F, _F, _F, ctypes.c_int, ctypes.c_int,
+                           _P, _P, _I64, _I64, _I64, ctypes.c_int, _P],
+    "wlt_bc_div": [_P, _F, _F, _F, _P, _P, _I64, _I64, _I64, _P],
+    "wlt_projbc": [_P, _P, _P, _F, _F, _F, _P, _P, _I64, _I64, _I64, _P],
+    "wlt_incr_gs": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                    ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                    _F, _P, _P, _I64, _I64, _I64, _P],
 }
 
-_loaded: dict[str, ctypes.CDLL] = {}
 build_info: dict[str, object] = {}   # path, seconds and ptxas log of the build
 
 
@@ -56,12 +67,22 @@ def nvcc_path() -> str:
 
 
 def _lib_path() -> Path:
-    h = hashlib.sha1(SOURCE.read_bytes() + " ".join(_FLAGS).encode())
-    return BUILD_DIR / f"libstencil3d-{h.hexdigest()[:12]}.so"
+    h = hashlib.sha1(b"".join(p.read_bytes() for p in (*SOURCES, _HEADER))
+                     + " ".join(_FLAGS).encode())
+    return BUILD_DIR / f"libwlt-{h.hexdigest()[:12]}.so"
+
+
+def _run(cmd: list[str]) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    return proc.stdout + proc.stderr
 
 
 def build() -> Path:
-    """Compile `csrc/stencil3d.cu` unless the library for this source is
+    """Compile the sources of `csrc/` (one `nvcc` each, in parallel) and
+    link them into one library, unless the library for these sources is
     already built; returns its path.  Records the time and the compiler's
     register report in `build_info`."""
     out = _lib_path()
@@ -70,35 +91,35 @@ def build() -> Path:
         build_info.setdefault("seconds", 0.0)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run([nvcc_path(), *_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / (src.stem + ".o")) for src in SOURCES]
+        with ThreadPoolExecutor(len(SOURCES)) as pool:
+            logs = list(pool.map(
+                _run, [[nvcc, *_FLAGS, "-c", "-o", o, str(src)]
+                       for src, o in zip(SOURCES, objs)]))
+        lib = str(Path(tmp) / "lib.so")
+        logs.append(_run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                          "-shared", "-o", lib, *objs]))
+        os.replace(lib, out)
     build_info.update(path=str(out), seconds=time.perf_counter() - t0,
-                      log=proc.stdout + proc.stderr)
+                      log="".join(logs))
     return out
 
 
+@functools.cache
 def load() -> ctypes.CDLL:
-    """Build if needed and load the kernel library (once per process)."""
-    path = str(build())
-    lib = _loaded.get(path)
-    if lib is None:
-        lib = ctypes.CDLL(path)
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.wlt_error_string.argtypes = [ctypes.c_int]
-        lib.wlt_error_string.restype = ctypes.c_char_p
-        _loaded[path] = lib
+    """Build if needed and load the kernel library, once per process: every
+    wrapper call goes through here, and hashing the sources from disk on
+    each call would cost the host more than a launch."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.wlt_error_string.argtypes = [ctypes.c_int]
+    lib.wlt_error_string.restype = ctypes.c_char_p
+    lib.wlt_reduce_blocks.argtypes = [_I64, _I64, _I64]
+    lib.wlt_reduce_blocks.restype = _I64
     return lib

@@ -29,7 +29,7 @@ from .poisson import (_inside_ones, coarse_solve, dense_pinv, gauss_seidel_rb,
 __all__ = [
     "divisible", "coarsen_mask", "coarse_shape", "level_shapes",
     "restrict", "prolongate", "restrict_L", "make_mg", "update_mg",
-    "v_cycle", "solve_mg", "canonical_gauge", "MGSolveResult",
+    "v_cycle", "solve_loop", "solve_mg", "canonical_gauge", "MGSolveResult",
     "MIN_COARSE_CELLS",
 ]
 
@@ -168,33 +168,25 @@ class MGSolveResult(NamedTuple):
     stats: list          # per iteration (r_inf, r_1, omega), row 0 = entry
 
 
-def solve_mg(levels, masks, x: torch.Tensor, z: torch.Tensor,
-             tol: float = 2e-3, itmx: int = 32, smooth_it: int = 4,
-             fine_smooth_it: int = 0,
-             fine_presmooth: bool = True) -> MGSolveResult:
-    """Multigrid pressure solve (`solver!`, `MultiLevelPoisson.jl:108-128`):
-    a do-while of V-cycle + fine smooth, adaptive ω ∈ [0.2, 1] (×0.9 when
-    the L1 norm did not drop, ×1.02 when it did) and the dual-norm stop
-    ``L1 < tol/10·N`` ∧ ``Linf < tol``, then `canonical_gauge`."""
-    p = levels[0]
+def solve_loop(p, x: torch.Tensor, z: torch.Tensor, tol: float, itmx: int,
+               iterate) -> MGSolveResult:
+    """The outer iteration of `solver!` (`MultiLevelPoisson.jl:108-128`): a
+    do-while of ``iterate(x, r, omega) -> (x, r, norms)`` (``norms`` the
+    device 2-vector ``(L1, Linf)`` of the new residual, read back once per
+    iteration), adaptive ω ∈ [0.2, 1] (×0.9 when the L1 norm did not drop,
+    ×1.02 when it did) and the dual-norm stop ``L1 < tol/10·N`` ∧
+    ``Linf < tol``, then `canonical_gauge` on the fine level ``p``."""
     npdt = np.dtype(str(x.dtype).replace("torch.", ""))
     r1tol = float(npdt.type((tol / 10.0) * math.prod(n - 2 for n in x.shape)))
     rinf_tol = float(npdt.type(tol))
     r = residual(p, x, z)
-
-    def host_norms(r):
-        return torch.stack(norms(r)).tolist()     # one device→host read
-
-    r1, rinf = host_norms(r)
+    r1, rinf = torch.stack(norms(r)).tolist()     # one device→host read
     omega = npdt.type(1.0)
     stats = [(rinf, r1, float(omega))]
     n = 0
     while n < itmx and (n == 0 or not (r1 < r1tol and rinf < rinf_tol)):
-        x, r = v_cycle(levels, masks, x, r, float(omega), 0, smooth_it,
-                       presmooth=fine_presmooth)
-        x, r = gauss_seidel_rb(p, x, r, it=fine_smooth_it or smooth_it,
-                               omega=float(omega))
-        rnew, rinf = host_norms(r)
+        x, r, nv = iterate(x, r, float(omega))
+        rnew, rinf = nv.tolist()
         if rnew >= r1:
             omega = max(npdt.type(0.2), npdt.type(0.9) * omega)
         else:
@@ -204,6 +196,24 @@ def solve_mg(levels, masks, x: torch.Tensor, z: torch.Tensor,
         stats.append((rinf, r1, float(omega)))
     x = canonical_gauge(x, p.iD)
     return MGSolveResult(x, r, n, stats)
+
+
+def solve_mg(levels, masks, x: torch.Tensor, z: torch.Tensor,
+             tol: float = 2e-3, itmx: int = 32, smooth_it: int = 4,
+             fine_smooth_it: int = 0,
+             fine_presmooth: bool = True) -> MGSolveResult:
+    """Multigrid pressure solve (`solver!`, `MultiLevelPoisson.jl:108-128`):
+    `solve_loop` over a V-cycle plus the fine red-black smooth."""
+    p = levels[0]
+
+    def iterate(x, r, omega):
+        x, r = v_cycle(levels, masks, x, r, omega, 0, smooth_it,
+                       presmooth=fine_presmooth)
+        x, r = gauss_seidel_rb(p, x, r, it=fine_smooth_it or smooth_it,
+                               omega=omega)
+        return x, r, torch.stack(norms(r))
+
+    return solve_loop(p, x, z, tol, itmx, iterate)
 
 
 def canonical_gauge(x: torch.Tensor, iD: torch.Tensor) -> torch.Tensor:

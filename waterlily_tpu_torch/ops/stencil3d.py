@@ -24,7 +24,8 @@ version, a routing by dtype and device as in the JAX `use_pallas`).
 `plain_ops()` forces the plain route on the card so both can be compared.
 
 Each wrapper adds one to its entry in `launch_counts()` per call that
-launches on the card, and nowhere else.
+launches on the card, and nowhere else; the count also holds the four
+kernels of `ops/fused3d.py`.
 
 Unlike the Pallas path, the kernels write every cell with the plain formula:
 `conv_diff_k` defines the ghost rows of ``f`` (read by the BDIM gradient at
@@ -50,7 +51,10 @@ __all__ = [
 ]
 
 _PLAIN = contextvars.ContextVar("waterlily_tpu_torch_plain_ops", default=False)
-_LAUNCHES = {"conv_diff_k": 0, "bdim_k": 0, "mult_k": 0, "gs_incr_k": 0}
+# launches per wrapper, of this module's kernels and of `ops/fused3d.py`'s
+_LAUNCHES = {"conv_diff_k": 0, "bdim_k": 0, "mult_k": 0, "gs_incr_k": 0,
+             "conv_diff_bdim_k": 0, "incr_gs_k": 0, "bc_div_k": 0,
+             "projbc_k": 0}
 
 
 def use_kernels(t: torch.Tensor) -> bool:
@@ -73,7 +77,8 @@ def plain_ops():
 
 
 def launch_counts() -> dict[str, int]:
-    """Calls of each wrapper that launched its kernel on the card."""
+    """Calls of each wrapper (of this module and of `ops/fused3d.py`) that
+    launched its kernel on the card."""
     return dict(_LAUNCHES)
 
 
@@ -211,18 +216,24 @@ def _gauss(r, eps, L, iD):
     return s * iD
 
 
-def gs_incr_plain(x, r, L, D, iD, colors: Sequence[int], omega):
-    """Red-black smoother + increment (`GaussSeidelRB!` + `increment!`,
-    `Poisson.jl:100-148`, non-periodic): ``eps = r·iD`` with zero ghosts;
-    per colour, the interior cells of index-sum parity ``colour`` take
-    `_gauss(eps)`; then ``x += ω·eps`` and ``r −= ω·A·eps``.  ``colors=[]``
-    is the Jacobi smoother (`Jacobi!`, `Poisson.jl:111-114`)."""
+def _rb_sweeps(r, L, iD, colors: Sequence[int]) -> torch.Tensor:
+    """``eps = r·iD`` with zero ghosts; then per colour, the interior cells
+    of index-sum parity ``colour`` take `_gauss(eps)`."""
     eps = zero_ghost(r * iD)
     if colors:
-        parity = index_sum_parity(x.shape, x.device)
-        inside = inside_mask(x.shape, x.device)
+        parity = index_sum_parity(r.shape, r.device)
+        inside = inside_mask(r.shape, r.device)
         for c in colors:
             eps = torch.where((parity == c) & inside, _gauss(r, eps, L, iD), eps)
+    return eps
+
+
+def gs_incr_plain(x, r, L, D, iD, colors: Sequence[int], omega):
+    """Red-black smoother + increment (`GaussSeidelRB!` + `increment!`,
+    `Poisson.jl:100-148`, non-periodic): `_rb_sweeps`, then ``x += ω·eps``
+    and ``r −= ω·A·eps``.  ``colors=[]`` is the Jacobi smoother (`Jacobi!`,
+    `Poisson.jl:111-114`)."""
+    eps = _rb_sweeps(r, L, iD, colors)
     r = r - omega * mult_plain(eps, L, D)
     x = x + omega * zero_ghost(eps)
     return x, r

@@ -9,6 +9,14 @@ reference's `sim_step!` loop at `WaterLily.jl:128-139`).
 Supported: the multigrid solver on non-periodic domains with constant
 boundary velocity, static or moving `AutoBody` geometry re-measured densely.
 `sim_step_n` is a host loop over `step_once`.
+
+Two engines step the flow, as in the JAX package: ``engine="3d"`` runs
+`flow.mom_step_impl` (the generic engine, kernels of `ops/stencil3d.py`),
+``engine="flat"`` runs `flowflat.mom_step_flat_impl` (the fused engine,
+kernels of `ops/fused3d.py`, on the body's x band `cfg.band_x`).
+``engine="auto"`` takes the flat engine on a CUDA device in float32 and 3-D
+(the counterpart of the JAX rule "flat on the TPU") and the 3d engine
+elsewhere.
 """
 from __future__ import annotations
 
@@ -19,10 +27,14 @@ from typing import Callable, Optional
 import torch
 
 from .models import flow as fl
+from .models import flowflat as ff
 from .models.body import Body, NoBody, measure_fill
 from .ops import multigrid as mg
 
 __all__ = ["Simulation", "check_fn"]
+
+ENGINES = ("auto", "flat", "3d")
+_BAND_PAD = 4    # rows of slack around the band (`simulation.py:213`)
 
 
 def check_fn(f, D: int, dtype, nargs: int, name: str) -> None:
@@ -40,6 +52,30 @@ def _as_dtype(v: float, dtype: torch.dtype) -> float:
     return torch.tensor(v, dtype=dtype).item()
 
 
+def _band_box(V: torch.Tensor, mu0: torch.Tensor, mu1: torch.Tensor) -> torch.Tensor:
+    """Per-dim padded-index ``[lo, hi)`` bounds of the interior cells whose
+    BDIM moments deviate from the far field: μ1 = 0, V = 0, and μ0 = 1 but
+    on the face-1 plane of each direction, which the measure-time BC fill
+    zeroes (the JAX `_band_box`, `simulation.py:145-186`, non-periodic, no
+    box).  A ``(D, 2)`` int tensor; dim d reads ``(shape[d], 0)`` when
+    nothing deviates."""
+    D, shape = mu0.shape[0], tuple(mu0.shape[1:])
+    sl = (slice(None),) + tuple(slice(1, n - 1) for n in shape)
+    m0 = mu0[sl]
+    exp = torch.ones_like(m0)
+    for d in range(D):
+        exp[(d,) + (slice(None),) * d + (0,)] = 0.0
+    dev_cell = ((m0 != exp).any(dim=0) | (V[sl] != 0).any(dim=0)
+                | (mu1[(slice(None),) + sl] != 0).flatten(0, 1).any(dim=0))
+    out = []
+    for d in range(D):
+        dev = dev_cell.any(dim=tuple(k for k in range(D) if k != d))
+        ix = torch.arange(1, shape[d] - 1, device=dev.device)
+        out.append(torch.stack([torch.where(dev, ix, shape[d]).min(),
+                                torch.where(dev, ix + 1, 0).max()]))
+    return torch.stack(out)
+
+
 class Simulation:
     """`Simulation(dims, ubc, L; ...)` (`src/WaterLily.jl:36-75`).
 
@@ -49,7 +85,8 @@ class Simulation:
     limiter, ``body`` immersed geometry, ``dtype`` precision and ``device``
     where every tensor lives.  The solver knobs default to the non-TPU
     values of the JAX package: ``smooth_it=4``, ``fine_presmooth=True``, a
-    dense coarse solve below ``min_coarse_cells=64``."""
+    dense coarse solve below ``min_coarse_cells=64``.  ``engine`` picks the
+    stepping engine (module docstring); ``"flat"`` needs D = 3."""
 
     def __init__(self, dims, ubc, L, *, U=None, dt=0.25, nu=0.0,
                  g: Optional[Callable] = None, eps: float = 1.0,
@@ -62,8 +99,10 @@ class Simulation:
                  fine_presmooth: Optional[bool] = None,
                  min_coarse_cells: Optional[int] = None,
                  flow_ctor: Optional[Callable] = None, psolver: str = "mg",
-                 device="cpu"):
+                 engine: str = "auto", device="cpu"):
         D = len(dims)
+        if engine not in ENGINES:
+            raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
         check_fn(ubc, D, dtype, 3, "ubc")
         check_fn(g, D, dtype, 3, "g")
         check_fn(u0, D, dtype, 2, "u0")
@@ -87,10 +126,17 @@ class Simulation:
                             device=self.device)
         self.body = body if body is not None else NoBody()
         self.psolver = psolver
+        cfg = self.flow.cfg
+        if engine == "auto":
+            engine = ("flat" if self.device.type == "cuda"
+                      and dtype == torch.float32 and ff.flat_supported(cfg)
+                      else "3d")
+        if engine == "flat" and not ff.flat_supported(cfg):
+            raise ValueError("engine='flat' needs D=3")
+        self.engine = engine
         self.solver_stats = None   # last step's per-projection residual logs
         self._min_coarse = (mg.MIN_COARSE_CELLS if min_coarse_cells is None
                             else min_coarse_cells)
-        cfg = self.flow.cfg
         self.masks = tuple(mg.level_shapes(cfg.shape,
                                            min_cells=self._min_coarse)[1])
         if isinstance(self.body, NoBody):
@@ -128,6 +174,19 @@ class Simulation:
         self.flow.state = dataclasses.replace(self.flow.state,
                                               V=V, mu0=mu0, mu1=mu1)
         self.levels = mg.update_mg(self.masks, mu0)
+        if self.engine == "flat":
+            self._set_band(_band_box(V, mu0, mu1))
+
+    def _set_band(self, band: torch.Tensor):
+        """Set ``cfg.band_x`` from the raw x bounds of `_band_box` (one host
+        read), padded by `_BAND_PAD` rows and clamped to ``[1, Nx−1]``; no
+        band when nothing deviates (the static part of the JAX `_set_band`,
+        `simulation.py:380-415`)."""
+        cfg = self.flow.cfg
+        lo, hi = band[0].tolist()
+        band_x = (None if hi <= lo else
+                  (max(1, lo - _BAND_PAD), min(cfg.shape[0] - 1, hi + _BAND_PAD)))
+        self.flow.cfg = dataclasses.replace(cfg, band_x=band_x)
 
     def step_once(self, remeasure: bool = True, udf=None):
         """One `mom_step` (+ optional body re-measure) with the host
@@ -140,8 +199,9 @@ class Simulation:
         cfg = self.flow.cfg
         dt = _as_dtype(self.flow.dt[-1], cfg.dtype)
         t0 = _as_dtype(self.time, cfg.dtype)
-        state, dt_next, iters, stats = fl.mom_step_impl(
-            cfg, self.flow.state, self.levels, self.masks, dt, t0)
+        step = ff.mom_step_flat_impl if self.engine == "flat" else fl.mom_step_impl
+        state, dt_next, iters, stats = step(cfg, self.flow.state, self.levels,
+                                            self.masks, dt, t0)
         self.flow.state = state
         self.flow.dt.append(dt_next.item())
         self.flow.pois_n += iters
