@@ -4,10 +4,11 @@ with ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
 (the repository conftest imports JAX).  Elsewhere every test skips.
 
 Tolerances (float32, max |kernel − plain| relative to max |plain|): 2e-5
-for the conv–diff RHS (also fused with the far-field BDIM) and the BDIM
-update, 1e-5 for A·x, the smoothers, the fused tail and its norms and the
-projection + BC (and its CFL max), 1e-6 for BC + divergence (the same
-additions in the same order).
+for the conv–diff RHS (also fused with the far-field BDIM, also periodic)
+and the BDIM update, 1e-5 for A·x, the smoothers and colour sweeps, the
+fused tail and its norms and the projection + BC (and its CFL max, also
+keeping the exit plane), 1e-6 for BC + divergence, BC alone and the
+divergence alone (the same additions in the same order).
 The kernels and the plain versions round in a different order (fused
 multiply-adds in the kernels), nothing more."""
 import numpy as np
@@ -23,6 +24,9 @@ from waterlily_tpu_torch.ops.bc import bc_vector
 pytestmark = pytest.mark.cuda
 
 SHAPES = [(18, 18, 18), (26, 18, 10), (10, 6, 6)]
+# with an odd interior extent: same-colour cells meet across a periodic face
+PER_SHAPES = SHAPES + [(21, 18, 19)]
+PERDIRS = [(0, 1, 2), (2,), (0, 2)]
 
 
 @pytest.fixture
@@ -100,8 +104,10 @@ def test_launch_counts_and_routing(dev):
         assert not st.use_kernels(d["x"])
         ps.mult(lev, d["x"])
     assert st.launch_counts() == {"conv_diff_k": 0, "bdim_k": 0, "mult_k": 1,
-                                  "gs_incr_k": 2, "conv_diff_bdim_k": 0,
-                                  "incr_gs_k": 0, "bc_div_k": 0, "projbc_k": 0}
+                                  "gs_incr_k": 2, "gauss_sweeps_k": 0,
+                                  "conv_diff_bdim_k": 0, "incr_gs_k": 0,
+                                  "bc_div_k": 0, "projbc_k": 0, "bc_k": 0,
+                                  "div_k": 0}
     # float64 on the card takes the plain version; the wrapper refuses it
     assert not st.use_kernels(d["x"].double())
     with pytest.raises(TypeError):
@@ -189,3 +195,99 @@ def test_flat_engine_routing(dev):
     assert n["conv_diff_k"] == 2 and n["conv_diff_bdim_k"] == 0
     assert n["bdim_k"] == 2 and n["projbc_k"] == 2
     assert torch.isfinite(sim.flow.u).all() and torch.isfinite(sim.flow.p).all()
+
+
+@pytest.mark.parametrize("shape", PER_SHAPES)
+@pytest.mark.parametrize("sid", [0, 1, 2], ids=["quick", "vanleer", "cds"])
+@pytest.mark.parametrize("perdir", PERDIRS, ids=["xyz", "z", "xz"])
+def test_conv_diff_k_periodic(dev, shape, sid, perdir):
+    d = inputs(shape, 9, dev)
+    nu = torch.tensor(0.03, device=dev)
+    got = st.conv_diff_k(d["u"], nu, sid, perdir)
+    want = st.conv_diff_plain(d["u"], nu, st.SCHEMES[sid], perdir)
+    assert rel_err(got, want) <= 2e-5
+
+
+@pytest.mark.parametrize("shape", PER_SHAPES)
+@pytest.mark.parametrize("colors", [[0, 1, 0, 1], [1, 0]], ids=["rb4", "br2"])
+@pytest.mark.parametrize("perdir", [(0, 1, 2), (2,), ()], ids=["xyz", "z", "none"])
+def test_gauss_sweeps_k(dev, shape, colors, perdir):
+    d = inputs(shape, 10, dev)
+    lev = d["lev"]
+    L = bc_vector(lev.L, (0.0,) * 3, perdir=perdir)
+    iD = ps.make_level(L).iD
+    eps = wt.bc.per_bc(d["x"], perdir)
+    got = st.gauss_sweeps_k(eps, d["r"], L, iD, colors, perdir)
+    assert rel_err(got, st.gauss_sweeps_plain(eps, d["r"], L, iD, colors,
+                                              perdir)) <= 1e-5
+    assert torch.equal(eps, wt.bc.per_bc(d["x"], perdir))   # input untouched
+
+
+@pytest.mark.parametrize("shape", PER_SHAPES)
+@pytest.mark.parametrize("save_exit", [False, True], ids=["bc", "save_exit"])
+def test_bc_k(dev, shape, save_exit):
+    d = inputs(shape, 11, dev)
+    assert rel_err(fz.bc_k(d["u"], UBC, save_exit),
+                   fz.bc_plain(d["u"], UBC, save_exit)) <= 1e-6
+
+
+@pytest.mark.parametrize("shape", PER_SHAPES)
+def test_div_k(dev, shape):
+    d = inputs(shape, 12, dev)
+    assert rel_err(fz.div_k(d["u"]), fz.div_plain(d["u"])) <= 1e-6
+
+
+@pytest.mark.parametrize("shape", PER_SHAPES)
+@pytest.mark.parametrize("want_cfl", [False, True], ids=["bc", "cfl"])
+def test_projbc_k_save_exit(dev, shape, want_cfl):
+    d = inputs(shape, 13, dev)
+    got = fz.projbc_k(d["u"], d["x"], d["lev"].L, UBC, want_cfl, save_exit=True)
+    want = fz.projbc_plain(d["u"], d["x"], d["lev"].L, UBC, want_cfl,
+                           save_exit=True)
+    for a, b in zip(*((got, want) if want_cfl else ((got,), (want,)))):
+        assert rel_err(a, b) <= 1e-5
+
+
+def tgv(n, dev, **kw):
+    k = 2 * np.pi / n
+
+    def u0(i, x):
+        a, b, c = x[0] * k, x[1] * k, x[2] * k
+        if i == 0:
+            return torch.cos(a) * torch.sin(b) * torch.sin(c)
+        if i == 1:
+            return -torch.sin(a) * torch.cos(b) * torch.sin(c) / 2
+        return -torch.sin(a) * torch.sin(b) * torch.cos(c) / 2
+    return wt.Simulation((n, n, n), (0.0,) * 3, n, U=1, nu=1 / (k * 1600),
+                         u0=u0, perdir=(0, 1, 2), device=dev, **kw)
+
+
+def test_periodic_and_exit_routing(dev):
+    # TGV, flat engine: periodic K12, K11, K13 and the K6 increments; no K1,
+    # K8, K9, K10 or K15
+    sim = tgv(32, dev)
+    assert sim.engine == "flat"
+    st.reset_launch_counts()
+    sim.sim_step(remeasure=False)
+    n = st.launch_counts()
+    assert n["conv_diff_k"] == 2 and n["div_k"] == 2 and n["bdim_k"] == 2
+    assert n["gauss_sweeps_k"] > 0 and n["incr_gs_k"] > 0 and n["mult_k"] > 0
+    assert n["conv_diff_bdim_k"] == n["bc_div_k"] == n["projbc_k"] == 0
+    assert n["bc_k"] == n["gs_incr_k"] == 0
+    # TGV, 3d engine: K13 and K16, no K15
+    sim = tgv(32, dev, engine="3d")
+    st.reset_launch_counts()
+    sim.sim_step(remeasure=False)
+    n = st.launch_counts()
+    assert n["conv_diff_k"] == 2 and n["gauss_sweeps_k"] > 0 and n["gs_incr_k"] == 0
+    assert torch.isfinite(sim.flow.u).all() and torch.isfinite(sim.flow.p).all()
+    # exit sphere, flat engine: K10, K11 and K9 (exit mode), no K8
+    sim = sphere(32, dev, exit_bc=True)
+    st.reset_launch_counts()
+    sim.sim_step(remeasure=False)
+    n = st.launch_counts()
+    assert n["bc_k"] == 2 and n["div_k"] == 2 and n["projbc_k"] == 2
+    assert n["bc_div_k"] == 0 and n["conv_diff_bdim_k"] == 2
+    u = sim.flow.u
+    inflow = u[0, 1, 1:-1, 1:-1].mean()
+    assert ((u[0, -1, 1:-1, 1:-1].mean() - inflow).abs() / inflow).item() <= 1e-5

@@ -179,7 +179,7 @@ def sphere_pair(dims, xc, dtype_j, dtype_t, engine="flat"):
                         engine="flat")
     sim_t = Simulation(dims, (1.0, 0.0, 0.0), R, nu=R / 100, dtype=dtype_t,
                        body=AutoBody(lambda x, t: torch.sqrt(torch.sum((x - ct) ** 2)) - R),
-                       engine=engine)
+                       engine=engine, device="cpu")
     return sim_j, sim_t
 
 
@@ -223,7 +223,7 @@ def test_flat_no_body_f64():
     sim_j = SimulationJ(dims, ubc, 4.0, nu=0.04, body=NoBodyJ(),
                         dtype=jnp.float64, engine="flat")
     sim_t = Simulation(dims, ubc, 4.0, nu=0.04, body=NoBody(),
-                       dtype=torch.float64, engine="flat")
+                       dtype=torch.float64, engine="flat", device="cpu")
     assert sim_t.flow.cfg.band_x is None and sim_j.flow.cfg.band_x is None
     for _ in range(2):
         sim_j.sim_step()
@@ -235,22 +235,24 @@ def test_flat_no_body_f64():
 
 
 def test_engine_selection_on_cpu():
-    assert Simulation((16, 12, 12), (1.0, 0.0, 0.0), 4.0).engine == "3d"
+    cpu = dict(device="cpu")
+    assert Simulation((16, 12, 12), (1.0, 0.0, 0.0), 4.0, **cpu).engine == "3d"
     assert Simulation((16, 12, 12), (1.0, 0.0, 0.0), 4.0,
-                      dtype=torch.float64).engine == "3d"
+                      dtype=torch.float64, **cpu).engine == "3d"
     assert Simulation((16, 12, 12), (1.0, 0.0, 0.0), 4.0,
-                      engine="flat").engine == "flat"
+                      engine="flat", **cpu).engine == "flat"
     with pytest.raises(ValueError, match="D=3"):
-        Simulation((16, 8), (1.0, 0.0), 4.0, engine="flat")
+        Simulation((16, 8), (1.0, 0.0), 4.0, engine="flat", **cpu)
     with pytest.raises(ValueError, match="engine"):
-        Simulation((16, 12, 12), (1.0, 0.0, 0.0), 4.0, engine="pallas")
+        Simulation((16, 12, 12), (1.0, 0.0, 0.0), 4.0, engine="pallas", **cpu)
 
 
 def test_flat_static_remeasure_keeps_band():
     """A static body re-measured every step keeps its band and its run."""
     a = sphere_pair((24, 16, 16), 8.0, jnp.float64, torch.float64)[1]
     b = Simulation((24, 16, 16), (1.0, 0.0, 0.0), R, nu=R / 100,
-                   dtype=torch.float64, body=a.body, engine="flat")
+                   dtype=torch.float64, body=a.body, engine="flat",
+                   device="cpu")
     for _ in range(2):
         a.sim_step()
         b.sim_step(remeasure=False)

@@ -5,7 +5,8 @@
 Gates: the build's V, μ0, μ1 and level stack at 1e-12 (iD, which holds
 1/D for tiny D, at rel 1e-12); a 5-step trajectory with equal `pois_n`, dt
 history rel 1e-10, u atol 1e-9 and p atol 1e-8.  Also: the options outside
-the ported slice raise `NotImplementedError`."""
+the ported slice raise `NotImplementedError`.  Every port object is built
+with ``device="cpu"`` (the entry points default to the card)."""
 import numpy as np
 import pytest
 import torch
@@ -29,7 +30,7 @@ def port_sphere(dims=DIMS, radius=R, **kw):
     ctr = torch.tensor([dims[0] / 3] + [d / 2 for d in dims[1:]], dtype=F64)
     body = AutoBody(lambda x, t: torch.sqrt(torch.sum((x - ctr) ** 2)) - radius)
     return Simulation(dims, (1.0, 0.0, 0.0), radius, nu=radius / 250,
-                      body=body, dtype=F64, **kw)
+                      body=body, dtype=F64, device="cpu", **kw)
 
 
 @pytest.fixture(scope="module")
@@ -105,7 +106,7 @@ def test_measure_sdf():
 
 def test_no_body_uniform_flow_stays_uniform():
     sim = Simulation((16, 8), (1.0, 0.0), 4.0, body=NoBody(), dtype=F64,
-                     u0=(1.0, 0.0))
+                     u0=(1.0, 0.0), device="cpu")
     sim.sim_step_n(2)
     inner = sim.flow.u[:, 1:-1, 1:-1]
     assert torch.allclose(inner[0], torch.ones_like(inner[0]))
@@ -114,21 +115,19 @@ def test_no_body_uniform_flow_stays_uniform():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(perdir=(1,)), dict(exit_bc=True), dict(mp_smooth=True),
-    dict(psolver="pcg"), dict(flow_ctor=object),
+    dict(mp_smooth=True), dict(psolver="pcg"), dict(flow_ctor=object),
     dict(ubc=lambda i, x, t: 0.0, U=1.0), dict(g=lambda i, x, t: 0.0),
-    dict(u0=lambda i, x: 0.0),
-], ids=["perdir", "exit_bc", "mp_smooth", "pcg", "flow_ctor", "callable_ubc",
-        "g", "callable_u0"])
+], ids=["mp_smooth", "pcg", "flow_ctor", "callable_ubc", "g"])
 def test_unsupported_options_raise(kw):
     args = dict(dims=(16, 8), ubc=(1.0, 0.0), L=4.0)
     args.update({k: kw.pop(k) for k in list(kw) if k in args})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Simulation(args["dims"], args["ubc"], args["L"], dtype=F64, **kw)
+        Simulation(args["dims"], args["ubc"], args["L"], dtype=F64,
+                   device="cpu", **kw)
 
 
 def test_unsupported_stepping_raises():
-    sim = Simulation((16, 8), (1.0, 0.0), 4.0, dtype=F64)
+    sim = Simulation((16, 8), (1.0, 0.0), 4.0, dtype=F64, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sim.sim_step_n(1, remeasure=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -107,7 +107,7 @@ __global__ void conv_diff_bdim_kernel(const float* __restrict__ u,
   if (z >= g.nz || y >= g.ny) return;
   int64_t ci = (int64_t)i * g.n + at(g, x, y, z);
   bool m = interior(g, x, y, z);
-  float fi = m ? conv_diff_at<SCHEME>(u, g, *nu_ptr, i, x, y, z) : 0.f;
+  float fi = m ? conv_diff_at<SCHEME, 0>(u, g, *nu_ptr, i, x, y, z) : 0.f;
   if (x >= f_lo && x < f_hi) f[ci] = fi;
   float ui = u[ci];
   if (m) {
@@ -126,9 +126,12 @@ __global__ void conv_diff_bdim_kernel(const float* __restrict__ u,
 // edge ghost reads what an earlier step wrote elsewhere, so one thread per
 // cell composes the index map: undo the steps last-first.  Returns true when
 // a step wrote U at (x, y, z); otherwise moves (x, y, z) to the cell whose
-// pre-BC value lands there.
-__device__ __forceinline__ bool bc_source(const Grid3& g, int i, int& x,
-                                          int& y, int& z) {
+// pre-BC value lands there.  With save_exit the x-high ghost plane of
+// component 0 (the convective exit plane) keeps its value: no Dirichlet
+// step writes it, and the tangential y and z copies that follow in the
+// sequence still move its edge cells (ops/pallas_flat.py:1049-1073).
+__device__ __forceinline__ bool bc_source(const Grid3& g, int i, bool save_exit,
+                                          int& x, int& y, int& z) {
   if (i == 2) {
     if (z == 0 || z == 1 || z == g.nz - 1) return true;
   } else if (z == 0) {
@@ -144,7 +147,7 @@ __device__ __forceinline__ bool bc_source(const Grid3& g, int i, int& x,
     y = g.ny - 2;
   }
   if (i == 0) {
-    if (x == 0 || x == 1 || x == g.nx - 1) return true;
+    if (x == 0 || x == 1 || (x == g.nx - 1 && !save_exit)) return true;
   } else if (x == 0) {
     x = 1;
   } else if (x == g.nx - 1) {
@@ -160,8 +163,8 @@ struct Ubc {
 // BC'd value of component i at (x, y, z)
 __device__ __forceinline__ float bc_value(const float* __restrict__ u,
                                           const Ubc& U, const Grid3& g, int i,
-                                          int x, int y, int z) {
-  if (bc_source(g, i, x, y, z)) return U.v[i];
+                                          bool save_exit, int x, int y, int z) {
+  if (bc_source(g, i, save_exit, x, y, z)) return U.v[i];
   return u[(int64_t)i * g.n + at(g, x, y, z)];
 }
 
@@ -182,12 +185,12 @@ __global__ void bc_div_kernel(const float* __restrict__ u, Ubc U,
   bool m = interior(g, x, y, z);
   float s = 0.f;
   for (int i = 0; i < 3; ++i) {
-    float v = bc_value(u, U, g, i, x, y, z);
+    float v = bc_value(u, U, g, i, false, x, y, z);
     u_bc[(int64_t)i * g.n + c] = v;
     if (m) {
       int p[3] = {x, y, z};
       p[i] += 1;
-      s = s + (bc_value(u, U, g, i, p[0], p[1], p[2]) - v);
+      s = s + (bc_value(u, U, g, i, false, p[0], p[1], p[2]) - v);
     }
   }
   div[c] = s;
@@ -195,8 +198,9 @@ __global__ void bc_div_kernel(const float* __restrict__ u, Ubc U,
 
 // ------------------------------------------------------------ K9
 // Replaces waterlily_tpu/ops/pallas_flat.py:1201 projbc_k (+ _proj_row,
-// :1188): u_i -= L_i (x - x(-e_i)) on interior cells, then BC!, then with
-// want_cfl the CFL summand
+// :1188): u_i -= L_i (x - x(-e_i)) on interior cells, then BC! (with
+// save_exit the exit plane of u_0 keeps its pre-projection value: it is a
+// ghost plane, never corrected), then with want_cfl the CFL summand
 //   s = sum_i max(0, u_i(+e_i)) + max(0, -u_i)
 // maxed over the interior into *smax (atomicMax on the float bits; s >= 0).
 // A ghost thread recomputes the projected value at its BC source cell (the
@@ -207,8 +211,9 @@ __device__ __forceinline__ float proj_value(const float* __restrict__ u,
                                             const float* __restrict__ xp,
                                             const float* __restrict__ L,
                                             const Ubc& U, const Grid3& g,
-                                            int i, int x, int y, int z) {
-  if (bc_source(g, i, x, y, z)) return U.v[i];
+                                            int i, bool save_exit, int x,
+                                            int y, int z) {
+  if (bc_source(g, i, save_exit, x, y, z)) return U.v[i];
   int64_t c = at(g, x, y, z);
   float v = u[(int64_t)i * g.n + c];
   if (interior(g, x, y, z))
@@ -220,7 +225,7 @@ template <bool CFL>
 __global__ void projbc_kernel(const float* __restrict__ u,
                               const float* __restrict__ xp,
                               const float* __restrict__ L, Ubc U,
-                              float* __restrict__ u_out,
+                              bool save_exit, float* __restrict__ u_out,
                               float* __restrict__ smax, Grid3 g) {
   int z = blockIdx.x * BZ + threadIdx.x;
   int y = blockIdx.y * BY + threadIdx.y;
@@ -231,12 +236,12 @@ __global__ void projbc_kernel(const float* __restrict__ u,
     int64_t c = at(g, x, y, z);
     bool m = interior(g, x, y, z);
     for (int i = 0; i < 3; ++i) {
-      float v = proj_value(u, xp, L, U, g, i, x, y, z);
+      float v = proj_value(u, xp, L, U, g, i, save_exit, x, y, z);
       u_out[(int64_t)i * g.n + c] = v;
       if (CFL && m) {
         int p[3] = {x, y, z};
         p[i] += 1;
-        float up = proj_value(u, xp, L, U, g, i, p[0], p[1], p[2]);
+        float up = proj_value(u, xp, L, U, g, i, save_exit, p[0], p[1], p[2]);
         s = s + fmaxf(up, 0.f) + fmaxf(-v, 0.f);
       }
     }
@@ -247,6 +252,46 @@ __global__ void projbc_kernel(const float* __restrict__ u,
     if (threadIdx.x == 0 && threadIdx.y == 0)
       atomicMax(reinterpret_cast<int*>(smax), __float_as_int(s));
   }
+}
+
+// ------------------------------------------------------------ K10
+// Replaces waterlily_tpu/ops/pallas_flat.py:1076 bc_k (BC! alone, ±
+// save_exit; the flat engine's bc_vector_flat, ops/flat.py:222): K8
+// without the divergence, one thread per cell writing all three
+// components.  Bytes: reads u (3), writes u_bc (3): 24 B/cell, 0.12 ms at
+// 258^3 at the HBM roofline.
+__global__ void bc_kernel(const float* __restrict__ u, Ubc U, bool save_exit,
+                          float* __restrict__ u_bc, Grid3 g) {
+  int z = blockIdx.x * BZ + threadIdx.x;
+  int y = blockIdx.y * BY + threadIdx.y;
+  int x = blockIdx.z;
+  if (z >= g.nz || y >= g.ny) return;
+  int64_t c = at(g, x, y, z);
+  for (int i = 0; i < 3; ++i)
+    u_bc[(int64_t)i * g.n + c] = bc_value(u, U, g, i, save_exit, x, y, z);
+}
+
+// ------------------------------------------------------------ K11
+// Replaces waterlily_tpu/ops/pallas_flat.py:1279 div_k (div_flat,
+// ops/flat.py:372): the cell-centred divergence
+//   div = sum_i u_i(+e_i) - u_i   on interior cells, 0 on ghosts.
+// Bytes: reads u (3), writes div: 16 B/cell, 0.08 ms at 258^3 at the HBM
+// roofline.
+__global__ void div_kernel(const float* __restrict__ u,
+                           float* __restrict__ div, Grid3 g) {
+  int z = blockIdx.x * BZ + threadIdx.x;
+  int y = blockIdx.y * BY + threadIdx.y;
+  int x = blockIdx.z;
+  if (z >= g.nz || y >= g.ny) return;
+  int64_t c = at(g, x, y, z);
+  float s = 0.f;
+  if (interior(g, x, y, z)) {
+    for (int i = 0; i < 3; ++i) {
+      const float* ui = u + (int64_t)i * g.n;
+      s = s + (ui[c + stride(g, i)] - ui[c]);
+    }
+  }
+  div[c] = s;
 }
 
 // ------------------------------------------------------------ K6 / K7
@@ -375,19 +420,38 @@ int wlt_bc_div(const float* u, float u0, float u1, float u2, float* u_bc,
 
 // smax == nullptr: no CFL reduction
 int wlt_projbc(const float* u, const float* xp, const float* L, float u0,
-               float u1, float u2, float* u_out, float* smax, int64_t nx,
-               int64_t ny, int64_t nz, void* stream) {
+               float u1, float u2, int save_exit, float* u_out, float* smax,
+               int64_t nx, int64_t ny, int64_t nz, void* stream) {
   Grid3 g = make_grid(nx, ny, nz);
   Ubc U = {{u0, u1, u2}};
+  bool se = save_exit != 0;
   cudaStream_t s = (cudaStream_t)stream;
   dim3 grid = grid_of(g, 1), block(BZ, BY);
   if (smax == nullptr) {
-    projbc_kernel<false><<<grid, block, 0, s>>>(u, xp, L, U, u_out, nullptr, g);
+    projbc_kernel<false><<<grid, block, 0, s>>>(u, xp, L, U, se, u_out,
+                                                nullptr, g);
     return (int)cudaGetLastError();
   }
   cudaError_t err = cudaMemsetAsync(smax, 0, sizeof(float), s);
   if (err != cudaSuccess) return (int)err;
-  projbc_kernel<true><<<grid, block, 0, s>>>(u, xp, L, U, u_out, smax, g);
+  projbc_kernel<true><<<grid, block, 0, s>>>(u, xp, L, U, se, u_out, smax, g);
+  return (int)cudaGetLastError();
+}
+
+int wlt_bc(const float* u, float u0, float u1, float u2, int save_exit,
+           float* u_bc, int64_t nx, int64_t ny, int64_t nz, void* stream) {
+  Grid3 g = make_grid(nx, ny, nz);
+  Ubc U = {{u0, u1, u2}};
+  bc_kernel<<<grid_of(g, 1), dim3(BZ, BY), 0, (cudaStream_t)stream>>>(
+      u, U, save_exit != 0, u_bc, g);
+  return (int)cudaGetLastError();
+}
+
+int wlt_div(const float* u, float* div, int64_t nx, int64_t ny, int64_t nz,
+            void* stream) {
+  Grid3 g = make_grid(nx, ny, nz);
+  div_kernel<<<grid_of(g, 1), dim3(BZ, BY), 0, (cudaStream_t)stream>>>(u, div,
+                                                                       g);
   return (int)cudaGetLastError();
 }
 

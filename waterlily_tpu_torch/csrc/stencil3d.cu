@@ -5,7 +5,7 @@
 //
 // Layout, indexing and thread shape: see stencil_common.cuh.
 //
-// What bounds these kernels on an H100 (3.35 TB/s HBM3): all four do < 1 flop
+// What bounds these kernels on an H100 (3.35 TB/s HBM3): all five do < 1 flop
 // per byte, so each is bound by memory traffic.  The bytes each must move per
 // cell are given beside each kernel; time = bytes x cells / 3.35 TB/s is the
 // floor.  This first version relies on the caches for the stencil reuse; a
@@ -19,15 +19,18 @@ namespace {
 // ------------------------------------------------------------ K12 conv_diff
 // Replaces waterlily_tpu/ops/pallas3d.py:274 conv_diff3d_generic and the
 // slab fixes its caller composes (models/flow.py:295-323): the whole jnp
-// formula of models/flow.py:276-292 for non-periodic directions.
+// formula of models/flow.py:276-292.
 //
 // Flux of component i through the lower j-face of cell p, with roll-wrap
-// reads ((k +- s) mod n), phiL at j-index 1 and phiR at j-index n-1.
+// reads ((k +- s) mod n), phiL at j-index 1 and phiR at j-index n-1; in the
+// directions whose bit is set in PER the periodic phiuP fluxes instead
+// (stencil_common.cuh flux).  One instantiation per scheme and periodic
+// mask.
 // Bytes: reads u (3 fields), writes r (3 fields): 24 B/cell, 0.12 ms at 258^3
 // at the HBM roofline.  Each thread recomputes 6 fluxes from ~30 reads that
 // the caches serve; the design keeps one thread per (cell, component) so all
 // 3 x 3 flux pairs stay in registers and nothing else touches memory.
-template <int SCHEME>
+template <int SCHEME, int PER>
 __global__ void conv_diff_kernel(const float* __restrict__ u,
                                  const float* __restrict__ nu_ptr,
                                  float* __restrict__ r, Grid3 g) {
@@ -37,7 +40,32 @@ __global__ void conv_diff_kernel(const float* __restrict__ u,
   int x = blockIdx.z - i * g.nx;
   if (z >= g.nz || y >= g.ny) return;
   r[(int64_t)i * g.n + at(g, x, y, z)] =
-      conv_diff_at<SCHEME>(u, g, *nu_ptr, i, x, y, z);
+      conv_diff_at<SCHEME, PER>(u, g, *nu_ptr, i, x, y, z);
+}
+
+template <int SCHEME>
+cudaError_t launch_conv_diff(const float* u, const float* nu, float* r,
+                             int per, const Grid3& g, cudaStream_t s) {
+  dim3 block(BZ, BY);
+  dim3 grid = grid_of(g, 3);
+  switch (per) {
+#define WLT_CONV_DIFF_CASE(P)                                             \
+  case P:                                                                 \
+    conv_diff_kernel<SCHEME, P><<<grid, block, 0, s>>>(u, nu, r, g);      \
+    break;
+    WLT_CONV_DIFF_CASE(0)
+    WLT_CONV_DIFF_CASE(1)
+    WLT_CONV_DIFF_CASE(2)
+    WLT_CONV_DIFF_CASE(3)
+    WLT_CONV_DIFF_CASE(4)
+    WLT_CONV_DIFF_CASE(5)
+    WLT_CONV_DIFF_CASE(6)
+    WLT_CONV_DIFF_CASE(7)
+#undef WLT_CONV_DIFF_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------------------ K14 bdim
@@ -172,6 +200,40 @@ __global__ void increment_kernel(const float* __restrict__ x,
   r_out[c] = r[c] - omega * ae;
 }
 
+// ------------------------------------------------------------ K13 gauss_sweeps
+// Replaces waterlily_tpu/ops/pallas3d.py:312 gauss_sweeps3d and :366
+// gauss_sweep3d (poisson.py:163-172, the periodic smoother path): per
+// colour, the periodic ghost planes of eps are refreshed (perBC!: plane 0
+// takes plane n-2, plane n-1 takes plane 1, direction by direction in the
+// caller's order), then gs_sweep_kernel updates the cells of that colour in
+// place.  The refresh before a sweep is part of the arithmetic: a cell next
+// to a periodic face reads its partner plane through the ghost, and that
+// value must be the one the previous colour's sweep wrote (with an odd
+// interior extent the partner has the same colour as the cell).
+// Bytes per colour: the sweep ~26 B/cell, the refresh 8 B per ghost cell;
+// the whole call must move eps, r, L (3), iD in and eps out: 28 B/cell.
+__global__ void per_ghost_kernel(float* eps, int j, Grid3 g) {
+  // one thread per cell of the two ghost planes of direction j; the plane
+  // spans the other two directions (a, b) in full
+  const int dims[3] = {g.nx, g.ny, g.nz};
+  int ka = j == 0 ? 1 : 0, kb = j == 2 ? 1 : 2;
+  int b = blockIdx.x * BZ + threadIdx.x;
+  int a = blockIdx.y * BY + threadIdx.y;
+  if (a >= dims[ka] || b >= dims[kb]) return;
+  int p[3];
+  p[ka] = a;
+  p[kb] = b;
+  int n = dims[j];
+  p[j] = n - 2;
+  float lo = eps[at(g, p[0], p[1], p[2])];
+  p[j] = 1;
+  float hi = eps[at(g, p[0], p[1], p[2])];
+  p[j] = 0;
+  eps[at(g, p[0], p[1], p[2])] = lo;
+  p[j] = n - 1;
+  eps[at(g, p[0], p[1], p[2])] = hi;
+}
+
 }  // namespace
 
 extern "C" {
@@ -180,19 +242,18 @@ const char* wlt_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+// per: bit j set = direction j periodic
 int wlt_conv_diff(const float* u, const float* nu, float* r, int64_t nx,
-                  int64_t ny, int64_t nz, int scheme_id, void* stream) {
+                  int64_t ny, int64_t nz, int scheme_id, int per,
+                  void* stream) {
   Grid3 g = make_grid(nx, ny, nz);
-  dim3 block(BZ, BY);
-  dim3 grid = grid_of(g, 3);
   cudaStream_t s = (cudaStream_t)stream;
   switch (scheme_id) {
-    case 0: conv_diff_kernel<0><<<grid, block, 0, s>>>(u, nu, r, g); break;
-    case 1: conv_diff_kernel<1><<<grid, block, 0, s>>>(u, nu, r, g); break;
-    case 2: conv_diff_kernel<2><<<grid, block, 0, s>>>(u, nu, r, g); break;
+    case 0: return (int)launch_conv_diff<0>(u, nu, r, per, g, s);
+    case 1: return (int)launch_conv_diff<1>(u, nu, r, per, g, s);
+    case 2: return (int)launch_conv_diff<2>(u, nu, r, per, g, s);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 int wlt_bdim(const float* u, const float* u0, const float* f, const float* V,
@@ -235,6 +296,32 @@ int wlt_gs_incr(const float* x, const float* r, const float* L,
   increment_kernel<false><<<grid, block, 0, s>>>(x, r, L, D, iD, eps, omega,
                                                  x_out, r_out, g);
   return (int)cudaGetLastError();
+}
+
+// eps is updated in place; perdir lists the periodic directions in the
+// order their ghosts are refreshed (nper of them, none for a plain sweep)
+int wlt_gauss_sweeps(float* eps, const float* r, const float* L,
+                     const float* iD, const int* colors, int ncolors,
+                     const int* perdir, int nper, int64_t nx, int64_t ny,
+                     int64_t nz, void* stream) {
+  Grid3 g = make_grid(nx, ny, nz);
+  const int dims[3] = {g.nx, g.ny, g.nz};
+  dim3 block(BZ, BY);
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
+  for (int k = 0; k < ncolors; ++k) {
+    for (int q = 0; q < nper; ++q) {
+      int j = perdir[q];
+      if (j < 0 || j > 2) return (int)cudaErrorInvalidValue;
+      int ka = j == 0 ? 1 : 0, kb = j == 2 ? 1 : 2;
+      dim3 pg((dims[kb] + BZ - 1) / BZ, (dims[ka] + BY - 1) / BY);
+      per_ghost_kernel<<<pg, block, 0, s>>>(eps, j, g);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    }
+    gs_sweep_kernel<<<grid_of(g, 1), block, 0, s>>>(r, L, iD, eps, colors[k], g);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
 }  // extern "C"

@@ -88,39 +88,49 @@ __device__ __forceinline__ float scheme(float u, float c, float d) {
 // phiR at j-index n-1.  At interior cells and their +e_j neighbours no read
 // wraps, so this is also the flat engine's in-stencil form
 // (ops/pallas_flat.py:378-387).
-template <int SCHEME>
+//
+// Bit j of PER marks direction j periodic (phiuP, models/flow.py:204-241):
+// the first-slab flux is the generic formula with its second-upwind value
+// read from the periodic partner n-3 (not the roll-wrap ghost n-1), and the
+// top-ghost flux at n-1 is that same first-slab flux.  PER is a template
+// parameter: with a run-time mask the coordinate arrays below could not stay
+// in registers (a 120-byte stack frame and 3x the time of the walled
+// kernel, measured on the H100).
+template <int SCHEME, int PER>
 __device__ __forceinline__ float flux(const float* __restrict__ u,
                                       const Grid3& g, float nu, int i, int j,
                                       int px, int py, int pz) {
   const int dims[3] = {g.nx, g.ny, g.nz};
   int p[3] = {px, py, pz};
+  int n = dims[j];
+  const bool pdir = (PER >> j) & 1;
+  if (pdir && p[j] == n - 1) p[j] = 1;  // phi_hi = phi_lo
   const float* f = u + (int64_t)i * g.n;
   const float* uj = u + (int64_t)j * g.n;
-  int n = dims[j];
   int pj = p[j];
   // advecting velocity: mean of u_j at p and at p - e_i (wrapped)
-  int q[3] = {px, py, pz};
+  int q[3] = {p[0], p[1], p[2]};
   q[i] = wrap(p[i] - 1, dims[i]);
   float uadv = 0.5f * (uj[at(g, p[0], p[1], p[2])] + uj[at(g, q[0], q[1], q[2])]);
-  int m1[3] = {px, py, pz};
+  int m1[3] = {p[0], p[1], p[2]};
   m1[j] = wrap(pj - 1, n);
   float fc = f[at(g, p[0], p[1], p[2])];
   float fm1 = f[at(g, m1[0], m1[1], m1[2])];
   float v;
-  if (pj == 1) {  // phiL: central upwind value at the first interior face
-    int p2[3] = {px, py, pz};
+  if (!pdir && pj == 1) {  // phiL: central upwind value at the first interior face
+    int p2[3] = {p[0], p[1], p[2]};
     p2[j] = 2;
     float f2 = f[at(g, p2[0], p2[1], p2[2])];
     v = uadv > 0.f ? 0.5f * (fc + fm1) : scheme<SCHEME>(f2, fc, fm1);
-  } else if (pj == n - 1) {  // phiR: top ghost face
-    int p3[3] = {px, py, pz};
+  } else if (!pdir && pj == n - 1) {  // phiR: top ghost face
+    int p3[3] = {p[0], p[1], p[2]};
     p3[j] = n - 3;
     float fm3 = f[at(g, p3[0], p3[1], p3[2])];
     v = uadv < 0.f ? 0.5f * (fc + fm1) : scheme<SCHEME>(fm3, fm1, fc);
   } else {
-    int a[3] = {px, py, pz};
-    int b[3] = {px, py, pz};
-    a[j] = wrap(pj - 2, n);
+    int a[3] = {p[0], p[1], p[2]};
+    int b[3] = {p[0], p[1], p[2]};
+    a[j] = (pdir && pj == 1) ? n - 3 : wrap(pj - 2, n);
     b[j] = wrap(pj + 1, n);
     float fm2 = f[at(g, a[0], a[1], a[2])];
     float fp1 = f[at(g, b[0], b[1], b[2])];
@@ -131,17 +141,18 @@ __device__ __forceinline__ float flux(const float* __restrict__ u,
 
 // r_i at cell (x, y, z): sum over j of phi - phi(+e_j), the +e_j index
 // wrapped
-template <int SCHEME>
+template <int SCHEME, int PER>
 __device__ __forceinline__ float conv_diff_at(const float* __restrict__ u,
                                               const Grid3& g, float nu, int i,
                                               int x, int y, int z) {
   const int dims[3] = {g.nx, g.ny, g.nz};
   float ri = 0.f;
+#pragma unroll
   for (int j = 0; j < 3; ++j) {
     int nb[3] = {x, y, z};
     nb[j] = wrap(nb[j] + 1, dims[j]);
-    float phi = flux<SCHEME>(u, g, nu, i, j, x, y, z);
-    float phi_up = flux<SCHEME>(u, g, nu, i, j, nb[0], nb[1], nb[2]);
+    float phi = flux<SCHEME, PER>(u, g, nu, i, j, x, y, z);
+    float phi_up = flux<SCHEME, PER>(u, g, nu, i, j, nb[0], nb[1], nb[2]);
     ri = ri + (phi - phi_up);
   }
   return ri;

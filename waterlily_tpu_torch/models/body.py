@@ -92,7 +92,7 @@ def _interior_points(i, shape, dtype, device) -> torch.Tensor:
 
 
 def measure_sdf(body: Body, shape: tuple[int, ...], t=0.0,
-                dtype=torch.float32, device="cpu",
+                dtype=torch.float32, device="cuda",
                 fastd2: float = 0.0) -> torch.Tensor:
     """Signed distance at every cell center, ghosts zero (`measure_sdf!`,
     `Body.jl:74`)."""
@@ -104,7 +104,8 @@ def measure_sdf(body: Body, shape: tuple[int, ...], t=0.0,
 
 
 def measure_fill(body: Body, shape: tuple[int, ...], t=0.0, eps_k: float = 1.0,
-                 dtype=torch.float32, device="cpu"):
+                 dtype=torch.float32, device="cuda",
+                 perdir: tuple[int, ...] = (), exit_bc: bool = False):
     """Fill the BDIM arrays ``(V, mu0, mu1, sdf)`` from the body geometry
     (`measure!`, `Body.jl:28-51`), dense over the interior.
 
@@ -112,7 +113,9 @@ def measure_fill(body: Body, shape: tuple[int, ...], t=0.0, eps_k: float = 1.0,
     made consistent with the cell-center sdf outside |d| <= 0.5, the kernel
     moments are evaluated, and everything is selected against the band
     ``sdf² < (2+eps)²`` (mu0 = 0 deep inside the body, 1 in the fluid).
-    Ghosts: the zero-velocity vector BC on mu0 and V."""
+    Ghosts: the zero-velocity vector BC on mu0 and V, periodic in
+    ``perdir``, and on V keeping the exit plane with ``exit_bc``
+    (`body.py:313-314`)."""
     D = len(shape)
     inner = tuple(n - 2 for n in shape)
     band2 = float((2.0 + eps_k) ** 2)
@@ -136,7 +139,8 @@ def measure_fill(body: Body, shape: tuple[int, ...], t=0.0, eps_k: float = 1.0,
         mu1_c.append(torch.stack([grow(m1[j]) for j in range(D)]))
         V_c.append(grow(vv))
     zeros = (0.0,) * D
-    mu0 = bc_vector(torch.stack(mu0_c).to(dtype), zeros)
+    mu0 = bc_vector(torch.stack(mu0_c).to(dtype), zeros, perdir=perdir)
     mu1 = torch.stack(mu1_c).to(dtype)
-    V = bc_vector(torch.stack(V_c).to(dtype), zeros)
+    V = bc_vector(torch.stack(V_c).to(dtype), zeros, save_exit=exit_bc,
+                  perdir=perdir)
     return V, mu0, mu1, grow(sig)

@@ -13,9 +13,12 @@ Layout: velocity ``u[i, x, y(, z)]`` component-first, pressure
 The time-step history and the pressure iteration counts are host lists
 (`Flow.jl:127`).
 
-Supported: constant tuple ``ubc``, constant tuple ``u0``, no body force,
-non-periodic directions, no convective exit, the multigrid solver.  The rest
-raises `NotImplementedError` naming the ROADMAP item that ports it.
+Supported: constant tuple ``ubc``; a constant tuple or a callable
+``u0(i, x)`` (batched with `torch.func.vmap`); periodic directions
+``perdir``; the convective outlet ``exit_bc`` on the x-high face; the
+multigrid solver.  A callable ``ubc``, a body force ``g`` and
+``mp_smooth=True`` raise `NotImplementedError` naming the ROADMAP item that
+ports them.
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ import torch
 
 from ..ops import multigrid as mg
 from ..ops import stencil3d as st
-from ..ops.bc import bc_vector, exit_bc
+from ..ops.bc import apply_vector, bc_vector, exit_bc
 from ..ops.fused3d import cfl_max, div_field, proj_correct
 from ..ops.grid import interior, set_interior
 from ..ops.stencil3d import cds, median3, quick, vanleer
@@ -61,6 +64,8 @@ class FlowCfg:
     supported features)."""
     shape: tuple[int, ...]          # padded grid Ng = N + 2
     ubc: tuple[float, ...]          # constant Dirichlet velocity
+    perdir: tuple[int, ...] = ()    # periodic directions (0-based)
+    exit_bc: bool = False           # convective outlet on the x-high face
     scheme: Callable = quick
     dtype: Any = torch.float32
     tol: float = 2e-3               # pressure solver tolerance
@@ -84,14 +89,15 @@ def scale_interior(u: torch.Tensor, s) -> torch.Tensor:
     return set_interior(u, interior(u, d) * s, d)
 
 
-def conv_diff(u: torch.Tensor, scheme: Callable, nu) -> torch.Tensor:
-    """Convective + diffusive momentum RHS (`conv_diff!`, `Flow.jl:38-62`,
-    non-periodic): `stencil3d.conv_diff_plain`, or the K12 kernel for 3-D
-    float32 CUDA fields.  Every cell of the result is defined; the ghost
-    rows matter because `bdim_update` reads ``f*`` at them."""
+def conv_diff(u: torch.Tensor, scheme: Callable, nu,
+              perdir: tuple[int, ...] = ()) -> torch.Tensor:
+    """Convective + diffusive momentum RHS (`conv_diff!`, `Flow.jl:38-62`),
+    periodic in ``perdir``: `stencil3d.conv_diff_plain`, or the K12 kernel
+    for 3-D float32 CUDA fields.  Every cell of the result is defined; the
+    ghost rows matter because `bdim_update` reads ``f*`` at them."""
     if st.use_kernels(u[0]):
-        return st.conv_diff_k(u, nu, st.scheme_id(scheme))
-    return st.conv_diff_plain(u, nu, scheme)
+        return st.conv_diff_k(u, nu, st.scheme_id(scheme), perdir)
+    return st.conv_diff_plain(u, nu, scheme, perdir)
 
 
 def bdim_update(u, u0, f, V, mu0, mu1, dt) -> torch.Tensor:
@@ -107,15 +113,16 @@ def project(u: torch.Tensor, p: torch.Tensor, levels, masks, dt_w: float,
             cfg: FlowCfg):
     """Pressure projection (`mom_project!`, `Flow.jl:223-232`): solve
     ``A x = div(u)`` warm-started from ``p·dt_w``, ``u_i -= L_i ∂_i x``,
-    ``p = x/dt_w``.  Returns ``(u, p, iters, stats)``."""
+    `BC!`, ``p = x/dt_w``.  Returns ``(u, p, iters, stats)``."""
     z = div_field(u)
     x = p * dt_w
     res = mg.solve_mg(levels, masks, x, z, tol=cfg.tol, itmx=cfg.itmx,
                       smooth_it=cfg.smooth_it,
                       fine_smooth_it=cfg.fine_smooth_it,
-                      fine_presmooth=cfg.fine_presmooth)
+                      fine_presmooth=cfg.fine_presmooth, perdir=cfg.perdir)
     x = res.x
-    u = bc_vector(proj_correct(u, x, levels[0].L), cfg.ubc)
+    u = bc_vector(proj_correct(u, x, levels[0].L), cfg.ubc,
+                  save_exit=cfg.exit_bc, perdir=cfg.perdir)
     return u, x / dt_w, res.iters, res.stats
 
 
@@ -127,27 +134,30 @@ def cfl(u: torch.Tensor, nu, dt_max: float = 10.0) -> torch.Tensor:
 
 def _phase(state: FlowState, u_adv, u_into, dt, cfg: FlowCfg):
     """One momentum phase (`mom_predict!`/`mom_correct!`, `Flow.jl:190-210`)."""
-    f = conv_diff(u_adv, cfg.scheme, state.nu)
+    f = conv_diff(u_adv, cfg.scheme, state.nu, cfg.perdir)
     return bdim_update(u_into, state.u0, f, state.V, state.mu0, state.mu1, dt)
 
 
 def mom_step_impl(cfg: FlowCfg, state: FlowState, levels, masks, dt: float,
                   t0: float = 0.0):
     """One time step (`mom_step!`, `Flow.jl:156-167`): predictor advected by
-    u0, projection (w=1), corrector advected by the projected u, blend ½,
-    projection (w=½), then the CFL limit.  ``dt`` is a host float already
-    rounded to ``cfg.dtype``; ``t0`` only matters for time-dependent BCs,
-    which are not ported.  Returns ``(state', dt_next (0-d tensor),
-    [iters1, iters2], [stats1, stats2])``."""
+    u0, `BC!` and (``exit_bc``) the convective outlet, projection (w=1),
+    corrector advected by the projected u, blend ½, `BC!`, projection
+    (w=½), then the CFL limit.  ``dt`` is a host float already rounded to
+    ``cfg.dtype``; ``t0`` only matters for time-dependent BCs, which are not
+    ported.  Returns ``(state', dt_next (0-d tensor), [iters1, iters2],
+    [stats1, stats2])``."""
     u0 = state.u
     state = dataclasses.replace(state, u0=u0)
     u = scale_interior(u0, 0.0)
     u = _phase(state, u0, u, dt, cfg)
-    u = bc_vector(u, cfg.ubc)
+    u = bc_vector(u, cfg.ubc, save_exit=cfg.exit_bc, perdir=cfg.perdir)
+    if cfg.exit_bc:
+        u = exit_bc(u, u0, dt)
     u, p, n1, s1 = project(u, state.p, levels, masks, dt, cfg)
     u = _phase(state, u, u, dt, cfg)
     u = scale_interior(u, 0.5)
-    u = bc_vector(u, cfg.ubc)
+    u = bc_vector(u, cfg.ubc, save_exit=cfg.exit_bc, perdir=cfg.perdir)
     u, p, n2, s2 = project(u, p, levels, masks, 0.5 * dt, cfg)
     state = dataclasses.replace(state, u=u, p=p)
     dt_next = cfl(u, state.nu)
@@ -155,17 +165,21 @@ def mom_step_impl(cfg: FlowCfg, state: FlowState, levels, masks, dt: float,
 
 
 def init_state(cfg: FlowCfg, nu, device, u0=None) -> FlowState:
-    """Initial `FlowState` (`Flow`, `Flow.jl:133-147`): uniform ``u0`` (or
-    ``ubc``) on all faces, BCs, the constructor-time `exitBC!(u,u,0)`, and
-    the moments of an empty domain."""
+    """Initial `FlowState` (`Flow`, `Flow.jl:133-147`): ``u0`` (a constant
+    tuple, a callable ``u0(i, x)`` evaluated at every face, or ``ubc``) on
+    all faces, BCs, the constructor-time `exitBC!(u,u,0)`, and the moments
+    of an empty domain."""
     D, shape, dtype = cfg.D, cfg.shape, cfg.dtype
-    vals = cfg.ubc if u0 is None else tuple(float(v) for v in u0)
-    u = torch.tensor(vals, dtype=dtype, device=device).reshape(
-        (D,) + (1,) * D).expand((D,) + shape).clone()
-    u = bc_vector(u, cfg.ubc)
+    if callable(u0):
+        u = apply_vector(u0, D, shape, dtype, device)
+    else:
+        vals = cfg.ubc if u0 is None else tuple(float(v) for v in u0)
+        u = torch.tensor(vals, dtype=dtype, device=device).reshape(
+            (D,) + (1,) * D).expand((D,) + shape).clone()
+    u = bc_vector(u, cfg.ubc, save_exit=cfg.exit_bc, perdir=cfg.perdir)
     u = exit_bc(u, u, 0.0)
     mu0 = bc_vector(torch.ones((D,) + shape, dtype=dtype, device=device),
-                    (0.0,) * D)
+                    (0.0,) * D, perdir=cfg.perdir)
     return FlowState(
         u=u, u0=u, p=torch.zeros(shape, dtype=dtype, device=device),
         V=torch.zeros((D,) + shape, dtype=dtype, device=device), mu0=mu0,
@@ -186,23 +200,19 @@ class Flow:
                  fine_smooth_it: Optional[int] = None,
                  mp_smooth: Optional[bool] = None,
                  fine_presmooth: Optional[bool] = None,
-                 device="cpu"):
-        if callable(ubc) or callable(u0) or g is not None:
+                 device="cuda"):
+        if callable(ubc) or g is not None:
             raise NotImplementedError(
-                f"callable ubc/g/u0 are not ported yet: {ROADMAP_FLOW_CONFIGS}")
-        if perdir or exit_bc:
-            raise NotImplementedError(
-                f"perdir={perdir!r}, exit_bc={exit_bc!r}: periodic and "
-                f"convective-exit boundaries are not ported yet: "
-                f"{ROADMAP_FLOW_CONFIGS}")
+                f"callable ubc and g are not ported yet: {ROADMAP_FLOW_CONFIGS}")
         if mp_smooth:
             raise NotImplementedError(
                 "mp_smooth=True (bf16 smoothing) is not ported yet: ROADMAP "
                 "queue 2, K4/K5/K7 mixed-precision kernels")
         shape = tuple(n + 2 for n in N)
         self.cfg = FlowCfg(
-            shape=shape, ubc=tuple(float(v) for v in ubc), scheme=scheme,
-            dtype=dtype, tol=tol, itmx=itmx,
+            shape=shape, ubc=tuple(float(v) for v in ubc),
+            perdir=tuple(int(j) for j in perdir), exit_bc=bool(exit_bc),
+            scheme=scheme, dtype=dtype, tol=tol, itmx=itmx,
             smooth_it=4 if smooth_it is None else int(smooth_it),
             fine_smooth_it=0 if fine_smooth_it is None else int(fine_smooth_it),
             fine_presmooth=True if fine_presmooth is None else bool(fine_presmooth))

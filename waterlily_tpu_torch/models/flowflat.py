@@ -4,21 +4,32 @@ PyTorch counterpart of `waterlily_tpu/models/flowflat.py` (`flat_supported`,
 `_half_step`, `_project_flat`, `mom_step_flat_impl`) without its layout
 half: the same numerics as `models/flow.py` `mom_step_impl` (`mom_step!`,
 `Flow.jl:156-167`) with the flat engine's fused passes, each a kernel of
-`ops/fused3d.py` for 3-D float32 CUDA fields:
+`ops/fused3d.py` for 3-D float32 CUDA fields.  The passes follow the JAX
+conditions (`_kernel_bc_ok`, ``plain`` in `_half_step`, `fuse_tail`):
 
-* a half step with ``cfg.band_x`` set is one K1 pass (conv–diff with the
-  far-field BDIM and the interior scale fused in) plus K14 (`bdim_k`) on the
-  body's x slab ``[lo−1, hi+1)``; with no band (no body) it is K12 + K14 on
-  the full field;
-* `BC!` and the divergence of the BC'd field are one K8 pass;
+* with no periodic direction, a half step with ``cfg.band_x`` set is one
+  K1 pass (conv–diff with the far-field BDIM and the interior scale fused
+  in) plus K14 (`bdim_k`) on the body's x slab ``[lo−1, hi+1)``; with no
+  band (no body) it is K12 + K14 on the full field;
+* with no periodic direction and no exit, `BC!` and the divergence of the
+  BC'd field are one K8 pass; with the convective exit (``exit_bc``) `BC!`
+  keeping the exit plane is K10, the predictor's `exitBC!` follows, and the
+  divergence is K11;
 * the projection is `ops/mgflat.py`'s solve (K6, K7 with the norms) and one
-  K9 pass for the correction and `BC!`; the corrector's K9 also yields the
-  CFL max, and ``dt = min(10, 1/(max + 5ν))`` stays on the device.
+  K9 pass for the correction and `BC!` (keeping the exit plane with
+  ``exit_bc``); the corrector's K9 also yields the CFL max, and
+  ``dt = min(10, 1/(max + 5ν))`` stays on the device;
+* with periodic directions (``perdir``) there is no K1, K8, K9 or fused
+  tail: the half step is K12 in its periodic mode with the flat engine's
+  zero-ghost rule then K14 on the full field, `BC!` is the plain periodic
+  `bc_vector`, the divergence K11, the solve `mgflat`'s periodic branch (K6,
+  K13), the correction the plain `proj_correct` + `bc_vector` and the CFL
+  the plain `cfl_max`.
 
-Supported: D = 3, constant tuple ``ubc``, no body force, no udf,
-non-periodic, no convective exit (what `models/flow.py` supports); the
-`Flow` constructor and `Simulation.step_once` raise for the rest, naming the
-ROADMAP item.
+Supported: D = 3 with what `models/flow.py` supports (constant tuple
+``ubc``, constant or callable ``u0``, ``perdir``, ``exit_bc``); a callable
+``ubc``, ``g`` and ``udf`` raise in the `Flow` constructor and
+`Simulation.step_once`, naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -29,6 +40,8 @@ import torch
 
 from ..ops import fused3d as fz
 from ..ops import stencil3d as st
+from ..ops.bc import bc_vector, exit_bc
+from ..ops.grid import zero_ghost
 from ..ops.mgflat import solve_mg_flat
 from .flow import (FlowCfg, FlowState, bdim_update, conv_diff,
                    scale_interior)
@@ -37,7 +50,10 @@ __all__ = ["flat_supported", "conv_diff_bdim", "mom_step_flat_impl"]
 
 
 def flat_supported(cfg: FlowCfg) -> bool:
-    """The flat engine takes every 3-D configuration the port supports."""
+    """The flat engine takes every 3-D configuration that `models/flow.py`
+    supports: periodic directions, the convective exit, a callable ``u0``
+    (the JAX package's also takes a callable ``ubc``, ``g`` and ``udf``,
+    which the port does not yet)."""
     return cfg.D == 3
 
 
@@ -58,6 +74,14 @@ def _half_step(u_adv, state: FlowState, cfg: FlowCfg, dt: float,
     `Flow.jl:190-210`): conv–diff → BDIM → interior scale.  Both phases
     advect the field they update (``u_adv`` is also the base field)."""
     u0 = state.u0
+    if cfg.perdir:
+        # the flat engine's RHS is zero on ghosts (`conv_diff_flat`).  With
+        # a body the JAX engine takes `bdim_band` here (`flowflat.py:156`),
+        # not ported yet: K14 over the full field gives the same numbers
+        f = zero_ghost(conv_diff(u_adv, cfg.scheme, state.nu, cfg.perdir), 3)
+        u = u_adv if keep_base else scale_interior(u_adv, 0.0)
+        u = bdim_update(u, u0, f, state.V, state.mu0, state.mu1, dt)
+        return u if scale == 1.0 else scale_interior(u, scale)
     if cfg.band_x is not None:
         lo, hi = cfg.band_x
         # one slab bound drives both the f write range and the slab read
@@ -84,28 +108,42 @@ def _half_step(u_adv, state: FlowState, cfg: FlowCfg, dt: float,
     return u if scale == 1.0 else scale_interior(u, scale)
 
 
-def _bc_div(u, cfg: FlowCfg):
-    """`BC!` and the projection RHS (K8)."""
-    if st.use_kernels(u[0]):
-        return fz.bc_div_k(u, cfg.ubc)
-    return fz.bc_div_plain(u, cfg.ubc)
+def _bc_div(u, u0, dt: float, cfg: FlowCfg, predictor: bool):
+    """`BC!` and the projection RHS: one K8 pass, or with the exit or
+    periodic directions `BC!` (K10, or the plain periodic `bc_vector`), the
+    predictor's `exitBC!`, then K11 (`flowflat.py:316-330`).  Returns
+    ``(u, z)``."""
+    kern = st.use_kernels(u[0])
+    if not (cfg.exit_bc or cfg.perdir):
+        return fz.bc_div_k(u, cfg.ubc) if kern else fz.bc_div_plain(u, cfg.ubc)
+    if cfg.perdir:
+        u = bc_vector(u, cfg.ubc, save_exit=cfg.exit_bc, perdir=cfg.perdir)
+    else:
+        u = (fz.bc_k if kern else fz.bc_plain)(u, cfg.ubc, save_exit=True)
+    if cfg.exit_bc and predictor:
+        u = exit_bc(u, u0, dt)
+    return u, (fz.div_k(u) if kern else fz.div_plain(u))
 
 
 def _project_flat(u, p, z, levels, masks, dt_w: float, cfg: FlowCfg,
                   want_cfl: bool = False):
     """`mom_project!` (`Flow.jl:223-232`) with the divergence ``z`` from
     `_bc_div`: the `solve_mg_flat` solve warm-started from ``p·dt_w``, then
-    the correction + `BC!` (K9, with the CFL max when ``want_cfl``).
-    Returns ``(u, p, iters, stats, smax)``."""
+    the correction + `BC!` (K9, with the CFL max when ``want_cfl``; plain
+    ops with ``perdir``).  Returns ``(u, p, iters, stats, smax)``."""
     res = solve_mg_flat(levels, masks, p * dt_w, z, tol=cfg.tol,
                         itmx=cfg.itmx, smooth_it=cfg.smooth_it,
                         fine_smooth_it=cfg.fine_smooth_it,
-                        fine_presmooth=cfg.fine_presmooth)
+                        fine_presmooth=cfg.fine_presmooth, perdir=cfg.perdir)
     L = levels[0].L
-    if st.use_kernels(u[0]):
-        out = fz.projbc_k(u, res.x, L, cfg.ubc, want_cfl)
+    if cfg.perdir:
+        u = bc_vector(fz.proj_correct(u, res.x, L), cfg.ubc,
+                      save_exit=cfg.exit_bc, perdir=cfg.perdir)
+        out = (u, fz.cfl_max(u)) if want_cfl else u
+    elif st.use_kernels(u[0]):
+        out = fz.projbc_k(u, res.x, L, cfg.ubc, want_cfl, cfg.exit_bc)
     else:
-        out = fz.projbc_plain(u, res.x, L, cfg.ubc, want_cfl)
+        out = fz.projbc_plain(u, res.x, L, cfg.ubc, want_cfl, cfg.exit_bc)
     u, smax = out if want_cfl else (out, None)
     return u, res.x / dt_w, res.iters, res.stats, smax
 
@@ -119,11 +157,11 @@ def mom_step_flat_impl(cfg: FlowCfg, state: FlowState, levels, masks,
     state = dataclasses.replace(state, u0=state.u)
     # predictor (`Flow.jl:157-161`)
     u = _half_step(state.u0, state, cfg, dt, 0.0, 1.0)
-    u, z = _bc_div(u, cfg)
+    u, z = _bc_div(u, state.u0, dt, cfg, predictor=True)
     u, p, n1, s1, _ = _project_flat(u, state.p, z, levels, masks, dt, cfg)
     # corrector (`Flow.jl:163-165`)
     u = _half_step(u, state, cfg, dt, 1.0, 0.5)
-    u, z = _bc_div(u, cfg)
+    u, z = _bc_div(u, state.u0, dt, cfg, predictor=False)
     u, p, n2, s2, smax = _project_flat(u, p, z, levels, masks, 0.5 * dt, cfg,
                                        want_cfl=True)
     dt_next = torch.clamp(1.0 / (smax + 5 * state.nu), max=10.0)

@@ -35,7 +35,8 @@ _I64 = ctypes.c_int64
 _F = ctypes.c_float
 _SIGNATURES = {
     # name: argtypes (restype is int: a cudaError_t)
-    "wlt_conv_diff": [_P, _P, _P, _I64, _I64, _I64, ctypes.c_int, _P],
+    "wlt_conv_diff": [_P, _P, _P, _I64, _I64, _I64, ctypes.c_int,
+                      ctypes.c_int, _P],
     "wlt_bdim": [_P, _P, _P, _P, _P, _P, ctypes.c_float, _P,
                  _I64, _I64, _I64, _P],
     "wlt_mult": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
@@ -45,10 +46,16 @@ _SIGNATURES = {
     "wlt_conv_diff_bdim": [_P, _P, _P, _F, _F, _F, ctypes.c_int, ctypes.c_int,
                            _P, _P, _I64, _I64, _I64, ctypes.c_int, _P],
     "wlt_bc_div": [_P, _F, _F, _F, _P, _P, _I64, _I64, _I64, _P],
-    "wlt_projbc": [_P, _P, _P, _F, _F, _F, _P, _P, _I64, _I64, _I64, _P],
+    "wlt_projbc": [_P, _P, _P, _F, _F, _F, ctypes.c_int, _P, _P,
+                   _I64, _I64, _I64, _P],
     "wlt_incr_gs": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                     ctypes.POINTER(ctypes.c_int), ctypes.c_int,
                     _F, _P, _P, _I64, _I64, _I64, _P],
+    "wlt_gauss_sweeps": [_P, _P, _P, _P, ctypes.POINTER(ctypes.c_int),
+                         ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                         ctypes.c_int, _I64, _I64, _I64, _P],
+    "wlt_bc": [_P, _F, _F, _F, ctypes.c_int, _P, _I64, _I64, _I64, _P],
+    "wlt_div": [_P, _P, _I64, _I64, _I64, _P],
 }
 
 build_info: dict[str, object] = {}   # path, seconds and ptxas log of the build

@@ -1,8 +1,9 @@
 """Boundary conditions as whole-tensor ops.
 
-PyTorch counterpart of `waterlily_tpu/ops/bc.py`: `BC!`, `perBC!` and
-`exitBC!` (`src/core.jl:192-243`).  Each function returns a new tensor; the
-slab writes happen in place on that copy.
+PyTorch counterpart of `waterlily_tpu/ops/bc.py`: `BC!`, `perBC!`,
+`exitBC!` (`src/core.jl:192-243`) and `apply!` for a vector field
+(`src/Flow.jl:76-83`).  Each function returns a new tensor; the slab writes
+happen in place on that copy.
 
 A boundary spec ``ubc`` is a tuple of ``D`` numbers: constant Dirichlet
 velocity.  A callable ``ubc(i, x, t)`` is not supported yet (ROADMAP queue 1,
@@ -11,10 +12,11 @@ item 10).
 from __future__ import annotations
 
 import torch
+from torch.func import vmap
 
-from .grid import slab
+from .grid import loc_grid, slab
 
-__all__ = ["bc_field", "bc_vector", "per_bc", "exit_bc"]
+__all__ = ["bc_field", "bc_vector", "per_bc", "exit_bc", "apply_vector"]
 
 _CALLABLE_UBC = ("callable ubc/g/u0 are not ported yet "
                  "(ROADMAP queue 1, item 10: remaining flow configurations)")
@@ -75,9 +77,11 @@ def per_bc(a: torch.Tensor, perdir: tuple[int, ...], lead: int = 0) -> torch.Ten
 
 def exit_bc(u: torch.Tensor, u_old: torch.Tensor, dt) -> torch.Tensor:
     """1-D convective outlet on the ``i=0`` exit plane plus the mass-flux
-    correction (`exitBC!`, `src/core.jl:226-233`).  The port runs it only at
-    construction (`exitBC!(u,u,0)`, `Flow.jl:141`); the per-step outlet
-    (`exit_bc=True`) is ROADMAP queue 1, item 10."""
+    correction (`exitBC!`, `src/core.jl:226-233`): the exit plane of ``u``
+    takes ``u_old``'s convected by the mean inflow ``u_in`` over ``dt``,
+    shifted so that its mean equals ``u_in``.  Run at construction
+    (`exitBC!(u,u,0)`, `Flow.jl:141`) and, with ``exit_bc=True``, after the
+    predictor's `BC!` of every step (`Flow.jl:160`)."""
     D = u.shape[0]
     inner = (slice(1, -1),) * (D - 1)
     exit_ix = (0, slice(-1, None)) + inner
@@ -90,3 +94,18 @@ def exit_bc(u: torch.Tensor, u_old: torch.Tensor, dt) -> torch.Tensor:
     u = u.clone()
     u[exit_ix] = new
     return u
+
+
+def apply_vector(f, D: int, shape: tuple[int, ...], dtype, device) -> torch.Tensor:
+    """A vector field with ``f(i, x)`` at the face-``i`` location of every
+    cell, ghosts included (`apply!`, `src/Flow.jl:81-83`); ``f`` is written
+    with torch ops on a ``(D,)`` point and is batched with `vmap`."""
+    def at(i, x):
+        v = f(i, x)
+        return v if isinstance(v, torch.Tensor) else torch.tensor(v, dtype=dtype)
+
+    comps = []
+    for i in range(D):
+        pts = loc_grid(i, shape, dtype, device).reshape(D, -1).T
+        comps.append(vmap(lambda x, i=i: at(i, x))(pts).reshape(shape))
+    return torch.stack(comps).to(dtype)

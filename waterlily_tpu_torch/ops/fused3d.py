@@ -14,7 +14,10 @@ wrapper               replaces (TPU)
 `incr_gs_k`           `pallas_flat.py:896` `incr_gs` (K7); with no
                       colours `:1307` `increment_k` (K6)
 `bc_div_k`            `pallas_flat.py:1143` `bc_div_k` (K8)
-`projbc_k`            `pallas_flat.py:1201` `projbc_k` (K9)
+`projbc_k`            `pallas_flat.py:1201` `projbc_k` (K9), also with
+                      ``save_exit``
+`bc_k`                `pallas_flat.py:1076` `bc_k` (K10)
+`div_k`               `pallas_flat.py:1279` `div_k` (K11)
 ====================  ================================================
 
 As in `ops/stencil3d.py`, each kernel has a plain version (``*_plain``)
@@ -45,7 +48,8 @@ from .stencil3d import (_PLAIN, SCHEMES, _check, _launch, _lead, _lib, _ptr,
 
 __all__ = [
     "conv_diff_bdim_plain", "incr_gs_plain", "bc_div_plain", "projbc_plain",
-    "conv_diff_bdim_k", "incr_gs_k", "bc_div_k", "projbc_k",
+    "bc_plain", "div_plain",
+    "conv_diff_bdim_k", "incr_gs_k", "bc_div_k", "projbc_k", "bc_k", "div_k",
     "div_field", "proj_correct", "cfl_max",
 ]
 
@@ -130,12 +134,22 @@ def bc_div_plain(u: torch.Tensor, ubc):
     return u, div_field(u)
 
 
-def projbc_plain(u, x, L, ubc, want_cfl: bool = False):
-    """Projection correction, then `BC!`, then optionally the CFL max
-    (`projbc_k`, `pallas_flat.py:1201`).  Returns ``u_new`` or
-    ``(u_new, smax)``."""
-    u = bc_vector(proj_correct(u, x, L), ubc)
+def projbc_plain(u, x, L, ubc, want_cfl: bool = False, save_exit: bool = False):
+    """Projection correction, then `BC!` (``save_exit`` keeps the exit plane
+    of ``u_0``), then optionally the CFL max (`projbc_k`,
+    `pallas_flat.py:1201`).  Returns ``u_new`` or ``(u_new, smax)``."""
+    u = bc_vector(proj_correct(u, x, L), ubc, save_exit=save_exit)
     return (u, cfl_max(u)) if want_cfl else u
+
+
+def bc_plain(u: torch.Tensor, ubc, save_exit: bool = False) -> torch.Tensor:
+    """`BC!` alone (`bc_k`, `pallas_flat.py:1076`): `bc_vector` with
+    ``save_exit``."""
+    return bc_vector(u, ubc, save_exit=save_exit)
+
+
+# the divergence alone (`div_k`, `pallas_flat.py:1279`)
+div_plain = div_field
 
 
 # ---------------------------------------------------------------- wrappers
@@ -223,12 +237,12 @@ def bc_div_k(u, ubc):
     return u_bc, div
 
 
-def projbc_k(u, x, L, ubc, want_cfl: bool = False):
+def projbc_k(u, x, L, ubc, want_cfl: bool = False, save_exit: bool = False):
     """K9: `projbc_plain` in one pass; with ``want_cfl`` the CFL max comes
     back as a 0-d tensor on the card.  Returns ``u_new`` or
     ``(u_new, smax)``."""
     if not u.is_cuda or _PLAIN.get():
-        return projbc_plain(u, x, L, ubc, want_cfl)
+        return projbc_plain(u, x, L, ubc, want_cfl, save_exit)
     shape = tuple(u.shape[1:])
     _check("projbc_k", shape, u.device, u=u, x=x, L=L)
     _lead("projbc_k", "u", u, (3,))
@@ -238,6 +252,33 @@ def projbc_k(u, x, L, ubc, want_cfl: bool = False):
     u_out = torch.empty_like(u)
     smax = torch.empty((), dtype=torch.float32, device=u.device) if want_cfl else None
     _launch("projbc_k", _lib().wlt_projbc, _ptr(u), _ptr(x), _ptr(L), *ub,
-            _ptr(u_out), None if smax is None else _ptr(smax), *shape,
-            _stream(u.device))
+            int(save_exit), _ptr(u_out), None if smax is None else _ptr(smax),
+            *shape, _stream(u.device))
     return (u_out, smax) if want_cfl else u_out
+
+
+def bc_k(u, ubc, save_exit: bool = False):
+    """K10: `bc_plain` in one pass."""
+    if not u.is_cuda or _PLAIN.get():
+        return bc_plain(u, ubc, save_exit)
+    shape = tuple(u.shape[1:])
+    _check("bc_k", shape, u.device, u=u)
+    _lead("bc_k", "u", u, (3,))
+    ub = _ubc3(ubc)
+    u_bc = torch.empty_like(u)
+    _launch("bc_k", _lib().wlt_bc, _ptr(u), *ub, int(save_exit), _ptr(u_bc),
+            *shape, _stream(u.device))
+    return u_bc
+
+
+def div_k(u):
+    """K11: `div_plain` in one pass."""
+    if not u.is_cuda or _PLAIN.get():
+        return div_plain(u)
+    shape = tuple(u.shape[1:])
+    _check("div_k", shape, u.device, u=u)
+    _lead("div_k", "u", u, (3,))
+    div = torch.empty(shape, dtype=u.dtype, device=u.device)
+    _launch("div_k", _lib().wlt_div, _ptr(u), _ptr(div), *shape,
+            _stream(u.device))
+    return div

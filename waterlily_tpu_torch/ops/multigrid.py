@@ -8,10 +8,14 @@ prolongation are pair sums and `repeat_interleave` on the interior.
 The outer iteration (`MultiLevelPoisson.jl:108-128`) is a host loop: each
 iteration reads ``(L1, Linf)`` of the residual back once, tests the
 dual-norm stop and updates the adaptive relaxation ω on the host in the
-working dtype, exactly as the JAX `lax.while_loop` does on the device.  The
-distributed branches and the implicit-JVP wrapper `solve_mg_implicit` (whose
-forward pass is `solve_mg`) are not ported yet (ROADMAP queue 1, items 12
-and 14).
+working dtype, exactly as the JAX `lax.while_loop` does on the device.
+Periodic directions (``perdir``) reach every level: the coarse coefficients
+take the periodic zero-velocity BC (so each level's diagonal sees the wrap
+face), the smoothers and increments refresh periodic ghosts, the dense
+coarse pseudo-inverse is that of the periodic operator, and the solution's
+periodic ghosts are refreshed after the gauge.  The distributed branches and
+the implicit-JVP wrapper `solve_mg_implicit` (whose forward pass is
+`solve_mg`) are not ported yet (ROADMAP queue 1, items 12 and 14).
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .bc import bc_vector
+from .bc import bc_vector, per_bc
 from .grid import grow, interior
 from .poisson import (_inside_ones, coarse_solve, dense_pinv, gauss_seidel_rb,
                       increment, jacobi, make_level, norms, residual)
@@ -100,11 +104,13 @@ def prolongate(b: torch.Tensor, c: tuple[bool, ...]) -> torch.Tensor:
     return grow(a)
 
 
-def restrict_L(Lf: torch.Tensor, c: tuple[bool, ...]) -> torch.Tensor:
+def restrict_L(Lf: torch.Tensor, c: tuple[bool, ...],
+               perdir: tuple[int, ...] = ()) -> torch.Tensor:
     """Restrict face coefficients (`restrictL`, `MultiLevelPoisson.jl:10-26,
     42-47`): the face-normal direction keeps the fine face at the pair start
     and is halved when coarsened; tangential coarsened directions pair-sum;
-    boundary faces come from the zero-velocity vector BC."""
+    boundary faces come from the zero-velocity vector BC (periodic in
+    ``perdir``)."""
     D = Lf.shape[0]
     comps = []
     for i in range(D):
@@ -120,45 +126,49 @@ def restrict_L(Lf: torch.Tensor, c: tuple[bool, ...]) -> torch.Tensor:
         if c[i]:
             a = a / 2
         comps.append(grow(a))
-    return bc_vector(torch.stack(comps), (0.0,) * D)
+    return bc_vector(torch.stack(comps), (0.0,) * D, perdir=perdir)
 
 
-def make_mg(mu0: torch.Tensor, maxlevels: int = 10, min_cells: int = 0):
+def make_mg(mu0: torch.Tensor, maxlevels: int = 10, min_cells: int = 0,
+            perdir: tuple[int, ...] = ()):
     """Level stack from the fine face coefficients; returns
     ``(levels, masks)`` with ``masks`` plain Python data."""
     _, masks = level_shapes(tuple(mu0.shape[1:]), maxlevels, min_cells)
-    return update_mg(tuple(masks), mu0), tuple(masks)
+    return update_mg(tuple(masks), mu0, perdir), tuple(masks)
 
 
-def update_mg(masks, mu0: torch.Tensor):
+def update_mg(masks, mu0: torch.Tensor, perdir: tuple[int, ...] = ()):
     """Re-restrict the coefficients down every level (`update!`,
     `MultiLevelPoisson.jl:79-86`) and attach the coarsest level's dense
     pseudo-inverse."""
     new = [make_level(mu0)]
     L = mu0
     for c in masks:
-        L = restrict_L(L, c)
+        L = restrict_L(L, c, perdir)
         new.append(make_level(L))
-    new[-1] = dense_pinv(new[-1])
+    new[-1] = dense_pinv(new[-1], perdir)
     return tuple(new)
 
 
 def v_cycle(levels, masks, x: torch.Tensor, r: torch.Tensor, omega,
-            l: int = 0, smooth_it: int = 4, presmooth: bool = True):
+            l: int = 0, smooth_it: int = 4, presmooth: bool = True,
+            perdir: tuple[int, ...] = ()):
     """One V-cycle (`Vcycle!`, `MultiLevelPoisson.jl:88-101`): Jacobi
     pre-smooth, restrict the residual, recurse, coarse solve, prolongate and
     increment."""
     fine, coarse = levels[l], levels[l + 1]
     c = masks[l]
     if presmooth or l > 0:
-        x, r = jacobi(fine, x, r, it=1, omega=1.0)
+        x, r = jacobi(fine, x, r, it=1, omega=1.0, perdir=perdir)
     rc = restrict(r, c)
     xc = torch.zeros_like(rc)
     if l + 1 < len(levels) - 1:
-        xc, rc = v_cycle(levels, masks, xc, rc, omega, l + 1, smooth_it)
-    xc, rc = coarse_solve(coarse, xc, rc, it=smooth_it, omega=omega)
+        xc, rc = v_cycle(levels, masks, xc, rc, omega, l + 1, smooth_it,
+                         perdir=perdir)
+    xc, rc = coarse_solve(coarse, xc, rc, it=smooth_it, omega=omega,
+                          perdir=perdir)
     eps = prolongate(xc, c)
-    return increment(fine, x, r, eps, omega)
+    return increment(fine, x, r, eps, omega, perdir)
 
 
 class MGSolveResult(NamedTuple):
@@ -169,17 +179,18 @@ class MGSolveResult(NamedTuple):
 
 
 def solve_loop(p, x: torch.Tensor, z: torch.Tensor, tol: float, itmx: int,
-               iterate) -> MGSolveResult:
+               iterate, perdir: tuple[int, ...] = ()) -> MGSolveResult:
     """The outer iteration of `solver!` (`MultiLevelPoisson.jl:108-128`): a
     do-while of ``iterate(x, r, omega) -> (x, r, norms)`` (``norms`` the
     device 2-vector ``(L1, Linf)`` of the new residual, read back once per
     iteration), adaptive ω ∈ [0.2, 1] (×0.9 when the L1 norm did not drop,
     ×1.02 when it did) and the dual-norm stop ``L1 < tol/10·N`` ∧
-    ``Linf < tol``, then `canonical_gauge` on the fine level ``p``."""
+    ``Linf < tol``, then `canonical_gauge` on the fine level ``p`` and the
+    periodic ghost refresh of the solution."""
     npdt = np.dtype(str(x.dtype).replace("torch.", ""))
     r1tol = float(npdt.type((tol / 10.0) * math.prod(n - 2 for n in x.shape)))
     rinf_tol = float(npdt.type(tol))
-    r = residual(p, x, z)
+    r = residual(p, x, z, perdir)
     r1, rinf = torch.stack(norms(r)).tolist()     # one device→host read
     omega = npdt.type(1.0)
     stats = [(rinf, r1, float(omega))]
@@ -194,26 +205,26 @@ def solve_loop(p, x: torch.Tensor, z: torch.Tensor, tol: float, itmx: int,
         r1 = rnew
         n += 1
         stats.append((rinf, r1, float(omega)))
-    x = canonical_gauge(x, p.iD)
+    x = per_bc(canonical_gauge(x, p.iD), perdir)
     return MGSolveResult(x, r, n, stats)
 
 
 def solve_mg(levels, masks, x: torch.Tensor, z: torch.Tensor,
              tol: float = 2e-3, itmx: int = 32, smooth_it: int = 4,
-             fine_smooth_it: int = 0,
-             fine_presmooth: bool = True) -> MGSolveResult:
+             fine_smooth_it: int = 0, fine_presmooth: bool = True,
+             perdir: tuple[int, ...] = ()) -> MGSolveResult:
     """Multigrid pressure solve (`solver!`, `MultiLevelPoisson.jl:108-128`):
     `solve_loop` over a V-cycle plus the fine red-black smooth."""
     p = levels[0]
 
     def iterate(x, r, omega):
         x, r = v_cycle(levels, masks, x, r, omega, 0, smooth_it,
-                       presmooth=fine_presmooth)
+                       presmooth=fine_presmooth, perdir=perdir)
         x, r = gauss_seidel_rb(p, x, r, it=fine_smooth_it or smooth_it,
-                               omega=omega)
+                               omega=omega, perdir=perdir)
         return x, r, torch.stack(norms(r))
 
-    return solve_loop(p, x, z, tol, itmx, iterate)
+    return solve_loop(p, x, z, tol, itmx, iterate, perdir)
 
 
 def canonical_gauge(x: torch.Tensor, iD: torch.Tensor) -> torch.Tensor:

@@ -1,19 +1,24 @@
 """Hand-written CUDA stencil kernels for the dense layout, with their plain
 PyTorch versions.
 
-Counterpart of `waterlily_tpu/ops/pallas3d.py`.  Four kernels carry the hot
-stencils of the static-body main path (sources in `csrc/stencil3d.cu`, built
-with `nvcc` for `sm_90a` on first use, see `ops/_build.py`):
+Counterpart of `waterlily_tpu/ops/pallas3d.py`.  Five kernels carry its
+stencils (sources in `csrc/stencil3d.cu`, built with `nvcc` for `sm_90a` on
+first use, see `ops/_build.py`):
 
-=============  ===========================================  ==================
-wrapper        replaces (TPU)                               JAX caller
-=============  ===========================================  ==================
-`conv_diff_k`  `pallas3d.py:274` `conv_diff3d_generic`      `flow.conv_diff`
-`bdim_k`       `pallas3d.py:372` `bdim3d`                   `flow.bdim_update`
-`mult_k`       `pallas3d.py:504` `mult3d`                   `poisson._mult_raw`
-`gs_incr_k`    `pallas3d.py:416,497` `gs_incr3d`,           `poisson.jacobi`,
-               `jacobi_incr3d`                              `poisson.gauss_seidel_rb`
-=============  ===========================================  ==================
+================  ===========================================  ==================
+wrapper           replaces (TPU)                               JAX caller
+================  ===========================================  ==================
+`conv_diff_k`     `pallas3d.py:274` `conv_diff3d_generic`      `flow.conv_diff`
+`bdim_k`          `pallas3d.py:372` `bdim3d`                   `flow.bdim_update`
+`mult_k`          `pallas3d.py:504` `mult3d`                   `poisson._mult_raw`
+`gs_incr_k`       `pallas3d.py:416,497` `gs_incr3d`,           `poisson.jacobi`,
+                  `jacobi_incr3d`                              `poisson.gauss_seidel_rb`
+`gauss_sweeps_k`  `pallas3d.py:312,366` `gauss_sweeps3d`,      `poisson.gauss_seidel_rb`
+                  `gauss_sweep3d`                              with ``perdir``
+================  ===========================================  ==================
+
+`conv_diff_k` takes the periodic directions (``perdir``) as a mode: there
+the boundary-slab fluxes are the periodic ϕuP ones (`_phi_slabs`).
 
 Beside each kernel sits its plain version (``*_plain``): the jnp body of the
 JAX caller written in torch, general in the number of dims.  A wrapper given
@@ -24,7 +29,7 @@ version, a routing by dtype and device as in the JAX `use_pallas`).
 `plain_ops()` forces the plain route on the card so both can be compared.
 
 Each wrapper adds one to its entry in `launch_counts()` per call that
-launches on the card, and nowhere else; the count also holds the four
+launches on the card, and nowhere else; the count also holds the six
 kernels of `ops/fused3d.py`.
 
 Unlike the Pallas path, the kernels write every cell with the plain formula:
@@ -41,20 +46,22 @@ from typing import Callable, Sequence
 
 import torch
 
+from .bc import per_bc
 from .grid import index_sum_parity, inside_mask, shift, zero_ghost
 
 __all__ = [
     "use_kernels", "plain_ops", "launch_counts", "reset_launch_counts",
     "median3", "quick", "cds", "vanleer", "SCHEMES", "scheme_id",
     "conv_diff_plain", "bdim_plain", "mult_plain", "gs_incr_plain",
-    "conv_diff_k", "bdim_k", "mult_k", "gs_incr_k",
+    "gauss_sweeps_plain",
+    "conv_diff_k", "bdim_k", "mult_k", "gs_incr_k", "gauss_sweeps_k",
 ]
 
 _PLAIN = contextvars.ContextVar("waterlily_tpu_torch_plain_ops", default=False)
 # launches per wrapper, of this module's kernels and of `ops/fused3d.py`'s
 _LAUNCHES = {"conv_diff_k": 0, "bdim_k": 0, "mult_k": 0, "gs_incr_k": 0,
-             "conv_diff_bdim_k": 0, "incr_gs_k": 0, "bc_div_k": 0,
-             "projbc_k": 0}
+             "gauss_sweeps_k": 0, "conv_diff_bdim_k": 0, "incr_gs_k": 0,
+             "bc_div_k": 0, "projbc_k": 0, "bc_k": 0, "div_k": 0}
 
 
 def use_kernels(t: torch.Tensor) -> bool:
@@ -132,10 +139,13 @@ def _slab_ix(axis: int, idx: int):
     return (slice(None),) * axis + (slice(idx, idx + 1),)
 
 
-def _phi_slabs(u, f, i, j, scheme, nu):
-    """Fixed fluxes of pair (i, j) at the first interior slab (`ϕuL`) and at
-    the top ghost slab (`ϕuR`) of a non-periodic direction (`Flow.jl:56-62`;
-    the JAX `_phi_slabs` without ``ctx``)."""
+def _phi_slabs(u, f, i, j, scheme, nu, perdir=()):
+    """Fixed fluxes of pair (i, j) at the first interior slab and at the top
+    ghost slab (`Flow.jl:56-62`; the JAX `_phi_slabs` without ``ctx``):
+    one-sided `ϕuL`/`ϕuR` in a non-periodic direction; in a periodic one
+    (`ϕuP`) the first-slab flux is the generic formula with its second-upwind
+    value read from the periodic partner n−3 (not the roll-wrap n−1), and
+    the top-ghost flux is that same flux."""
     n = f.shape[j]
     lo, hi = _slab_ix(j, 1), _slab_ix(j, n - 1)
 
@@ -147,6 +157,11 @@ def _phi_slabs(u, f, i, j, scheme, nu):
 
     f0, f1, f2 = f[_slab_ix(j, 0)], f[lo], f[_slab_ix(j, 2)]
     ua = uadv_slab(lo)
+    if j in perdir:
+        phi_lo = (ua * torch.where(ua > 0, scheme(f[_slab_ix(j, n - 3)], f0, f1),
+                                   scheme(f2, f1, f0))
+                  - nu * (f1 - f0))
+        return phi_lo, phi_lo
     phi_lo = (ua * torch.where(ua > 0, 0.5 * (f1 + f0), scheme(f2, f1, f0))
               - nu * (f1 - f0))
     fm1, fm2, fm3 = f[hi], f[_slab_ix(j, n - 2)], f[_slab_ix(j, n - 3)]
@@ -156,15 +171,17 @@ def _phi_slabs(u, f, i, j, scheme, nu):
     return phi_lo, phi_hi
 
 
-def conv_diff_plain(u: torch.Tensor, nu, scheme: Callable) -> torch.Tensor:
+def conv_diff_plain(u: torch.Tensor, nu, scheme: Callable,
+                    perdir: tuple[int, ...] = ()) -> torch.Tensor:
     """Convective + diffusive momentum RHS (`conv_diff!`, `Flow.jl:38-62`):
-    the jnp body of the JAX `conv_diff` for non-periodic directions.
+    the jnp body of the JAX `conv_diff`.
 
     Per (component i, direction j) the flux
     ``Φ = uadv·λ(upwind stencil of u_i) − ν ∂u_i/∂x_j`` is evaluated with
-    roll shifts, fixed at the first interior slab (ϕuL) and at the top ghost
-    slab (ϕuR); ``r_i = Σ_j Φ − Φ(+e_j)``.  Every cell is defined, ghosts
-    included, with roll-wrap reads."""
+    roll shifts, fixed at the first interior slab and at the top ghost slab
+    (`_phi_slabs`: ϕuL/ϕuR, or ϕuP in the directions of ``perdir``);
+    ``r_i = Σ_j Φ − Φ(+e_j)``.  Every cell is defined, ghosts included, with
+    roll-wrap reads."""
     D = u.shape[0]
     out = []
     for i in range(D):
@@ -176,7 +193,7 @@ def conv_diff_plain(u: torch.Tensor, nu, scheme: Callable) -> torch.Tensor:
             up = scheme(shift(f, j, -2), shift(f, j, -1), f)
             dn = scheme(shift(f, j, 1), f, shift(f, j, -1))
             phi = uadv * torch.where(uadv > 0, up, dn) - nu * (f - shift(f, j, -1))
-            phi_lo, phi_hi = _phi_slabs(u, f, i, j, scheme, nu)
+            phi_lo, phi_hi = _phi_slabs(u, f, i, j, scheme, nu, perdir)
             phi[_slab_ix(j, 1)] = phi_lo
             phi[_slab_ix(j, n - 1)] = phi_hi
             ri = ri + (phi - shift(phi, j, 1))
@@ -216,16 +233,25 @@ def _gauss(r, eps, L, iD):
     return s * iD
 
 
-def _rb_sweeps(r, L, iD, colors: Sequence[int]) -> torch.Tensor:
-    """``eps = r·iD`` with zero ghosts; then per colour, the interior cells
-    of index-sum parity ``colour`` take `_gauss(eps)`."""
-    eps = zero_ghost(r * iD)
+def gauss_sweeps_plain(eps, r, L, iD, colors: Sequence[int],
+                       perdir: tuple[int, ...] = ()) -> torch.Tensor:
+    """Red-black colour sweeps (`gauss`/`gauss_rb`, `Poisson.jl:116-132`;
+    the jnp loop of the JAX `gauss_seidel_rb`): per colour, the periodic
+    ghosts of ``eps`` are refreshed (`per_bc`), then the interior cells of
+    index-sum parity ``colour`` take `_gauss(eps)`; every other cell keeps
+    its value."""
     if colors:
         parity = index_sum_parity(r.shape, r.device)
         inside = inside_mask(r.shape, r.device)
         for c in colors:
+            eps = per_bc(eps, perdir)
             eps = torch.where((parity == c) & inside, _gauss(r, eps, L, iD), eps)
     return eps
+
+
+def _rb_sweeps(r, L, iD, colors: Sequence[int]) -> torch.Tensor:
+    """``eps = r·iD`` with zero ghosts, then the colour sweeps."""
+    return gauss_sweeps_plain(zero_ghost(r * iD), r, L, iD, colors)
 
 
 def gs_incr_plain(x, r, L, D, iD, colors: Sequence[int], omega):
@@ -282,24 +308,35 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def conv_diff_k(u: torch.Tensor, nu, scheme_id: int) -> torch.Tensor:
+def _dirs(name: str, perdir) -> list[int]:
+    dirs = [int(j) for j in perdir]
+    if any(j not in (0, 1, 2) for j in dirs) or len(set(dirs)) != len(dirs):
+        raise ValueError(f"{name}: perdir must hold distinct directions 0-2, "
+                         f"got {tuple(perdir)}")
+    return dirs
+
+
+def conv_diff_k(u: torch.Tensor, nu, scheme_id: int,
+                perdir: tuple[int, ...] = ()) -> torch.Tensor:
     """K12: conv–diff RHS of all three components, ``(3, Nx, Ny, Nz)`` f32,
-    every cell written with the plain formula (`conv_diff_plain`).  ``nu``
-    is a 0-d tensor read on the card (no host sync) or a float."""
+    every cell written with the plain formula (`conv_diff_plain`), periodic
+    in the directions of ``perdir``.  ``nu`` is a 0-d tensor read on the
+    card (no host sync) or a float."""
     if not u.is_cuda:
-        return conv_diff_plain(u, nu, SCHEMES[scheme_id])
+        return conv_diff_plain(u, nu, SCHEMES[scheme_id], perdir)
     shape = tuple(u.shape[1:])
     _check("conv_diff_k", shape, u.device, u=u)
     _lead("conv_diff_k", "u", u, (3,))
     if not 0 <= scheme_id < len(SCHEMES):
         raise ValueError(f"conv_diff_k: unknown scheme id {scheme_id}")
+    per = sum(1 << j for j in _dirs("conv_diff_k", perdir))
     nu = torch.as_tensor(nu, dtype=torch.float32, device=u.device)
     if nu.numel() != 1:
         raise ValueError("conv_diff_k: nu must be a scalar")
     out = torch.empty_like(u)
     lib = _lib()
     _launch("conv_diff_k", lib.wlt_conv_diff, _ptr(u), _ptr(nu), _ptr(out),
-            *shape, scheme_id, _stream(u.device))
+            *shape, scheme_id, per, _stream(u.device))
     return out
 
 
@@ -358,3 +395,28 @@ def gs_incr_k(x, r, L, D, iD, colors: Sequence[int], omega: float):
             _ptr(iD), _ptr(eps), _ptr(x_out), _ptr(r_out), carr, len(cols),
             ctypes.c_float(float(omega)), *shape, _stream(x.device))
     return x_out, r_out
+
+
+def gauss_sweeps_k(eps, r, L, iD, colors: Sequence[int],
+                   perdir: tuple[int, ...] = ()) -> torch.Tensor:
+    """K13: `gauss_sweeps_plain` (a periodic ghost refresh of ``eps`` and
+    one colour sweep per colour) in one kernel entry; returns the new
+    ``eps``, the input is not modified."""
+    if not eps.is_cuda:
+        return gauss_sweeps_plain(eps, r, L, iD, colors, perdir)
+    shape = tuple(eps.shape)
+    _check("gauss_sweeps_k", shape, eps.device, eps=eps, r=r, L=L, iD=iD)
+    for arg, t in (("eps", eps), ("r", r), ("iD", iD)):
+        _lead("gauss_sweeps_k", arg, t, ())
+    _lead("gauss_sweeps_k", "L", L, (3,))
+    cols = [int(c) for c in colors]
+    if any(c not in (0, 1) for c in cols):
+        raise ValueError(f"gauss_sweeps_k: colours must be 0 or 1, got {cols}")
+    dirs = _dirs("gauss_sweeps_k", perdir)
+    carr = (ctypes.c_int * max(1, len(cols)))(*cols)
+    parr = (ctypes.c_int * max(1, len(dirs)))(*dirs)
+    out = eps.clone()
+    _launch("gauss_sweeps_k", _lib().wlt_gauss_sweeps, _ptr(out), _ptr(r),
+            _ptr(L), _ptr(iD), carr, len(cols), parr, len(dirs), *shape,
+            _stream(eps.device))
+    return out

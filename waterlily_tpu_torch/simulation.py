@@ -6,9 +6,11 @@ body measure and the multigrid pressure solver, and `sim_step` drives the
 host time loop around `mom_step_impl` (data-dependent CFL, like the
 reference's `sim_step!` loop at `WaterLily.jl:128-139`).
 
-Supported: the multigrid solver on non-periodic domains with constant
-boundary velocity, static or moving `AutoBody` geometry re-measured densely.
-`sim_step_n` is a host loop over `step_once`.
+Supported: the multigrid solver with constant boundary velocity, periodic
+directions (``perdir``), the convective outlet (``exit_bc``), a constant or
+callable initial velocity ``u0``, static or moving `AutoBody` geometry
+re-measured densely.  `sim_step_n` is a host loop over `step_once`.  Every
+tensor lives on ``device``, the card unless the caller asks for the CPU.
 
 Two engines step the flow, as in the JAX package: ``engine="3d"`` runs
 `flow.mom_step_impl` (the generic engine, kernels of `ops/stencil3d.py`),
@@ -39,11 +41,32 @@ _BAND_PAD = 4    # rows of slack around the band (`simulation.py:213`)
 
 def check_fn(f, D: int, dtype, nargs: int, name: str) -> None:
     """Constructor-time validation of a user callable (`check_fn`,
-    `src/WaterLily.jl:78-84`).  The port takes no callable ubc/g/u0 yet, so
-    any callable raises (ROADMAP queue 1, item 10)."""
-    if f is not None and callable(f):
+    `src/WaterLily.jl:78-84`): call it once per component on a dummy point
+    and raise a readable error on a bad signature or a non-scalar result.
+    ``nargs == 2`` is an initial condition ``f(i, x)``; a callable with
+    ``nargs == 3`` (``ubc``/``g``, ``f(i, x, t)``) is not ported yet and
+    raises (ROADMAP queue 1, item 10)."""
+    if f is None or not callable(f):
+        return
+    if nargs == 3:
         raise NotImplementedError(
             f"callable {name} is not ported yet: {fl.ROADMAP_FLOW_CONFIGS}")
+    x = torch.zeros((D,), dtype=dtype)
+    for i in range(D):
+        try:
+            out = f(i, x)
+        except TypeError as e:
+            raise ValueError(
+                f"{name} must have signature {name}(i, x) with i an int "
+                f"component index and x a ({D},) position: {e}") from e
+        except Exception as e:
+            raise ValueError(
+                f"{name}(i, x) failed on a dummy point (i={i}, x=zeros({D})) "
+                f"— it must be written with torch ops: {e}") from e
+        if torch.as_tensor(out).shape != ():
+            raise ValueError(f"{name}(i, x) must return a scalar per "
+                             f"component, got shape "
+                             f"{tuple(torch.as_tensor(out).shape)} for i={i}")
 
 
 def _as_dtype(v: float, dtype: torch.dtype) -> float:
@@ -52,19 +75,21 @@ def _as_dtype(v: float, dtype: torch.dtype) -> float:
     return torch.tensor(v, dtype=dtype).item()
 
 
-def _band_box(V: torch.Tensor, mu0: torch.Tensor, mu1: torch.Tensor) -> torch.Tensor:
+def _band_box(V: torch.Tensor, mu0: torch.Tensor, mu1: torch.Tensor,
+              perdir: tuple[int, ...] = ()) -> torch.Tensor:
     """Per-dim padded-index ``[lo, hi)`` bounds of the interior cells whose
     BDIM moments deviate from the far field: μ1 = 0, V = 0, and μ0 = 1 but
-    on the face-1 plane of each direction, which the measure-time BC fill
-    zeroes (the JAX `_band_box`, `simulation.py:145-186`, non-periodic, no
-    box).  A ``(D, 2)`` int tensor; dim d reads ``(shape[d], 0)`` when
+    on the face-1 plane of each non-periodic direction, which the
+    measure-time BC fill zeroes (the JAX `_band_box`, `simulation.py:145-186`,
+    no box).  A ``(D, 2)`` int tensor; dim d reads ``(shape[d], 0)`` when
     nothing deviates."""
     D, shape = mu0.shape[0], tuple(mu0.shape[1:])
     sl = (slice(None),) + tuple(slice(1, n - 1) for n in shape)
     m0 = mu0[sl]
     exp = torch.ones_like(m0)
     for d in range(D):
-        exp[(d,) + (slice(None),) * d + (0,)] = 0.0
+        if d not in perdir:
+            exp[(d,) + (slice(None),) * d + (0,)] = 0.0
     dev_cell = ((m0 != exp).any(dim=0) | (V[sl] != 0).any(dim=0)
                 | (mu1[(slice(None),) + sl] != 0).flatten(0, 1).any(dim=0))
     out = []
@@ -86,7 +111,11 @@ class Simulation:
     where every tensor lives.  The solver knobs default to the non-TPU
     values of the JAX package: ``smooth_it=4``, ``fine_presmooth=True``, a
     dense coarse solve below ``min_coarse_cells=64``.  ``engine`` picks the
-    stepping engine (module docstring); ``"flat"`` needs D = 3."""
+    stepping engine (module docstring); ``"flat"`` needs D = 3.  ``perdir``
+    lists the periodic directions (0-based), ``exit_bc`` puts the convective
+    outlet on the x-high face, ``u0`` is a constant tuple or a callable
+    ``u0(i, x)`` written with torch ops.  ``device`` defaults to the card
+    (``"cuda"``); CPU callers pass ``device="cpu"``."""
 
     def __init__(self, dims, ubc, L, *, U=None, dt=0.25, nu=0.0,
                  g: Optional[Callable] = None, eps: float = 1.0,
@@ -99,7 +128,7 @@ class Simulation:
                  fine_presmooth: Optional[bool] = None,
                  min_coarse_cells: Optional[int] = None,
                  flow_ctor: Optional[Callable] = None, psolver: str = "mg",
-                 engine: str = "auto", device="cpu"):
+                 engine: str = "auto", device="cuda"):
         D = len(dims)
         if engine not in ENGINES:
             raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
@@ -140,7 +169,8 @@ class Simulation:
         self.masks = tuple(mg.level_shapes(cfg.shape,
                                            min_cells=self._min_coarse)[1])
         if isinstance(self.body, NoBody):
-            self.levels = mg.update_mg(self.masks, self.flow.state.mu0)
+            self.levels = mg.update_mg(self.masks, self.flow.state.mu0,
+                                       cfg.perdir)
         else:
             self.measure(t=0.0)
 
@@ -170,12 +200,13 @@ class Simulation:
             t = self.time + self.flow.dt[-1]
         V, mu0, mu1, _ = measure_fill(self.body, cfg.shape,
                                       _as_dtype(t, cfg.dtype), float(self.eps),
-                                      cfg.dtype, self.device)
+                                      cfg.dtype, self.device, cfg.perdir,
+                                      cfg.exit_bc)
         self.flow.state = dataclasses.replace(self.flow.state,
                                               V=V, mu0=mu0, mu1=mu1)
-        self.levels = mg.update_mg(self.masks, mu0)
+        self.levels = mg.update_mg(self.masks, mu0, cfg.perdir)
         if self.engine == "flat":
-            self._set_band(_band_box(V, mu0, mu1))
+            self._set_band(_band_box(V, mu0, mu1, cfg.perdir))
 
     def _set_band(self, band: torch.Tensor):
         """Set ``cfg.band_x`` from the raw x bounds of `_band_box` (one host
