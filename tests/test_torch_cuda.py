@@ -1,5 +1,6 @@
-"""The CUDA kernels of `ops/stencil3d.py` and `ops/fused3d.py` against their
-plain versions on the card, at small shapes, and the routing of both engines.  No JAX: run it on a machine with an NVIDIA GPU
+"""The CUDA kernels of `ops/stencil3d.py`, `ops/fused3d.py` and `ops/probe.py`
+against their plain versions on the card, at small shapes, and the routing
+of both engines.  No JAX: run it on a machine with an NVIDIA GPU
 with ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``
 (the repository conftest imports JAX).  Elsewhere every test skips.
 
@@ -10,7 +11,11 @@ fused tail and its norms and the projection + BC (and its CFL max, also
 keeping the exit plane), 1e-6 for BC + divergence, BC alone and the
 divergence alone (the same additions in the same order).
 The kernels and the plain versions round in a different order (fused
-multiply-adds in the kernels), nothing more."""
+multiply-adds in the kernels), nothing more.  The band-sparse BDIM: 2e-5.
+The mixed-precision smoothers round every bf16 operation where torch does
+and use no fused multiply-add, so x is held to 1e-5 and r to 2⁻⁸ (one bf16
+rounding that flips), both expected to be met exactly; their norms 1e-5.
+The copy probes: equal."""
 import numpy as np
 import pytest
 import torch
@@ -18,6 +23,7 @@ import torch
 import waterlily_tpu_torch as wt
 from waterlily_tpu_torch.ops import fused3d as fz
 from waterlily_tpu_torch.ops import poisson as ps
+from waterlily_tpu_torch.ops import probe
 from waterlily_tpu_torch.ops import stencil3d as st
 from waterlily_tpu_torch.ops.bc import bc_vector
 
@@ -103,11 +109,9 @@ def test_launch_counts_and_routing(dev):
     with st.plain_ops():
         assert not st.use_kernels(d["x"])
         ps.mult(lev, d["x"])
-    assert st.launch_counts() == {"conv_diff_k": 0, "bdim_k": 0, "mult_k": 1,
-                                  "gs_incr_k": 2, "gauss_sweeps_k": 0,
-                                  "conv_diff_bdim_k": 0, "incr_gs_k": 0,
-                                  "bc_div_k": 0, "projbc_k": 0, "bc_k": 0,
-                                  "div_k": 0}
+    assert st.launch_counts() == dict.fromkeys(st.launch_counts(), 0) | {
+        "mult_k": 1, "gs_incr_k": 2}
+    assert len(st.launch_counts()) == 16
     # float64 on the card takes the plain version; the wrapper refuses it
     assert not st.use_kernels(d["x"].double())
     with pytest.raises(TypeError):
@@ -291,3 +295,142 @@ def test_periodic_and_exit_routing(dev):
     u = sim.flow.u
     inflow = u[0, 1, 1:-1, 1:-1].mean()
     assert ((u[0, -1, 1:-1, 1:-1].mean() - inflow).abs() / inflow).item() <= 1e-5
+
+
+# ------------------------------------------------------------ forced flows, mp
+def bands(nx):
+    return {"middle": (nx // 3, 2 * nx // 3), "row1": (1, nx // 2),
+            "top": (nx // 2, nx - 1), "full": (1, nx - 1), "empty": (1, 1)}
+
+
+@pytest.mark.parametrize("shape", PER_SHAPES)
+@pytest.mark.parametrize("band", ["middle", "row1", "top", "full", "empty"])
+@pytest.mark.parametrize("perdir", [(), (2,), (0, 1, 2)], ids=["walls", "z", "xyz"])
+def test_bdim_band_k(dev, shape, band, perdir):
+    d = inputs(shape, 14, dev)
+    args = [d[k] for k in ("u", "u0", "f", "V", "mu0", "mu1")]
+    b = bands(shape[0])[band]
+    assert rel_err(st.bdim_band_k(*args, 0.3, b, perdir),
+                   st.bdim_band_plain(*args, 0.3, b, perdir)) <= 2e-5
+    with pytest.raises(ValueError):
+        st.bdim_band_k(*args, 0.3, (0, 3))
+
+
+@pytest.mark.parametrize("shape", PER_SHAPES)
+@pytest.mark.parametrize("colors", [[], [0, 1], [0, 1, 0, 1]],
+                         ids=["jacobi", "rb2", "rb4"])
+def test_gs_incr_mp_k(dev, shape, colors):
+    d = inputs(shape, 15, dev)
+    lev = ps.with_bf16(d["lev"])
+    st.reset_launch_counts()
+    got = st.gs_incr_k(d["x"], d["r"], *lev.bf, colors, 0.9, mp=True)
+    want = st.gs_incr_plain(d["x"], d["r"], *lev.bf, colors, 0.9, mp=True)
+    assert rel_err(got[0], want[0]) <= 1e-5
+    assert rel_err(got[1], want[1]) <= 2.0 ** -8
+    n = st.launch_counts()
+    assert n["gs_incr_mp_k"] == 1 and n["gs_incr_k"] == 0
+    with pytest.raises(TypeError):
+        st.gs_incr_k(d["x"], d["r"], lev.L, lev.D, lev.iD, colors, 0.9, mp=True)
+
+
+@pytest.mark.parametrize("shape", PER_SHAPES)
+@pytest.mark.parametrize("want_norms", [False, True], ids=["plain", "norms"])
+def test_incr_gs_mp_k(dev, shape, want_norms):
+    d = inputs(shape, 16, dev)
+    lev = ps.with_bf16(d["lev"])
+    args = (d["x"], d["r"], d["eps"], *lev.bf, [0, 1, 0], 0.9, want_norms)
+    st.reset_launch_counts()
+    got = fz.incr_gs_k(*args, mp=True)
+    want = fz.incr_gs_plain(*args, mp=True)
+    assert rel_err(got[0], want[0]) <= 1e-5
+    assert rel_err(got[1], want[1]) <= 2.0 ** -8
+    if want_norms:
+        for k in range(2):
+            assert rel_err(got[2][k], want[2][k]) <= 1e-5
+    n = st.launch_counts()
+    assert n["incr_gs_mp_k"] == 1 and n["incr_gs_k"] == 0
+    with pytest.raises(ValueError):
+        fz.incr_gs_k(d["x"], d["r"], d["eps"], *lev.bf, [], 0.9, mp=True)
+
+
+@pytest.mark.parametrize("shape", [(18, 18, 18), (7, 5, 3), (8, 8, 8)])
+@pytest.mark.parametrize("nf", [1, 6])
+@pytest.mark.parametrize("block", [256, 1024])
+def test_copy_scale_k(dev, shape, nf, block):
+    rng = np.random.default_rng(17)
+    a = [torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                         device=dev) for _ in range(nf)]
+    st.reset_launch_counts()
+    got = probe.copy_scale_k(a, block)
+    torch.cuda.synchronize()
+    for g, w in zip(got, probe.copy_scale_plain(a)):
+        assert torch.equal(g, w)
+    out = [torch.empty_like(t) for t in a]
+    assert probe.copy_scale_k(a, block, out=out)[0] is out[0]
+    assert st.launch_counts()["copy_scale_k" if nf == 1 else "copy_scale6_k"] == 2
+    with pytest.raises(ValueError):
+        probe.copy_scale_k(a[:1] * 2)
+    with pytest.raises(ValueError):
+        probe.copy_scale_k(a, 100)
+
+
+def test_forced_and_mp_routing(dev):
+    from waterlily_tpu_torch.utils import les
+
+    # LES on the flat engine: K12 + K2 in place of K1, the fused BC kernels stay
+    sim = sphere(32, dev)
+    st.reset_launch_counts()
+    sim.sim_step(remeasure=False, udf=les.sgs(les.smagorinsky(0.17)))
+    n = st.launch_counts()
+    assert n["conv_diff_k"] == 2 and n["bdim_band_k"] == 2
+    assert n["conv_diff_bdim_k"] == n["bdim_k"] == 0
+    assert n["bc_div_k"] == 2 and n["projbc_k"] == 2
+    # a callable ubc and g: no K8, K9 or K10; K11 gives the divergence
+    sim = sphere(32, dev, g=lambda i, x, t: 0.01 * t if i == 1 else 0.0)
+    sim2 = wt.Simulation((32, 32, 32), lambda i, x, t: 1.0 - torch.exp(-t) if i == 0 else 0.0,
+                         4.0, U=1.0, nu=4e-3, body=sim.body, device=dev)
+    st.reset_launch_counts()
+    sim.sim_step(remeasure=False)
+    n = st.launch_counts()
+    assert n["bdim_band_k"] == 2 and n["bc_div_k"] == 2 and n["div_k"] == 0
+    st.reset_launch_counts()
+    sim2.sim_step(remeasure=False)
+    n = st.launch_counts()
+    assert sim2.engine == "flat" and n["bdim_band_k"] == 2 and n["div_k"] == 2
+    assert n["bc_div_k"] == n["projbc_k"] == n["bc_k"] == 0
+    assert torch.isfinite(sim2.flow.u).all() and torch.isfinite(sim2.flow.p).all()
+    # mp_smooth: the fine level's smoothers are the bf16 instantiations
+    sim = sphere(32, dev, smooth_it=2, mp_smooth=True)
+    assert sim.levels[0].bf is not None and sim.levels[1].bf is None
+    st.reset_launch_counts()
+    sim.sim_step(remeasure=False)
+    n = st.launch_counts()
+    assert n["incr_gs_mp_k"] >= 2 and n["gs_incr_mp_k"] >= 2
+    assert n["gs_incr_k"] >= 2 and n["conv_diff_bdim_k"] == 2
+    assert torch.isfinite(sim.flow.u).all() and torch.isfinite(sim.flow.p).all()
+    # the 3d engine ignores it
+    sim = sphere(32, dev, engine="3d", mp_smooth=True)
+    st.reset_launch_counts()
+    sim.sim_step(remeasure=False)
+    n = st.launch_counts()
+    assert n["incr_gs_mp_k"] == n["gs_incr_mp_k"] == 0 and n["gs_incr_k"] > 0
+
+
+def test_mp_run_equals_the_run_with_only_its_smoothers_plain(dev):
+    """`plain_ops(only=...)` routes the bf16 smoothers alone to their plain
+    versions: every float32 kernel still launches, and the run equals the
+    kernels' run bit for bit, since the bf16 kernels round where their plain
+    versions round."""
+    mp = ("gs_incr_mp_k", "incr_gs_mp_k")
+    a, b = (sphere(32, dev, smooth_it=2, mp_smooth=True) for _ in range(2))
+    for _ in range(3):
+        a.sim_step(remeasure=False)
+    st.reset_launch_counts()
+    with st.plain_ops(only=mp):
+        for _ in range(3):
+            b.sim_step(remeasure=False)
+    n = st.launch_counts()
+    assert n["incr_gs_mp_k"] == n["gs_incr_mp_k"] == 0
+    assert n["conv_diff_bdim_k"] == 6 and n["gs_incr_k"] > 0 and n["mult_k"] > 0
+    assert a.pois_n == b.pois_n
+    assert torch.equal(a.flow.u, b.flow.u) and torch.equal(a.flow.p, b.flow.p)

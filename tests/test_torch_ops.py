@@ -109,8 +109,16 @@ def test_exit_bc():
 
 
 def test_unsupported_bc_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bc_t.bc_vector(T(field((2, 6, 6), 0)), lambda i, x, t: 0.0)
+    """`bc_vector` takes a callable spec (held against JAX in
+    `tests/test_torch_forcing.py`); the fused BC kernels take a constant
+    3-tuple and refuse anything else."""
+    from waterlily_tpu_torch.ops import fused3d as fz
+
+    u = bc_t.bc_vector(T(field((2, 6, 6), 0)), lambda i, x, t: 0.5 * t, t=2.0)
+    assert torch.equal(u[0, 0], torch.ones(6, dtype=u.dtype))
+    for bad in (lambda i, x, t: 0.0, (1.0, 0.0)):
+        with pytest.raises(ValueError, match="constant 3-tuple"):
+            fz._ubc3(bad)
 
 
 @pytest.mark.parametrize("shape", SHAPES)

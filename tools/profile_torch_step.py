@@ -5,8 +5,12 @@
 
 ``config`` is ``engine:case`` with ``engine`` in ``flat``/``3d`` and ``case``
 one of ``sphere`` (the 256³ static sphere of ``bench.py``), ``tgv``
-(``examples/tgv3d.py`` at 256³) and ``drag`` (``examples/sphere_drag.py`` at
-N = 128); the default runs all six.  Each is built with ``Simulation`` as
+(``examples/tgv3d.py`` at 256³), ``drag`` (``examples/sphere_drag.py`` at
+N = 128), ``les`` (``examples/les_sharded.py``'s sphere at 256³ with the
+Smagorinsky udf), ``ramp`` (the 256³ sphere with a callable ``ubc`` and
+``g``) and ``sphere-mp``/``sphere-s2`` (the 256³ sphere with ``smooth_it=2``
+with and without bf16 smoothing); the default runs the first three on both
+engines.  Each is built with ``Simulation`` as
 ``chip_smoke.py`` builds it, stepped ``WARM`` times, then ``STEPS`` steps
 run unprofiled (CUDA events around each ``sim_step``, ``synchronize``
 after) and ``STEPS`` more under ``torch.profiler``.  Printed per config:
@@ -53,27 +57,26 @@ def main(argv) -> int:
 
     dev = torch.device("cuda")
     print(cs.card_line(), flush=True)
-    make = {"sphere": lambda e: cs.sphere_sim(torch, wt, 256, dev, engine=e),
-            "tgv": lambda e: cs.tgv_sim(torch, wt, 256, dev, engine=e),
-            "drag": lambda e: cs.drag_sim(torch, wt, 128, dev, engine=e)}
-    configs = argv or [f"{e}:{c}" for c in make for e in ("flat", "3d")]
+    configs = argv or [f"{e}:{c}" for c in ("sphere", "tgv", "drag")
+                       for e in ("flat", "3d")]
     for cfg in configs:
         engine, case = cfg.split(":")
-        sim = make[case](engine)
+        sim, udf = cs.make_sim(torch, wt, case, 128 if case == "drag" else 256,
+                               dev, engine=engine)
         for _ in range(WARM):
-            sim.sim_step(remeasure=False)
+            sim.sim_step(remeasure=False, udf=udf)
         torch.cuda.synchronize()
         walls = []
         for _ in range(STEPS):
             t0 = time.perf_counter()
-            sim.sim_step(remeasure=False)
+            sim.sim_step(remeasure=False, udf=udf)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
         n0 = len(sim.pois_n)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(STEPS):
-                sim.sim_step(remeasure=False)
+                sim.sim_step(remeasure=False, udf=udf)
             torch.cuda.synchronize()
             prof_wall = (time.perf_counter() - t0) * 1e3
         dev_events = [e for e in prof.events()

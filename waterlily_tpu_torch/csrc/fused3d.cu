@@ -307,38 +307,59 @@ __global__ void div_kernel(const float* __restrict__ u,
 // exists for VMEM windows and is later work here.  Bytes with 4 colours:
 // head 36, sweeps 4 x 26, tail 40: ~180 B/cell, 0.92 ms at 258^3; with no
 // colours one tail pass of 32 B/cell, 0.16 ms.
+//
+// MP instantiation (pallas_flat.py:896 incr_gs with mp=True; the arithmetic
+// is in stencil_common.cuh): L, D, iD and the e scratch are bf16.  r1 is
+// formed in float32 from the float32 eps and the bf16 coefficients and kept
+// in float32; the cascade reads its bf16 rounding; A e is accumulated in
+// bf16; x', r' and the norms are float32.  The call must move x, r, eps in,
+// x', r' out (20 B) and five bf16 coefficients (10 B): 30 B/cell against 40,
+// 0.15 ms at 258^3.  It needs at least one colour: the increment alone (K6)
+// has no mixed-precision form.
+template <bool MP>
 __global__ void incr_head_kernel(const float* __restrict__ r,
                                  const float* __restrict__ eps,
-                                 const float* __restrict__ L,
-                                 const float* __restrict__ D,
-                                 const float* __restrict__ iD, float omega,
-                                 float* __restrict__ r1,
-                                 float* __restrict__ e, Grid3 g) {
+                                 const coef_t<MP>* __restrict__ L,
+                                 const coef_t<MP>* __restrict__ D,
+                                 const coef_t<MP>* __restrict__ iD,
+                                 float omega, float* __restrict__ r1,
+                                 coef_t<MP>* __restrict__ e, Grid3 g) {
   int z = blockIdx.x * BZ + threadIdx.x;
   int y = blockIdx.y * BY + threadIdx.y;
   int x = blockIdx.z;
   if (z >= g.nz || y >= g.ny) return;
   int64_t c = at(g, x, y, z);
-  float rv = r[c], ev = 0.f;
-  if (interior(g, x, y, z)) {
-    rv = rv - omega * apply_A(eps, L, D, g, c);
-    ev = rv * iD[c];
+  float rv = r[c];
+  if constexpr (MP) {
+    bf16 ev = rb(0.f);
+    if (interior(g, x, y, z)) {
+      rv = __fsub_rn(rv, __fmul_rn(omega, apply_A_mixed(eps, L, D, g, c)));
+      ev = bmul(rb(rv), iD[c]);
+    }
+    e[c] = ev;
+  } else {
+    float ev = 0.f;
+    if (interior(g, x, y, z)) {
+      rv = rv - omega * apply_A(eps, L, D, g, c);
+      ev = rv * iD[c];
+    }
+    e[c] = ev;
   }
   r1[c] = rv;
-  e[c] = ev;
 }
 
 // rin may alias r_out: each thread reads rin at its own cell only, before it
-// writes r_out there.  e == nullptr: the increment alone.
-template <bool NORMS>
+// writes r_out there.  e == nullptr (float32 only): the increment alone.
+template <bool NORMS, bool MP>
 __global__ void incr_tail_kernel(const float* __restrict__ x,
                                  const float* rin,
                                  const float* __restrict__ eps,
-                                 const float* __restrict__ e,
-                                 const float* __restrict__ L,
-                                 const float* __restrict__ D, float omega,
-                                 float* __restrict__ x_out, float* r_out,
-                                 float* __restrict__ partials, Grid3 g) {
+                                 const coef_t<MP>* __restrict__ e,
+                                 const coef_t<MP>* __restrict__ L,
+                                 const coef_t<MP>* __restrict__ D,
+                                 float omega, float* __restrict__ x_out,
+                                 float* r_out, float* __restrict__ partials,
+                                 Grid3 g) {
   int z = blockIdx.x * BZ + threadIdx.x;
   int y = blockIdx.y * BY + threadIdx.y;
   int xi = blockIdx.z;
@@ -347,7 +368,10 @@ __global__ void incr_tail_kernel(const float* __restrict__ x,
     int64_t c = at(g, xi, y, z);
     float xv = x[c], rv = rin[c];
     if (interior(g, xi, y, z)) {
-      if (e != nullptr) {
+      if constexpr (MP) {
+        xv = __fadd_rn(xv, __fmul_rn(omega, __fadd_rn(eps[c], fb(e[c]))));
+        rv = __fsub_rn(rv, __fmul_rn(omega, fb(apply_A_bf16(e, L, D, g, c))));
+      } else if (e != nullptr) {
         xv = xv + omega * (eps[c] + e[c]);
         rv = rv - omega * apply_A(e, L, D, g, c);
       } else {
@@ -369,6 +393,45 @@ __global__ void incr_tail_kernel(const float* __restrict__ x,
       partials[nb + b] = m;
     }
   }
+}
+
+// e: scratch field (unused with no colours); partials: 2 x
+// wlt_reduce_blocks floats and norms: 2 floats, both nullptr without norms
+template <bool MP>
+cudaError_t launch_incr_gs(const float* x, const float* r, const float* eps,
+                           const coef_t<MP>* L, const coef_t<MP>* D,
+                           const coef_t<MP>* iD, coef_t<MP>* e, float* x_out,
+                           float* r_out, const int* colors, int ncolors,
+                           float omega, float* partials, float* norms,
+                           const Grid3& g, cudaStream_t s) {
+  dim3 block(BZ, BY);
+  dim3 grid = grid_of(g, 1);
+  cudaError_t err;
+  const float* rin = r;
+  const coef_t<MP>* ep = nullptr;
+  if (MP && ncolors == 0) return cudaErrorInvalidValue;
+  if (ncolors > 0) {
+    incr_head_kernel<MP><<<grid, block, 0, s>>>(r, eps, L, D, iD, omega, r_out,
+                                                e, g);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    for (int k = 0; k < ncolors; ++k) {
+      gs_sweep_kernel<MP><<<grid, block, 0, s>>>(r_out, L, iD, e, colors[k], g);
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    }
+    rin = r_out;
+    ep = e;
+  }
+  if (norms == nullptr) {
+    incr_tail_kernel<false, MP><<<grid, block, 0, s>>>(
+        x, rin, eps, ep, L, D, omega, x_out, r_out, nullptr, g);
+    return cudaGetLastError();
+  }
+  incr_tail_kernel<true, MP><<<grid, block, 0, s>>>(
+      x, rin, eps, ep, L, D, omega, x_out, r_out, partials, g);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  int64_t nb = (int64_t)grid.x * grid.y * grid.z;
+  fold_partials_kernel<<<1, RT, 0, s>>>(partials, nb, norms);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -455,42 +518,28 @@ int wlt_div(const float* u, float* div, int64_t nx, int64_t ny, int64_t nz,
   return (int)cudaGetLastError();
 }
 
-// e: scratch field (unused with no colours); partials: 2 x
-// wlt_reduce_blocks floats and norms: 2 floats, both nullptr without norms
 int wlt_incr_gs(const float* x, const float* r, const float* eps,
                 const float* L, const float* D, const float* iD, float* e,
                 float* x_out, float* r_out, const int* colors, int ncolors,
                 float omega, float* partials, float* norms, int64_t nx,
                 int64_t ny, int64_t nz, void* stream) {
-  Grid3 g = make_grid(nx, ny, nz);
-  dim3 block(BZ, BY);
-  dim3 grid = grid_of(g, 1);
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-  const float* rin = r;
-  const float* ep = nullptr;
-  if (ncolors > 0) {
-    incr_head_kernel<<<grid, block, 0, s>>>(r, eps, L, D, iD, omega, r_out, e,
-                                            g);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    for (int k = 0; k < ncolors; ++k) {
-      gs_sweep_kernel<<<grid, block, 0, s>>>(r_out, L, iD, e, colors[k], g);
-      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    }
-    rin = r_out;
-    ep = e;
-  }
-  if (norms == nullptr) {
-    incr_tail_kernel<false><<<grid, block, 0, s>>>(
-        x, rin, eps, ep, L, D, omega, x_out, r_out, nullptr, g);
-    return (int)cudaGetLastError();
-  }
-  incr_tail_kernel<true><<<grid, block, 0, s>>>(x, rin, eps, ep, L, D, omega,
-                                                x_out, r_out, partials, g);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  int64_t nb = (int64_t)grid.x * grid.y * grid.z;
-  fold_partials_kernel<<<1, RT, 0, s>>>(partials, nb, norms);
-  return (int)cudaGetLastError();
+  return (int)launch_incr_gs<false>(x, r, eps, L, D, iD, e, x_out, r_out,
+                                    colors, ncolors, omega, partials, norms,
+                                    make_grid(nx, ny, nz),
+                                    (cudaStream_t)stream);
+}
+
+// the mixed-precision instantiation: L, D, iD and the e scratch are bf16;
+// ncolors >= 1
+int wlt_incr_gs_mp(const float* x, const float* r, const float* eps,
+                   const bf16* L, const bf16* D, const bf16* iD, bf16* e,
+                   float* x_out, float* r_out, const int* colors, int ncolors,
+                   float omega, float* partials, float* norms, int64_t nx,
+                   int64_t ny, int64_t nz, void* stream) {
+  return (int)launch_incr_gs<true>(x, r, eps, L, D, iD, e, x_out, r_out,
+                                   colors, ncolors, omega, partials, norms,
+                                   make_grid(nx, ny, nz),
+                                   (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -5,7 +5,7 @@
 //
 // Layout, indexing and thread shape: see stencil_common.cuh.
 //
-// What bounds these kernels on an H100 (3.35 TB/s HBM3): all five do < 1 flop
+// What bounds these kernels on an H100 (3.35 TB/s HBM3): all do < 1 flop
 // per byte, so each is bound by memory traffic.  The bytes each must move per
 // cell are given beside each kernel; time = bytes x cells / 3.35 TB/s is the
 // floor.  This first version relies on the caches for the stencil reuse; a
@@ -82,6 +82,28 @@ __device__ __forceinline__ float fstar(const float* __restrict__ u0,
   return u0[k] + dt * f[k] - V[k];
 }
 
+// the update of component i at the interior cell c:
+// 1/2 sum_j mu1[i,j] (f*(+e_j) - f*(-e_j)) + V + mu0 f*
+__device__ __forceinline__ float bdim_update_at(const float* __restrict__ u0,
+                                                const float* __restrict__ f,
+                                                const float* __restrict__ V,
+                                                const float* __restrict__ mu0,
+                                                const float* __restrict__ mu1,
+                                                float dt, const Grid3& g,
+                                                int i, int64_t c) {
+  int64_t ci = (int64_t)i * g.n + c;
+  const float* u0i = u0 + (int64_t)i * g.n;
+  const float* fi = f + (int64_t)i * g.n;
+  const float* Vi = V + (int64_t)i * g.n;
+  float acc = 0.f;
+  for (int j = 0; j < 3; ++j) {
+    int64_t s = stride(g, j);
+    float d = fstar(u0i, fi, Vi, dt, c + s) - fstar(u0i, fi, Vi, dt, c - s);
+    acc = acc + mu1[(int64_t)(i * 3 + j) * g.n + c] * d;
+  }
+  return 0.5f * acc + V[ci] + mu0[ci] * fstar(u0i, fi, Vi, dt, c);
+}
+
 __global__ void bdim_kernel(const float* __restrict__ u,
                             const float* __restrict__ u0,
                             const float* __restrict__ f,
@@ -100,17 +122,55 @@ __global__ void bdim_kernel(const float* __restrict__ u,
     out[ci] = u[ci];
     return;
   }
-  const float* u0i = u0 + (int64_t)i * g.n;
-  const float* fi = f + (int64_t)i * g.n;
-  const float* Vi = V + (int64_t)i * g.n;
-  float acc = 0.f;
-  for (int j = 0; j < 3; ++j) {
-    int64_t s = stride(g, j);
-    float d = fstar(u0i, fi, Vi, dt, c + s) - fstar(u0i, fi, Vi, dt, c - s);
-    acc = acc + mu1[(int64_t)(i * 3 + j) * g.n + c] * d;
+  out[ci] = u[ci] + bdim_update_at(u0, f, V, mu0, mu1, dt, g, i, c);
+}
+
+// ------------------------------------------------------------ K2 bdim_band
+// Replaces waterlily_tpu/ops/pallas_flat.py:665 bdim_band: the BDIM update
+// where the caller knows the x rows [lo, hi) outside which the moments are
+// the far field (mu1 = 0, V = 0, mu0 = 1 but 0 on component i's face-1
+// plane of each non-periodic direction):
+//   rows outside [lo, hi):  u_i + inside_i (u0_i + dt f_i)
+//   rows inside:            K14's update, f* read at the 6 neighbours, which
+//                           may lie in the rows next to the band
+// with inside_i the interior minus that face-1 plane (bit i of per set:
+// direction i periodic, the plane stays).  The TPU runs two passes and a
+// scatter (the far-field formula everywhere, bdim_k on the slab with a +-1
+// halo, the slab written back); here one launch covers the field: x is the
+// slowest axis and a block is one x row, so the row test is uniform over a
+// block and costs no divergence.  V, mu0 and mu1 are never read outside the
+// slab [lo-1, hi+1): the rows of the band read V (through f*) at rows lo-1
+// and hi, where it is 0 because the caller's band holds every row with a
+// cell off the far field (`_band_box` of simulation.py).  hi <= lo: the
+// far-field formula everywhere.
+// Bytes per cell (3 components): 48 outside the band (u, u0, f in, out),
+// 108 inside (K14's count); the floor is their row-weighted sum over 3.35
+// TB/s, 0.25 ms at 258^3 with an empty band.
+__global__ void bdim_band_kernel(const float* __restrict__ u,
+                                 const float* __restrict__ u0,
+                                 const float* __restrict__ f,
+                                 const float* __restrict__ V,
+                                 const float* __restrict__ mu0,
+                                 const float* __restrict__ mu1, float dt,
+                                 int lo, int hi, int per,
+                                 float* __restrict__ out, Grid3 g) {
+  int z = blockIdx.x * BZ + threadIdx.x;
+  int y = blockIdx.y * BY + threadIdx.y;
+  int i = blockIdx.z / g.nx;
+  int x = blockIdx.z - i * g.nx;
+  if (z >= g.nz || y >= g.ny) return;
+  int64_t c = at(g, x, y, z);
+  int64_t ci = (int64_t)i * g.n + c;
+  float ui = u[ci];
+  if (interior(g, x, y, z)) {
+    if (x >= lo && x < hi) {
+      ui = ui + bdim_update_at(u0, f, V, mu0, mu1, dt, g, i, c);
+    } else {
+      int face = i == 0 ? x : (i == 1 ? y : z);
+      if (face != 1 || ((per >> i) & 1)) ui = ui + (u0[ci] + dt * f[ci]);
+    }
   }
-  float upd = 0.5f * acc + V[ci] + mu0[ci] * fstar(u0i, fi, Vi, dt, c);
-  out[ci] = u[ci] + upd;
+  out[ci] = ui;
 }
 
 // ------------------------------------------------------------ K16 mult
@@ -144,36 +204,56 @@ __global__ void mult_kernel(const float* __restrict__ x,
 // eps: ~26 B/cell; the increment reads x, r, eps, L (3), D and writes x, r:
 // 36 B/cell.  With 4 colours ~152 B/cell, 0.78 ms at 258^3 at the roofline.
 // Jacobi (no colours) fuses eps = r iD into the increment: 36 B/cell.
+//
+// MP instantiations (pallas_flat.py:759 gs_incr and :891 jacobi_incr with
+// mp=True; the arithmetic is in stencil_common.cuh): L, D, iD and the eps
+// scratch are bf16, the residual is rounded to bf16 where the correction
+// reads it, A eps is accumulated in bf16, and x += w eps, r -= w A eps are
+// float32.  Jacobi must move x, r in and out (16 B) and the five bf16
+// coefficients (10 B): 26 B/cell against 36 in float32, 0.13 ms at 258^3.
+template <bool MP>
 __global__ void eps_init_kernel(const float* __restrict__ r,
-                                const float* __restrict__ iD,
-                                float* __restrict__ eps, Grid3 g) {
+                                const coef_t<MP>* __restrict__ iD,
+                                coef_t<MP>* __restrict__ eps, Grid3 g) {
   int z = blockIdx.x * BZ + threadIdx.x;
   int y = blockIdx.y * BY + threadIdx.y;
   int x = blockIdx.z;
   if (z >= g.nz || y >= g.ny) return;
   int64_t c = at(g, x, y, z);
-  eps[c] = interior(g, x, y, z) ? r[c] * iD[c] : 0.f;
+  bool m = interior(g, x, y, z);
+  if constexpr (MP) {
+    eps[c] = m ? bmul(rb(r[c]), iD[c]) : rb(0.f);
+  } else {
+    eps[c] = m ? r[c] * iD[c] : 0.f;
+  }
 }
 
 // eps at cell k: read from eps, or (Jacobi) computed as r iD with zero ghosts
-template <bool FROM_R>
-__device__ __forceinline__ float eps_at(const float* __restrict__ eps,
-                                        const float* __restrict__ r,
-                                        const float* __restrict__ iD,
-                                        const Grid3& g, int x, int y, int z,
-                                        int64_t k) {
-  if (FROM_R) return interior(g, x, y, z) ? r[k] * iD[k] : 0.f;
+template <bool FROM_R, bool MP>
+__device__ __forceinline__ coef_t<MP> eps_at(const coef_t<MP>* __restrict__ eps,
+                                             const float* __restrict__ r,
+                                             const coef_t<MP>* __restrict__ iD,
+                                             const Grid3& g, int x, int y,
+                                             int z, int64_t k) {
+  if (FROM_R) {
+    bool m = interior(g, x, y, z);
+    if constexpr (MP) {
+      return m ? bmul(rb(r[k]), iD[k]) : rb(0.f);
+    } else {
+      return m ? r[k] * iD[k] : 0.f;
+    }
+  }
   return eps[k];
 }
 
-template <bool FROM_R>
+template <bool FROM_R, bool MP>
 __global__ void increment_kernel(const float* __restrict__ x,
                                  const float* __restrict__ r,
-                                 const float* __restrict__ L,
-                                 const float* __restrict__ D,
-                                 const float* __restrict__ iD,
-                                 const float* __restrict__ eps, float omega,
-                                 float* __restrict__ x_out,
+                                 const coef_t<MP>* __restrict__ L,
+                                 const coef_t<MP>* __restrict__ D,
+                                 const coef_t<MP>* __restrict__ iD,
+                                 const coef_t<MP>* __restrict__ eps,
+                                 float omega, float* __restrict__ x_out,
                                  float* __restrict__ r_out, Grid3 g) {
   int z = blockIdx.x * BZ + threadIdx.x;
   int y = blockIdx.y * BY + threadIdx.y;
@@ -182,22 +262,70 @@ __global__ void increment_kernel(const float* __restrict__ x,
   int64_t c = at(g, xi, y, z);
   float e = 0.f, ae = 0.f;
   if (interior(g, xi, y, z)) {
-    e = eps_at<FROM_R>(eps, r, iD, g, xi, y, z, c);
-    ae = e * D[c];
+    coef_t<MP> ec = eps_at<FROM_R, MP>(eps, r, iD, g, xi, y, z, c);
+    coef_t<MP> acc;
+    if constexpr (MP) {
+      acc = bmul(ec, D[c]);
+    } else {
+      acc = ec * D[c];
+    }
     const int p[3] = {xi, y, z};
     for (int d = 0; d < 3; ++d) {
       int64_t st = stride(g, d);
-      const float* Ld = L + (int64_t)d * g.n;
+      const coef_t<MP>* Ld = L + (int64_t)d * g.n;
       int lo[3] = {p[0], p[1], p[2]};
       int hi[3] = {p[0], p[1], p[2]};
       lo[d] -= 1;
       hi[d] += 1;
-      ae = ae + eps_at<FROM_R>(eps, r, iD, g, lo[0], lo[1], lo[2], c - st) * Ld[c];
-      ae = ae + eps_at<FROM_R>(eps, r, iD, g, hi[0], hi[1], hi[2], c + st) * Ld[c + st];
+      coef_t<MP> el = eps_at<FROM_R, MP>(eps, r, iD, g, lo[0], lo[1], lo[2], c - st);
+      coef_t<MP> eh = eps_at<FROM_R, MP>(eps, r, iD, g, hi[0], hi[1], hi[2], c + st);
+      if constexpr (MP) {
+        acc = badd(badd(acc, bmul(el, Ld[c])), bmul(eh, Ld[c + st]));
+      } else {
+        acc = acc + el * Ld[c];
+        acc = acc + eh * Ld[c + st];
+      }
+    }
+    if constexpr (MP) {
+      e = fb(ec);
+      ae = fb(acc);
+    } else {
+      e = ec;
+      ae = acc;
     }
   }
-  x_out[c] = x[c] + omega * e;
-  r_out[c] = r[c] - omega * ae;
+  if constexpr (MP) {
+    x_out[c] = __fadd_rn(x[c], __fmul_rn(omega, e));
+    r_out[c] = __fsub_rn(r[c], __fmul_rn(omega, ae));
+  } else {
+    x_out[c] = x[c] + omega * e;
+    r_out[c] = r[c] - omega * ae;
+  }
+}
+
+template <bool MP>
+cudaError_t launch_gs_incr(const float* x, const float* r, const coef_t<MP>* L,
+                           const coef_t<MP>* D, const coef_t<MP>* iD,
+                           coef_t<MP>* eps, float* x_out, float* r_out,
+                           const int* colors, int ncolors, float omega,
+                           const Grid3& g, cudaStream_t s) {
+  dim3 block(BZ, BY);
+  dim3 grid = grid_of(g, 1);
+  cudaError_t err;
+  if (ncolors == 0) {
+    increment_kernel<true, MP><<<grid, block, 0, s>>>(x, r, L, D, iD, nullptr,
+                                                      omega, x_out, r_out, g);
+    return cudaGetLastError();
+  }
+  eps_init_kernel<MP><<<grid, block, 0, s>>>(r, iD, eps, g);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  for (int k = 0; k < ncolors; ++k) {
+    gs_sweep_kernel<MP><<<grid, block, 0, s>>>(r, L, iD, eps, colors[k], g);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  increment_kernel<false, MP><<<grid, block, 0, s>>>(x, r, L, D, iD, eps, omega,
+                                                     x_out, r_out, g);
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------------------ K13 gauss_sweeps
@@ -273,29 +401,36 @@ int wlt_mult(const float* x, const float* L, const float* D, float* out,
   return (int)cudaGetLastError();
 }
 
+// band rows [lo, hi) with 1 <= lo < hi <= nx - 1, or hi <= lo for none;
+// per: bit j set = direction j periodic
+int wlt_bdim_band(const float* u, const float* u0, const float* f,
+                  const float* V, const float* mu0, const float* mu1, float dt,
+                  int lo, int hi, int per, float* out, int64_t nx, int64_t ny,
+                  int64_t nz, void* stream) {
+  Grid3 g = make_grid(nx, ny, nz);
+  bdim_band_kernel<<<grid_of(g, 3), dim3(BZ, BY), 0, (cudaStream_t)stream>>>(
+      u, u0, f, V, mu0, mu1, dt, lo, hi, per, out, g);
+  return (int)cudaGetLastError();
+}
+
+// eps: scratch field (unused with no colours)
 int wlt_gs_incr(const float* x, const float* r, const float* L,
                 const float* D, const float* iD, float* eps, float* x_out,
                 float* r_out, const int* colors, int ncolors, float omega,
                 int64_t nx, int64_t ny, int64_t nz, void* stream) {
-  Grid3 g = make_grid(nx, ny, nz);
-  dim3 block(BZ, BY);
-  dim3 grid = grid_of(g, 1);
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-  if (ncolors == 0) {
-    increment_kernel<true><<<grid, block, 0, s>>>(x, r, L, D, iD, nullptr,
-                                                  omega, x_out, r_out, g);
-    return (int)cudaGetLastError();
-  }
-  eps_init_kernel<<<grid, block, 0, s>>>(r, iD, eps, g);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  for (int k = 0; k < ncolors; ++k) {
-    gs_sweep_kernel<<<grid, block, 0, s>>>(r, L, iD, eps, colors[k], g);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-  increment_kernel<false><<<grid, block, 0, s>>>(x, r, L, D, iD, eps, omega,
-                                                 x_out, r_out, g);
-  return (int)cudaGetLastError();
+  return (int)launch_gs_incr<false>(x, r, L, D, iD, eps, x_out, r_out, colors,
+                                    ncolors, omega, make_grid(nx, ny, nz),
+                                    (cudaStream_t)stream);
+}
+
+// the mixed-precision instantiation: L, D, iD and the eps scratch are bf16
+int wlt_gs_incr_mp(const float* x, const float* r, const bf16* L,
+                   const bf16* D, const bf16* iD, bf16* eps, float* x_out,
+                   float* r_out, const int* colors, int ncolors, float omega,
+                   int64_t nx, int64_t ny, int64_t nz, void* stream) {
+  return (int)launch_gs_incr<true>(x, r, L, D, iD, eps, x_out, r_out, colors,
+                                   ncolors, omega, make_grid(nx, ny, nz),
+                                   (cudaStream_t)stream);
 }
 
 // eps is updated in place; perdir lists the periodic directions in the
@@ -318,7 +453,8 @@ int wlt_gauss_sweeps(float* eps, const float* r, const float* L,
       per_ghost_kernel<<<pg, block, 0, s>>>(eps, j, g);
       if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     }
-    gs_sweep_kernel<<<grid_of(g, 1), block, 0, s>>>(r, L, iD, eps, colors[k], g);
+    gs_sweep_kernel<false><<<grid_of(g, 1), block, 0, s>>>(r, L, iD, eps,
+                                                           colors[k], g);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;

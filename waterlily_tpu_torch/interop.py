@@ -36,11 +36,12 @@ def flow_state_from_numpy(arrays: Mapping[str, np.ndarray], device,
 def levels_from_numpy(levels: Sequence[Sequence], device,
                       dtype: torch.dtype) -> tuple[PoissonLevel, ...]:
     """The multigrid stack from ``(L, D, iD, Ainv)`` numpy tuples, one per
-    level (``Ainv`` None except on the coarsest)."""
-    out = []
-    for L, D, iD, Ainv in levels:
-        out.append(PoissonLevel(
-            _tensor(L, device, dtype), _tensor(D, device, dtype),
-            _tensor(iD, device, dtype),
-            None if Ainv is None else _tensor(Ainv, device, dtype)))
-    return tuple(out)
+    level (``Ainv`` None except on the coarsest), dense: a level the JAX
+    package keeps in its flat layout comes through its `from_flat`.  The
+    bfloat16 copies of the mixed-precision smoother are `mgflat.mp_levels`'s
+    to attach."""
+    return tuple(
+        PoissonLevel(_tensor(L, device, dtype), _tensor(D, device, dtype),
+                     _tensor(iD, device, dtype),
+                     None if Ainv is None else _tensor(Ainv, device, dtype))
+        for L, D, iD, Ainv in levels)

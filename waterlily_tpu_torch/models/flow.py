@@ -13,12 +13,12 @@ Layout: velocity ``u[i, x, y(, z)]`` component-first, pressure
 The time-step history and the pressure iteration counts are host lists
 (`Flow.jl:127`).
 
-Supported: constant tuple ``ubc``; a constant tuple or a callable
-``u0(i, x)`` (batched with `torch.func.vmap`); periodic directions
+Supported: a constant tuple or a callable ``ubc(i, x, t)``; a body force
+``g(i, x, t)`` and the frame acceleration ∂ubc/∂t (`accelerate`); the
+``udf(f, state, u_adv, t)`` forcing hook of the step; a constant tuple or a
+callable ``u0(i, x)`` (batched with `torch.func.vmap`); periodic directions
 ``perdir``; the convective outlet ``exit_bc`` on the x-high face; the
-multigrid solver.  A callable ``ubc``, a body force ``g`` and
-``mp_smooth=True`` raise `NotImplementedError` naming the ROADMAP item that
-ports them.
+multigrid solver, with ``mp_smooth`` (bf16 smoothing) on the flat engine.
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ import torch
 
 from ..ops import multigrid as mg
 from ..ops import stencil3d as st
-from ..ops.bc import apply_vector, bc_vector, exit_bc
+from ..ops.bc import apply_vector, bc_vector, eval_points, exit_bc
 from ..ops.fused3d import cfl_max, div_field, proj_correct
 from ..ops.grid import interior, set_interior
 from ..ops.stencil3d import cds, median3, quick, vanleer
@@ -37,11 +37,13 @@ from ..ops.stencil3d import cds, median3, quick, vanleer
 __all__ = [
     "quick", "cds", "vanleer", "median3",
     "FlowState", "FlowCfg", "Flow", "init_state",
-    "conv_diff", "bdim_update", "project", "cfl", "mom_step_impl",
-    "div_field", "scale_interior",
+    "conv_diff", "accelerate", "bdim_update", "project", "cfl",
+    "mom_step_impl", "div_field", "scale_interior", "ACCELERATE_CHUNK",
 ]
 
-ROADMAP_FLOW_CONFIGS = "ROADMAP queue 1, item 10 (remaining flow configurations)"
+# points per vmapped batch of `accelerate` (as `body.MEASURE_CHUNK`): bounds
+# the temporaries of the batched callables and of the forward-mode derivative
+ACCELERATE_CHUNK = 1 << 21
 
 
 @dataclasses.dataclass
@@ -63,7 +65,8 @@ class FlowCfg:
     """Static configuration of a flow (the JAX `FlowCfg` restricted to the
     supported features)."""
     shape: tuple[int, ...]          # padded grid Ng = N + 2
-    ubc: tuple[float, ...]          # constant Dirichlet velocity
+    ubc: Any                        # tuple of floats or callable (i, x, t)
+    g: Optional[Callable] = None    # body acceleration g(i, x, t)
     perdir: tuple[int, ...] = ()    # periodic directions (0-based)
     exit_bc: bool = False           # convective outlet on the x-high face
     scheme: Callable = quick
@@ -77,6 +80,10 @@ class FlowCfg:
     # but the face-1 planes, μ1 = 0, V = 0): the flat engine runs the full
     # BDIM on that slab only; set by `Simulation` from the measure
     band_x: Optional[tuple[int, int]] = None
+    # mixed-precision smoothing on the flat engine in float32 with no
+    # periodic direction: bf16 coefficients and correction, f32 x and r
+    # (`fused3d.incr_gs_k(mp=True)`); ignored elsewhere, as in the JAX package
+    mp_smooth: bool = False
 
     @property
     def D(self) -> int:
@@ -100,6 +107,52 @@ def conv_diff(u: torch.Tensor, scheme: Callable, nu,
     return st.conv_diff_plain(u, nu, scheme, perdir)
 
 
+def _face_points(i: int, shape: tuple[int, ...], k0: int, k1: int, dtype,
+                 device) -> torch.Tensor:
+    """Rows ``[k0, k1)`` of ``loc_grid(i, shape).reshape(D, -1).T``, built
+    from the flat cell indices without the whole grid of coordinates."""
+    idx = torch.arange(k0, k1, device=device)
+    cols = []
+    for d in reversed(range(len(shape))):
+        cols.append((idx % shape[d]).to(dtype) - (1.0 if d == i else 0.5))
+        idx = idx // shape[d]
+    return torch.stack(cols[::-1], dim=1)
+
+
+def accelerate(f: torch.Tensor, t, g: Optional[Callable], ubc,
+               dtype) -> torch.Tensor:
+    """Applied and reference-frame acceleration ``f_i += g(i, x, t) +
+    ∂ubc(i, x, t)/∂t`` at every face point, ghosts included (`accelerate!`,
+    `Flow.jl:69-73`).  The time derivative of a callable boundary spec is the
+    exact forward-mode derivative (`torch.func.jvp`; the JAX package uses
+    `jax.jvp`, the reference ForwardDiff).  Evaluated in chunks of
+    `ACCELERATE_CHUNK` points; returns a new tensor."""
+    has_ubc_t = callable(ubc)
+    if g is None and not has_ubc_t:
+        return f
+    shape = tuple(f.shape[1:])
+    t = torch.as_tensor(t, dtype=dtype, device=f.device)
+    one = torch.ones_like(t)
+    f = f.clone(memory_format=torch.contiguous_format)
+    for i in range(f.shape[0]):
+        fi = f[i].view(-1)
+        for k in range(0, fi.numel(), ACCELERATE_CHUNK):
+            pts = _face_points(i, shape, k, min(k + ACCELERATE_CHUNK, fi.numel()),
+                               dtype, f.device)
+            add = 0.0
+            if g is not None:
+                add = add + eval_points(lambda x: g(i, x, t), pts, dtype)
+            if has_ubc_t:
+                def dudt(x):
+                    def at(tt):
+                        return torch.as_tensor(ubc(i, x, tt), dtype=dtype,
+                                               device=f.device)
+                    return torch.func.jvp(at, (t,), (one,))[1]
+                add = add + eval_points(dudt, pts, dtype)
+            fi[k:k + pts.shape[0]] += add
+    return f
+
+
 def bdim_update(u, u0, f, V, mu0, mu1, dt) -> torch.Tensor:
     """BDIM convolution (`BDIM!`, `Flow.jl:176-180`):
     ``f* = u0 + dt·f − V``, ``u += μ1·∇f* + V + μ0·f*`` on interior faces;
@@ -110,10 +163,10 @@ def bdim_update(u, u0, f, V, mu0, mu1, dt) -> torch.Tensor:
 
 
 def project(u: torch.Tensor, p: torch.Tensor, levels, masks, dt_w: float,
-            cfg: FlowCfg):
+            cfg: FlowCfg, t=0.0):
     """Pressure projection (`mom_project!`, `Flow.jl:223-232`): solve
     ``A x = div(u)`` warm-started from ``p·dt_w``, ``u_i -= L_i ∂_i x``,
-    `BC!`, ``p = x/dt_w``.  Returns ``(u, p, iters, stats)``."""
+    `BC!` at time ``t``, ``p = x/dt_w``.  Returns ``(u, p, iters, stats)``."""
     z = div_field(u)
     x = p * dt_w
     res = mg.solve_mg(levels, masks, x, z, tol=cfg.tol, itmx=cfg.itmx,
@@ -121,7 +174,7 @@ def project(u: torch.Tensor, p: torch.Tensor, levels, masks, dt_w: float,
                       fine_smooth_it=cfg.fine_smooth_it,
                       fine_presmooth=cfg.fine_presmooth, perdir=cfg.perdir)
     x = res.x
-    u = bc_vector(proj_correct(u, x, levels[0].L), cfg.ubc,
+    u = bc_vector(proj_correct(u, x, levels[0].L), cfg.ubc, t,
                   save_exit=cfg.exit_bc, perdir=cfg.perdir)
     return u, x / dt_w, res.iters, res.stats
 
@@ -132,33 +185,41 @@ def cfl(u: torch.Tensor, nu, dt_max: float = 10.0) -> torch.Tensor:
     return torch.clamp(1.0 / (cfl_max(u) + 5 * nu), max=dt_max)
 
 
-def _phase(state: FlowState, u_adv, u_into, dt, cfg: FlowCfg):
-    """One momentum phase (`mom_predict!`/`mom_correct!`, `Flow.jl:190-210`)."""
+def _phase(state: FlowState, u_adv, u_into, f_t, dt, cfg: FlowCfg, udf=None):
+    """One momentum phase (`mom_predict!`/`mom_correct!`, `Flow.jl:190-210`):
+    conv–diff, the ``udf`` hook, `accelerate` at time ``f_t``, BDIM."""
     f = conv_diff(u_adv, cfg.scheme, state.nu, cfg.perdir)
+    if udf is not None:
+        # the udf sees the field being built (interior zeroed in the
+        # predictor) and the advecting field (`udf!`, `Flow.jl:255-257`)
+        f = udf(f, dataclasses.replace(state, u=u_into), u_adv, f_t)
+    f = accelerate(f, f_t, cfg.g, cfg.ubc, cfg.dtype)
     return bdim_update(u_into, state.u0, f, state.V, state.mu0, state.mu1, dt)
 
 
 def mom_step_impl(cfg: FlowCfg, state: FlowState, levels, masks, dt: float,
-                  t0: float = 0.0):
+                  t0: float = 0.0, udf=None):
     """One time step (`mom_step!`, `Flow.jl:156-167`): predictor advected by
-    u0, `BC!` and (``exit_bc``) the convective outlet, projection (w=1),
-    corrector advected by the projected u, blend ½, `BC!`, projection
-    (w=½), then the CFL limit.  ``dt`` is a host float already rounded to
-    ``cfg.dtype``; ``t0`` only matters for time-dependent BCs, which are not
-    ported.  Returns ``(state', dt_next (0-d tensor), [iters1, iters2],
+    u0 and forced at ``t0``, `BC!` at ``t1 = t0 + dt`` and (``exit_bc``) the
+    convective outlet, projection (w=1), corrector advected by the projected
+    u and forced at ``t1``, blend ½, `BC!`, projection (w=½), then the CFL
+    limit.  ``dt`` and ``t0`` are host floats already rounded to
+    ``cfg.dtype``; ``udf(f, state, u_adv, t)`` returns the forced RHS.
+    Returns ``(state', dt_next (0-d tensor), [iters1, iters2],
     [stats1, stats2])``."""
+    t1 = t0 + dt
     u0 = state.u
     state = dataclasses.replace(state, u0=u0)
     u = scale_interior(u0, 0.0)
-    u = _phase(state, u0, u, dt, cfg)
-    u = bc_vector(u, cfg.ubc, save_exit=cfg.exit_bc, perdir=cfg.perdir)
+    u = _phase(state, u0, u, t0, dt, cfg, udf)
+    u = bc_vector(u, cfg.ubc, t1, save_exit=cfg.exit_bc, perdir=cfg.perdir)
     if cfg.exit_bc:
         u = exit_bc(u, u0, dt)
-    u, p, n1, s1 = project(u, state.p, levels, masks, dt, cfg)
-    u = _phase(state, u, u, dt, cfg)
+    u, p, n1, s1 = project(u, state.p, levels, masks, dt, cfg, t1)
+    u = _phase(state, u, u, t1, dt, cfg, udf)
     u = scale_interior(u, 0.5)
-    u = bc_vector(u, cfg.ubc, save_exit=cfg.exit_bc, perdir=cfg.perdir)
-    u, p, n2, s2 = project(u, p, levels, masks, 0.5 * dt, cfg)
+    u = bc_vector(u, cfg.ubc, t1, save_exit=cfg.exit_bc, perdir=cfg.perdir)
+    u, p, n2, s2 = project(u, p, levels, masks, 0.5 * dt, cfg, t1)
     state = dataclasses.replace(state, u=u, p=p)
     dt_next = cfl(u, state.nu)
     return state, dt_next, [n1, n2], [s1, s2]
@@ -166,12 +227,15 @@ def mom_step_impl(cfg: FlowCfg, state: FlowState, levels, masks, dt: float,
 
 def init_state(cfg: FlowCfg, nu, device, u0=None) -> FlowState:
     """Initial `FlowState` (`Flow`, `Flow.jl:133-147`): ``u0`` (a constant
-    tuple, a callable ``u0(i, x)`` evaluated at every face, or ``ubc``) on
-    all faces, BCs, the constructor-time `exitBC!(u,u,0)`, and the moments
-    of an empty domain."""
+    tuple, a callable ``u0(i, x)`` evaluated at every face, or ``ubc``, at
+    t = 0 when callable) on all faces, BCs, the constructor-time
+    `exitBC!(u,u,0)`, and the moments of an empty domain."""
     D, shape, dtype = cfg.D, cfg.shape, cfg.dtype
     if callable(u0):
         u = apply_vector(u0, D, shape, dtype, device)
+    elif u0 is None and callable(cfg.ubc):
+        t = torch.zeros((), dtype=dtype, device=device)
+        u = apply_vector(lambda i, x: cfg.ubc(i, x, t), D, shape, dtype, device)
     else:
         vals = cfg.ubc if u0 is None else tuple(float(v) for v in u0)
         u = torch.tensor(vals, dtype=dtype, device=device).reshape(
@@ -201,17 +265,11 @@ class Flow:
                  mp_smooth: Optional[bool] = None,
                  fine_presmooth: Optional[bool] = None,
                  device="cuda"):
-        if callable(ubc) or g is not None:
-            raise NotImplementedError(
-                f"callable ubc and g are not ported yet: {ROADMAP_FLOW_CONFIGS}")
-        if mp_smooth:
-            raise NotImplementedError(
-                "mp_smooth=True (bf16 smoothing) is not ported yet: ROADMAP "
-                "queue 2, K4/K5/K7 mixed-precision kernels")
         shape = tuple(n + 2 for n in N)
         self.cfg = FlowCfg(
-            shape=shape, ubc=tuple(float(v) for v in ubc),
-            perdir=tuple(int(j) for j in perdir), exit_bc=bool(exit_bc),
+            shape=shape,
+            ubc=ubc if callable(ubc) else tuple(float(v) for v in ubc), g=g,
+            mp_smooth=bool(mp_smooth), perdir=tuple(int(j) for j in perdir), exit_bc=bool(exit_bc),
             scheme=scheme, dtype=dtype, tol=tol, itmx=itmx,
             smooth_it=4 if smooth_it is None else int(smooth_it),
             fine_smooth_it=0 if fine_smooth_it is None else int(fine_smooth_it),

@@ -24,7 +24,8 @@ from pathlib import Path
 __all__ = ["SOURCES", "BUILD_DIR", "nvcc_path", "build", "load"]
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = (_PKG / "csrc" / "stencil3d.cu", _PKG / "csrc" / "fused3d.cu")
+SOURCES = (_PKG / "csrc" / "stencil3d.cu", _PKG / "csrc" / "fused3d.cu",
+           _PKG / "csrc" / "probe.cu")
 _HEADER = _PKG / "csrc" / "stencil_common.cuh"
 BUILD_DIR = _PKG.parent / "build"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -56,7 +57,14 @@ _SIGNATURES = {
                          ctypes.c_int, _I64, _I64, _I64, _P],
     "wlt_bc": [_P, _F, _F, _F, ctypes.c_int, _P, _I64, _I64, _I64, _P],
     "wlt_div": [_P, _P, _I64, _I64, _I64, _P],
+    "wlt_bdim_band": [_P, _P, _P, _P, _P, _P, _F, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_int, _P, _I64, _I64, _I64, _P],
+    "wlt_copy_scale": [ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.c_int,
+                       _I64, ctypes.c_int, _P],
 }
+# the mixed-precision instantiations take the arguments of the float32 ones
+_SIGNATURES["wlt_gs_incr_mp"] = _SIGNATURES["wlt_gs_incr"]
+_SIGNATURES["wlt_incr_gs_mp"] = _SIGNATURES["wlt_incr_gs"]
 
 build_info: dict[str, object] = {}   # path, seconds and ptxas log of the build
 

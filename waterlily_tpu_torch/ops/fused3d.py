@@ -11,8 +11,9 @@ kernels of `ops/stencil3d.py`, see `ops/_build.py`):
 wrapper               replaces (TPU)
 ====================  ================================================
 `conv_diff_bdim_k`    `pallas_flat.py:376` `conv_diff_k`, fused mode (K1)
-`incr_gs_k`           `pallas_flat.py:896` `incr_gs` (K7); with no
-                      colours `:1307` `increment_k` (K6)
+`incr_gs_k`           `pallas_flat.py:896` `incr_gs` (K7), also with
+                      ``mp=True``; with no colours `:1307` `increment_k`
+                      (K6)
 `bc_div_k`            `pallas_flat.py:1143` `bc_div_k` (K8)
 `projbc_k`            `pallas_flat.py:1201` `projbc_k` (K9), also with
                       ``save_exit``
@@ -43,8 +44,9 @@ import torch
 from .bc import bc_vector
 from .grid import inside_mask, interior, shift, zero_ghost
 from .poisson import norms
-from .stencil3d import (_PLAIN, SCHEMES, _check, _launch, _lead, _lib, _ptr,
-                        _rb_sweeps, _stream, conv_diff_plain, mult_plain)
+from .stencil3d import (BF16, SCHEMES, _bf16, _check, _launch, _lead,
+                        _lib, _mp_mult, _mp_sweeps, _ptr, _rb_sweeps, _stream,
+                        conv_diff_plain, mult_plain, plain_route)
 
 __all__ = [
     "conv_diff_bdim_plain", "incr_gs_plain", "bc_div_plain", "projbc_plain",
@@ -105,7 +107,7 @@ def conv_diff_bdim_plain(u, u0, nu, dt, keep_base: float, scale: float,
 
 
 def incr_gs_plain(x, r, eps, L, D, iD, colors: Sequence[int], omega,
-                  want_norms: bool = False):
+                  want_norms: bool = False, mp: bool = False):
     """Coarse-correction increment fused with the fine red-black smooth
     (`incr_gs`, `pallas_flat.py:896-916`; `increment!` then
     `GaussSeidelRB!`, `MultiLevelPoisson.jl:100,115`):
@@ -115,7 +117,27 @@ def incr_gs_plain(x, r, eps, L, D, iD, colors: Sequence[int], omega,
     on the interior.  With no colours there is no smooth: the increment
     alone (`increment_k`, `pallas_flat.py:1307`), ``x + ω·eps``,
     ``r − ω·A·eps``.  ``want_norms`` also returns ``(Σ|r′|, max|r′|)`` as a
-    2-vector on the device."""
+    2-vector on the device.
+
+    ``mp`` (`pallas_flat.py:944-1004`): ``L``, ``D``, ``iD`` are bf16;
+    ``A·eps`` is formed in float32 from the float32 ``eps`` and the bf16
+    coefficients, so ``r₁`` is float32; ``e`` comes from the bf16 cascade on
+    a bf16 rounding of ``r₁`` and ``A·e`` is accumulated in bf16
+    (`stencil3d._mp_sweeps`, `_mp_mult`); the two updates and the norms are
+    float32.  The increment alone has no mixed-precision form."""
+    if mp:
+        if not colors:
+            raise ValueError("incr_gs: mp=True needs at least one colour "
+                             "(the increment alone is float32)")
+        _bf16("incr_gs_plain", L=L, D=D, iD=iD)
+        a = eps * D
+        for d in range(L.shape[0]):
+            a = a + shift(eps, d, -1) * L[d] + shift(eps, d, 1) * shift(L[d], d, 1)
+        r1 = r - omega * zero_ghost(a)
+        e = _mp_sweeps(r1, L, iD, colors)
+        x = x + omega * zero_ghost(eps + e.float())
+        r = r1 - omega * _mp_mult(e, L, D)
+        return (x, r, torch.stack(norms(r))) if want_norms else (x, r)
     if colors:
         r1 = r - omega * mult_plain(eps, L, D)
         e = _rb_sweeps(r1, L, iD, colors)
@@ -167,7 +189,7 @@ def conv_diff_bdim_k(u, u0, nu, dt: float, keep_base: float, scale: float,
     of ``f`` are undefined (`torch.empty`), the caller reads the slab
     alone.  ``nu`` is a 0-d tensor read on the card or a float.  Returns
     ``(u_new, f)``."""
-    if not u.is_cuda or _PLAIN.get():
+    if not u.is_cuda or plain_route():
         return conv_diff_bdim_plain(u, u0, nu, dt, keep_base, scale,
                                     SCHEMES[scheme_id])
     shape = tuple(u.shape[1:])
@@ -191,31 +213,40 @@ def conv_diff_bdim_k(u, u0, nu, dt: float, keep_base: float, scale: float,
 
 
 def incr_gs_k(x, r, eps, L, D, iD, colors: Sequence[int], omega: float,
-              want_norms: bool = False):
+              want_norms: bool = False, mp: bool = False):
     """K7 (K6 with no colours): `incr_gs_plain` as one kernel entry (a head
     pass, a sweep per colour, a tail pass, and with ``want_norms`` the fold
-    of the per-block norm partials).  Returns ``(x′, r′)`` or
-    ``(x′, r′, norms)`` with ``norms = [Σ|r′|, max|r′|]`` on the card."""
-    if not x.is_cuda or _PLAIN.get():
-        return incr_gs_plain(x, r, eps, L, D, iD, colors, omega, want_norms)
+    of the per-block norm partials).  ``mp`` launches the mixed-precision
+    instantiation on bf16 ``L``, ``D``, ``iD`` with a bf16 scratch.  Returns
+    ``(x′, r′)`` or ``(x′, r′, norms)`` with ``norms = [Σ|r′|, max|r′|]`` on
+    the card."""
+    if not x.is_cuda or plain_route("incr_gs_mp_k" if mp else "incr_gs_k"):
+        return incr_gs_plain(x, r, eps, L, D, iD, colors, omega, want_norms, mp)
     shape = tuple(x.shape)
-    _check("incr_gs_k", shape, x.device, x=x, r=r, eps=eps, L=L, D=D, iD=iD)
+    name = "incr_gs_mp_k" if mp else "incr_gs_k"
+    cdt = BF16 if mp else torch.float32
+    _check(name, shape, x.device, x=x, r=r, eps=eps)
+    _check(name, shape, x.device, cdt, L=L, D=D, iD=iD)
     for arg, t in (("x", x), ("r", r), ("eps", eps), ("D", D), ("iD", iD)):
-        _lead("incr_gs_k", arg, t, ())
-    _lead("incr_gs_k", "L", L, (3,))
+        _lead(name, arg, t, ())
+    _lead(name, "L", L, (3,))
     cols = [int(c) for c in colors]
     if any(c not in (0, 1) for c in cols):
-        raise ValueError(f"incr_gs_k: colours must be 0 or 1, got {cols}")
+        raise ValueError(f"{name}: colours must be 0 or 1, got {cols}")
+    if mp and not cols:
+        raise ValueError("incr_gs_k: mp=True needs at least one colour (the "
+                         "increment alone is float32)")
     carr = (ctypes.c_int * max(1, len(cols)))(*cols)
     lib = _lib()
-    e = torch.empty_like(x) if cols else x          # no scratch without sweeps
+    e = torch.empty_like(x, dtype=cdt) if cols else x   # no scratch without sweeps
     x_out, r_out = torch.empty_like(x), torch.empty_like(r)
     partials = nv = None
     if want_norms:
         partials = torch.empty(2 * lib.wlt_reduce_blocks(*shape),
                                dtype=torch.float32, device=x.device)
         nv = torch.empty(2, dtype=torch.float32, device=x.device)
-    _launch("incr_gs_k", lib.wlt_incr_gs, _ptr(x), _ptr(r), _ptr(eps), _ptr(L),
+    _launch(name, lib.wlt_incr_gs_mp if mp else lib.wlt_incr_gs, _ptr(x),
+            _ptr(r), _ptr(eps), _ptr(L),
             _ptr(D), _ptr(iD), _ptr(e), _ptr(x_out), _ptr(r_out), carr, len(cols),
             ctypes.c_float(float(omega)),
             None if partials is None else _ptr(partials),
@@ -225,7 +256,7 @@ def incr_gs_k(x, r, eps, L, D, iD, colors: Sequence[int], omega: float,
 
 def bc_div_k(u, ubc):
     """K8: `bc_div_plain` in one pass.  Returns ``(u_bc, div)``."""
-    if not u.is_cuda or _PLAIN.get():
+    if not u.is_cuda or plain_route():
         return bc_div_plain(u, ubc)
     shape = tuple(u.shape[1:])
     _check("bc_div_k", shape, u.device, u=u)
@@ -241,7 +272,7 @@ def projbc_k(u, x, L, ubc, want_cfl: bool = False, save_exit: bool = False):
     """K9: `projbc_plain` in one pass; with ``want_cfl`` the CFL max comes
     back as a 0-d tensor on the card.  Returns ``u_new`` or
     ``(u_new, smax)``."""
-    if not u.is_cuda or _PLAIN.get():
+    if not u.is_cuda or plain_route():
         return projbc_plain(u, x, L, ubc, want_cfl, save_exit)
     shape = tuple(u.shape[1:])
     _check("projbc_k", shape, u.device, u=u, x=x, L=L)
@@ -259,7 +290,7 @@ def projbc_k(u, x, L, ubc, want_cfl: bool = False, save_exit: bool = False):
 
 def bc_k(u, ubc, save_exit: bool = False):
     """K10: `bc_plain` in one pass."""
-    if not u.is_cuda or _PLAIN.get():
+    if not u.is_cuda or plain_route():
         return bc_plain(u, ubc, save_exit)
     shape = tuple(u.shape[1:])
     _check("bc_k", shape, u.device, u=u)
@@ -273,7 +304,7 @@ def bc_k(u, ubc, save_exit: bool = False):
 
 def div_k(u):
     """K11: `div_plain` in one pass."""
-    if not u.is_cuda or _PLAIN.get():
+    if not u.is_cuda or plain_route():
         return div_plain(u)
     shape = tuple(u.shape[1:])
     _check("div_k", shape, u.device, u=u)

@@ -25,6 +25,14 @@ colour sweeps then K6.  The JAX flat engine runs that smoother as jnp
 runs K13 there, the same arithmetic.  The coarsest level's dense solve
 stays `poisson.coarse_solve`, as in the JAX engine's replicated tail, and
 the stop rule's norms are `poisson.norms`.
+
+Mixed precision (``mp``, `mgflat.py:186-224, 305-317`): in float32 with no
+periodic direction, the smoothers of the levels the TPU keeps in its flat
+layout (the fine level and each level below it with at least
+`FLAT_MIN_CELLS` padded cells, `mp_levels`) run their bf16 instantiations:
+the Jacobi pre-smooth and the coarse red-black smooth K15 with ``mp``, the
+fused fine tail K7 with ``mp``.  The smaller levels, the K6 increments, the
+entry residual, the norms, the stop rule and the gauge stay float32.
 """
 from __future__ import annotations
 
@@ -35,17 +43,50 @@ from . import stencil3d as st
 from .bc import per_bc
 from .grid import zero_ghost
 from .multigrid import MGSolveResult, prolongate, restrict, solve_loop
-from .poisson import PoissonLevel, coarse_solve, jacobi, norms
+from .poisson import PoissonLevel, coarse_solve, jacobi, norms, with_bf16
 
-__all__ = ["solve_mg_flat"]
+__all__ = ["solve_mg_flat", "mp_applies", "mp_levels", "FLAT_MIN_CELLS"]
+
+# padded cells below which the TPU keeps a level out of its flat layout, and
+# with that out of the mixed-precision smoother (`mgflat._FLAT_MIN_CELLS`)
+FLAT_MIN_CELLS = 100_000
 
 
-def _incr_gs(p: PoissonLevel, x, r, eps, colors, omega, want_norms=False):
+def mp_applies(mp: bool, dtype: torch.dtype, perdir: tuple[int, ...]) -> bool:
+    """Whether ``mp_smooth`` takes effect: in float32 with no periodic
+    direction (`pallas_flat.use_pallas_flat`, `flat.py:502, 524`)."""
+    return bool(mp) and dtype == torch.float32 and not perdir
+
+
+def mp_levels(levels) -> tuple[PoissonLevel, ...]:
+    """The stack with bf16 coefficient copies on the levels that smooth in
+    mixed precision: the fine level and every level below it down to the
+    first one with fewer than `FLAT_MIN_CELLS` padded cells
+    (`mgflat._n_flat`)."""
+    out, flat = [], True
+    for l, p in enumerate(levels):
+        flat = flat and (l == 0 or p.D.numel() >= FLAT_MIN_CELLS)
+        out.append(with_bf16(p) if flat else p)
+    return tuple(out)
+
+
+def _incr_gs(p: PoissonLevel, x, r, eps, colors, omega, want_norms=False,
+             mp=False):
     """`fused3d.incr_gs_k` for 3-D float32 CUDA fields, else its plain
-    version."""
-    if st.use_kernels(x):
-        return fz.incr_gs_k(x, r, eps, p.L, p.D, p.iD, colors, omega, want_norms)
-    return fz.incr_gs_plain(x, r, eps, p.L, p.D, p.iD, colors, omega, want_norms)
+    version; with ``mp`` on the level's bf16 coefficients."""
+    mp = mp and p.bf is not None
+    name = "incr_gs_mp_k" if mp else "incr_gs_k"
+    fn = fz.incr_gs_k if st.use_kernels(x, name) else fz.incr_gs_plain
+    L, D, iD = p.bf if mp else (p.L, p.D, p.iD)
+    return fn(x, r, eps, L, D, iD, colors, omega, want_norms, mp)
+
+
+def _gs_incr(p: PoissonLevel, x, r, colors, omega):
+    """The mixed-precision K15 (`stencil3d.gs_incr_k(mp=True)`) for 3-D
+    float32 CUDA fields, else its plain version."""
+    fn = (st.gs_incr_k if st.use_kernels(x, "gs_incr_mp_k")
+          else st.gs_incr_plain)
+    return fn(x, r, *p.bf, colors, omega, True)
 
 
 def _colors(p: PoissonLevel, it: int) -> list[int]:
@@ -60,9 +101,11 @@ def _increment(p: PoissonLevel, x, r, eps, omega, perdir):
     return _incr_gs(p, x, r, per_bc(eps, perdir), [], omega)
 
 
-def _jacobi(p: PoissonLevel, x, r, perdir):
+def _jacobi(p: PoissonLevel, x, r, perdir, mp=False):
     """One Jacobi pre-smooth: K15 (no colours) on a non-periodic level, K6
     on ``eps = r·iD`` with ``perdir``."""
+    if mp and p.bf is not None:
+        return _gs_incr(p, x, r, [], 1.0)
     if not perdir:
         return jacobi(p, x, r, it=1, omega=1.0)
     return _increment(p, x, r, zero_ghost(r * p.iD), 1.0, perdir)
@@ -78,8 +121,11 @@ def _gauss_seidel_rb(p: PoissonLevel, x, r, it, omega, perdir):
     return _increment(p, x, r, eps, omega, perdir)
 
 
-def _coarse_solve(p: PoissonLevel, x, r, it, omega, perdir):
-    """`poisson.coarse_solve`, its periodic smoother `_gauss_seidel_rb`."""
+def _coarse_solve(p: PoissonLevel, x, r, it, omega, perdir, mp=False):
+    """`poisson.coarse_solve`, its periodic smoother `_gauss_seidel_rb`, its
+    mixed-precision smoother `_gs_incr`."""
+    if mp and p.bf is not None and p.Ainv is None:
+        return _gs_incr(p, x, r, _colors(p, it), omega)
     if perdir and p.Ainv is None:
         return _gauss_seidel_rb(p, x, r, it, omega, perdir)
     return coarse_solve(p, x, r, it=it, omega=omega, perdir=perdir)
@@ -87,7 +133,7 @@ def _coarse_solve(p: PoissonLevel, x, r, it, omega, perdir):
 
 def _v_cycle_flat(levels, masks, x: torch.Tensor, r: torch.Tensor, omega,
                   smooth_it: int = 4, l: int = 0, presmooth: bool = True,
-                  perdir: tuple[int, ...] = ()):
+                  perdir: tuple[int, ...] = (), mp: bool = False):
     """One V-cycle level step (`Vcycle!`, `MultiLevelPoisson.jl:88-101`):
     Jacobi pre-smooth, restrict, recurse, smooth the coarse level
     (`coarse_solve`), prolongate.  Below the fine level the increment
@@ -96,13 +142,13 @@ def _v_cycle_flat(levels, masks, x: torch.Tensor, r: torch.Tensor, omega,
     fine, coarse = levels[l], levels[l + 1]
     c = masks[l]
     if presmooth or l > 0:
-        x, r = _jacobi(fine, x, r, perdir)
+        x, r = _jacobi(fine, x, r, perdir, mp)
     rc = restrict(r, c)
     xc = torch.zeros_like(rc)
     if l + 1 < len(levels) - 1:
         xc, rc = _v_cycle_flat(levels, masks, xc, rc, omega, smooth_it, l + 1,
-                               perdir=perdir)
-    xc, rc = _coarse_solve(coarse, xc, rc, smooth_it, omega, perdir)
+                               perdir=perdir, mp=mp)
+    xc, rc = _coarse_solve(coarse, xc, rc, smooth_it, omega, perdir, mp)
     eps = prolongate(xc, c)
     if l == 0:
         return x, r, eps
@@ -112,24 +158,30 @@ def _v_cycle_flat(levels, masks, x: torch.Tensor, r: torch.Tensor, omega,
 def solve_mg_flat(levels, masks, x: torch.Tensor, z: torch.Tensor,
                   tol: float = 2e-3, itmx: int = 32, smooth_it: int = 4,
                   fine_smooth_it: int = 0, fine_presmooth: bool = True,
-                  perdir: tuple[int, ...] = ()) -> MGSolveResult:
+                  perdir: tuple[int, ...] = (),
+                  mp: bool = False) -> MGSolveResult:
     """Multigrid solve with the fused fine tail (`solve_mg_flat`,
     `mgflat.py:254-349`): per iteration a V-cycle with the fine increment
     deferred, then one `incr_gs` of that increment and the fine red-black
     smooth, whose in-kernel ``(L1, Linf)`` feed the stop rule.  With
     ``perdir`` the increment, the periodic smooth and `poisson.norms`
-    instead."""
+    instead.  ``mp`` (where `mp_applies`) needs the stack of `mp_levels`."""
     p = levels[0]
     it_fine = fine_smooth_it or smooth_it
+    mp = mp_applies(mp, x.dtype, perdir)
+    if mp and p.bf is None:
+        raise ValueError("solve_mg_flat: mp=True needs the bf16 coefficient "
+                         "copies of `mgflat.mp_levels(levels)`")
 
     def iterate(x, r, omega):
         x, r, eps = _v_cycle_flat(levels, masks, x, r, omega, smooth_it,
-                                  presmooth=fine_presmooth, perdir=perdir)
+                                  presmooth=fine_presmooth, perdir=perdir,
+                                  mp=mp)
         if perdir:
             x, r = _increment(p, x, r, eps, omega, perdir)
             x, r = _gauss_seidel_rb(p, x, r, it_fine, omega, perdir)
             return x, r, torch.stack(norms(r))
         return _incr_gs(p, x, r, eps, _colors(p, it_fine), omega,
-                        want_norms=True)
+                        want_norms=True, mp=mp)
 
     return solve_loop(p, x, z, tol, itmx, iterate, perdir)

@@ -31,7 +31,8 @@ from .bc import per_bc
 from .grid import grow, interior, shift, zero_ghost
 
 __all__ = [
-    "PoissonLevel", "make_level", "set_diag", "mult", "residual", "increment",
+    "PoissonLevel", "make_level", "with_bf16", "set_diag", "mult", "residual",
+    "increment",
     "jacobi", "gauss_seidel_rb", "norms", "dense_pinv",
     "coarse_solve",
 ]
@@ -43,6 +44,9 @@ class PoissonLevel(NamedTuple):
     iD: torch.Tensor   # (*Ng) 1/diagonal, 0 where D == 0
     Ainv: Optional[torch.Tensor] = None   # dense pseudo-inverse over the
                                           # interior, coarsest level only
+    bf: Optional[tuple] = None            # (L, D, iD) as bfloat16, on the
+                                          # levels that smooth in mixed
+                                          # precision (`with_bf16`)
 
 
 def set_diag(L: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -60,6 +64,14 @@ def make_level(L: torch.Tensor) -> PoissonLevel:
     held, not copied."""
     d, iD = set_diag(L)
     return PoissonLevel(L, d, iD)
+
+
+def with_bf16(p: PoissonLevel) -> PoissonLevel:
+    """The level with bfloat16 copies of ``L``, ``D`` and ``iD`` beside the
+    float32 ones, for the mixed-precision smoother.  Made once when the level
+    is built or updated (the JAX wrapper casts on every call, under jit:
+    `pallas_flat.py:881-883`)."""
+    return p._replace(bf=tuple(t.to(torch.bfloat16) for t in (p.L, p.D, p.iD)))
 
 
 def _mult_raw(p: PoissonLevel, x: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Hand-written CUDA stencil kernels for the dense layout, with their plain
 PyTorch versions.
 
-Counterpart of `waterlily_tpu/ops/pallas3d.py`.  Five kernels carry its
-stencils (sources in `csrc/stencil3d.cu`, built with `nvcc` for `sm_90a` on
+Counterpart of `waterlily_tpu/ops/pallas3d.py`, with the band-sparse BDIM
+and the mixed-precision smoother of `waterlily_tpu/ops/pallas_flat.py`.  Six
+kernels (sources in `csrc/stencil3d.cu`, built with `nvcc` for `sm_90a` on
 first use, see `ops/_build.py`):
 
 ================  ===========================================  ==================
@@ -15,6 +16,9 @@ wrapper           replaces (TPU)                               JAX caller
                   `jacobi_incr3d`                              `poisson.gauss_seidel_rb`
 `gauss_sweeps_k`  `pallas3d.py:312,366` `gauss_sweeps3d`,      `poisson.gauss_seidel_rb`
                   `gauss_sweep3d`                              with ``perdir``
+`bdim_band_k`     `pallas_flat.py:665` `bdim_band`             `flowflat.bdim_flat`
+`gs_incr_k(mp)`   `pallas_flat.py:759,891` `gs_incr`,          `flat.jacobi_flat`,
+                  `jacobi_incr` with ``mp=True``               `flat.gauss_seidel_rb_flat`
 ================  ===========================================  ==================
 
 `conv_diff_k` takes the periodic directions (``perdir``) as a mode: there
@@ -29,8 +33,15 @@ version, a routing by dtype and device as in the JAX `use_pallas`).
 `plain_ops()` forces the plain route on the card so both can be compared.
 
 Each wrapper adds one to its entry in `launch_counts()` per call that
-launches on the card, and nowhere else; the count also holds the six
-kernels of `ops/fused3d.py`.
+launches on the card, and nowhere else; the count also holds the kernels of
+`ops/fused3d.py` and `ops/probe.py`.  The mixed-precision instantiations
+count under their own names (``gs_incr_mp_k``, ``incr_gs_mp_k``).
+
+Mixed precision (``mp=True``): ``L``, ``D``, ``iD`` are `torch.bfloat16`
+copies (`poisson.with_bf16` makes them once per level), the correction and
+every product, sum and difference of the colour sweeps and of ``A·e`` are
+bf16, each operation rounded on its own in the order of the JAX body
+(`pallas_flat.py:814-861`); ``x`` and ``r`` stay float32.
 
 Unlike the Pallas path, the kernels write every cell with the plain formula:
 `conv_diff_k` defines the ghost rows of ``f`` (read by the BDIM gradient at
@@ -42,7 +53,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import ctypes
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -50,33 +61,55 @@ from .bc import per_bc
 from .grid import index_sum_parity, inside_mask, shift, zero_ghost
 
 __all__ = [
-    "use_kernels", "plain_ops", "launch_counts", "reset_launch_counts",
+    "use_kernels", "plain_route", "plain_ops", "launch_counts", "reset_launch_counts",
     "median3", "quick", "cds", "vanleer", "SCHEMES", "scheme_id",
-    "conv_diff_plain", "bdim_plain", "mult_plain", "gs_incr_plain",
-    "gauss_sweeps_plain",
-    "conv_diff_k", "bdim_k", "mult_k", "gs_incr_k", "gauss_sweeps_k",
+    "conv_diff_plain", "bdim_plain", "bdim_band_plain", "mult_plain",
+    "gs_incr_plain", "gauss_sweeps_plain",
+    "conv_diff_k", "bdim_k", "bdim_band_k", "mult_k", "gs_incr_k",
+    "gauss_sweeps_k",
 ]
 
+# the wrappers routed to their plain versions: all of them inside
+# `plain_ops()` (True), or the named ones inside `plain_ops(only=...)`
 _PLAIN = contextvars.ContextVar("waterlily_tpu_torch_plain_ops", default=False)
 # launches per wrapper, of this module's kernels and of `ops/fused3d.py`'s
 _LAUNCHES = {"conv_diff_k": 0, "bdim_k": 0, "mult_k": 0, "gs_incr_k": 0,
              "gauss_sweeps_k": 0, "conv_diff_bdim_k": 0, "incr_gs_k": 0,
-             "bc_div_k": 0, "projbc_k": 0, "bc_k": 0, "div_k": 0}
+             "bc_div_k": 0, "projbc_k": 0, "bc_k": 0, "div_k": 0,
+             "bdim_band_k": 0, "gs_incr_mp_k": 0, "incr_gs_mp_k": 0,
+             "copy_scale_k": 0, "copy_scale6_k": 0}
+# the wrappers whose call sites pass their name to the gate
+_MP_NAMES = frozenset({"gs_incr_mp_k", "incr_gs_mp_k"})
 
 
-def use_kernels(t: torch.Tensor) -> bool:
-    """Kernel gate: a CUDA, float32, 3-D tensor, outside `plain_ops()`.
-    Mirrors `pallas3d.use_pallas` (`pallas3d.py:41-60`) without its TPU
-    tiling floor of 18 cells."""
+def plain_route(name: Optional[str] = None) -> bool:
+    """Whether the wrapper counted as ``name`` takes its plain version on
+    the card: inside `plain_ops()` every one, inside `plain_ops(only=...)`
+    the named ones."""
+    plain = _PLAIN.get()
+    return plain is True or (plain is not False and name in plain)
+
+
+def use_kernels(t: torch.Tensor, name: Optional[str] = None) -> bool:
+    """Kernel gate: a CUDA, float32, 3-D tensor, outside `plain_ops()`
+    (``name``: the wrapper's entry in `launch_counts()`, for
+    `plain_ops(only=...)`).  Mirrors `pallas3d.use_pallas`
+    (`pallas3d.py:41-60`) without its TPU tiling floor of 18 cells."""
     return (t.is_cuda and t.dtype == torch.float32 and t.dim() == 3
-            and not _PLAIN.get())
+            and not plain_route(name))
 
 
 @contextlib.contextmanager
-def plain_ops():
+def plain_ops(only: Optional[Sequence[str]] = None):
     """Route every call site to the plain PyTorch versions inside the block
-    (used to compare the kernels with them on the card)."""
-    token = _PLAIN.set(True)
+    (used to compare the kernels with them on the card).  ``only`` names the
+    mixed-precision smoothers (``gs_incr_mp_k``, ``incr_gs_mp_k``) to route
+    them alone, with every float32 kernel left in place: a run that then
+    differs from the kernels' run differs by those kernels."""
+    if only is not None and not set(only) <= _MP_NAMES:
+        raise ValueError(f"plain_ops: only takes names of {sorted(_MP_NAMES)}, "
+                         f"got {tuple(only)}")
+    token = _PLAIN.set(True if only is None else frozenset(only))
     try:
         yield
     finally:
@@ -216,6 +249,42 @@ def bdim_plain(u, u0, f, V, mu0, mu1, dt) -> torch.Tensor:
     return u + zero_ghost(torch.stack(terms), D)
 
 
+def _far_field_mask(shape: tuple[int, ...], i: int, perdir, device) -> torch.Tensor:
+    """Interior cells minus component ``i``'s face-1 plane, which the
+    measure-time BC fill zeroes in μ0 unless direction ``i`` is periodic."""
+    m = inside_mask(shape, device)
+    if i in perdir:
+        return m
+    view = [1] * len(shape)
+    view[i] = shape[i]
+    return m & (torch.arange(shape[i], device=device).reshape(view) != 1)
+
+
+def bdim_band_plain(u, u0, f, V, mu0, mu1, dt, band: tuple[int, int],
+                    perdir: tuple[int, ...] = ()) -> torch.Tensor:
+    """Band-sparse BDIM (`bdim_band`, `pallas_flat.py:665-703`).  ``band =
+    (lo, hi)`` is the x-row range outside which the moments are the far
+    field (μ1 = 0, V = 0, μ0 = 1 but the face-1 planes), so
+
+        rows ∉ [lo, hi):  u_i + inside_i·(u0_i + dt·f_i)
+        rows ∈ [lo, hi):  `bdim_plain` on the slab ``[lo−1, hi+1)``
+
+    with ``inside_i`` of `_far_field_mask`; V, μ0 and μ1 are never read
+    outside the slab.  ``hi <= lo`` is the far-field formula everywhere."""
+    lo, hi = band
+    shape = tuple(u.shape[1:])
+    mm = torch.stack([_far_field_mask(shape, i, perdir, u.device)
+                      for i in range(u.shape[0])])
+    out = u + torch.where(mm, u0 + dt * f, 0.0)
+    if hi <= lo:
+        return out
+    sl = slice(lo - 1, hi + 1)
+    slab = bdim_plain(u[:, sl], u0[:, sl], f[:, sl], V[:, sl], mu0[:, sl],
+                      mu1[:, :, sl], dt)
+    out[:, lo:hi] = slab[:, 1:-1]
+    return out
+
+
 def mult_plain(x: torch.Tensor, L: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
     """A·x = D·x + Σ_d (L_d·x(−e_d) + L_d(+e_d)·x(+e_d)) on the interior,
     zero ghosts (`mult`, `Poisson.jl:70-76`)."""
@@ -254,11 +323,58 @@ def _rb_sweeps(r, L, iD, colors: Sequence[int]) -> torch.Tensor:
     return gauss_sweeps_plain(zero_ghost(r * iD), r, L, iD, colors)
 
 
-def gs_incr_plain(x, r, L, D, iD, colors: Sequence[int], omega):
+BF16 = torch.bfloat16
+
+
+def _mp_sweeps(r1, L16, iD16, colors: Sequence[int]) -> torch.Tensor:
+    """The bf16 correction of the mixed-precision smoother
+    (`pallas_flat.py:814-846`): the cascade reads a bf16 rounding of the
+    float32 residual ``r1``; ``e = r·iD`` with zero ghosts, then per colour
+    ``s = r − Σ_d (e(−e_d)·L_d + e(+e_d)·L_d(+e_d))``, ``e = s·iD`` on the
+    colour's interior cells, every operation a bf16 operation."""
+    inside = inside_mask(r1.shape, r1.device)
+    rv = r1.to(BF16)
+    e = torch.where(inside, rv * iD16, 0.0)
+    if colors:
+        parity = index_sum_parity(r1.shape, r1.device)
+        for c in colors:
+            s = rv
+            for d in range(L16.shape[0]):
+                s = s - (shift(e, d, -1) * L16[d]
+                         + shift(e, d, 1) * shift(L16[d], d, 1))
+            e = torch.where((parity == c) & inside, s * iD16, e)
+    return e
+
+
+def _mp_mult(e, L16, D16) -> torch.Tensor:
+    """``A·e`` accumulated in bf16 in the order of `pallas_flat.py:850-857`:
+    ``e·D``, then per direction ``(acc + e(−e_d)·L_d) + e(+e_d)·L_d(+e_d)``;
+    float32 on return, ghosts zero."""
+    s = e * D16
+    for d in range(L16.shape[0]):
+        s = s + shift(e, d, -1) * L16[d] + shift(e, d, 1) * shift(L16[d], d, 1)
+    return zero_ghost(s.float())
+
+
+def _bf16(name: str, **tensors):
+    for arg, t in tensors.items():
+        if t.dtype != BF16:
+            raise TypeError(f"{name}: with mp=True {arg} must be torch.bfloat16 "
+                            f"(`poisson.with_bf16`), got {t.dtype}")
+
+
+def gs_incr_plain(x, r, L, D, iD, colors: Sequence[int], omega,
+                  mp: bool = False):
     """Red-black smoother + increment (`GaussSeidelRB!` + `increment!`,
     `Poisson.jl:100-148`, non-periodic): `_rb_sweeps`, then ``x += ω·eps``
     and ``r −= ω·A·eps``.  ``colors=[]`` is the Jacobi smoother (`Jacobi!`,
-    `Poisson.jl:111-114`)."""
+    `Poisson.jl:111-114`).  ``mp``: ``L``, ``D``, ``iD`` are bf16 and the
+    correction and ``A·eps`` are formed in bf16 (`_mp_sweeps`, `_mp_mult`);
+    the two updates stay float32."""
+    if mp:
+        _bf16("gs_incr_plain", L=L, D=D, iD=iD)
+        e = _mp_sweeps(r, L, iD, colors)
+        return x + omega * e.float(), r - omega * _mp_mult(e, L, D)
     eps = _rb_sweeps(r, L, iD, colors)
     r = r - omega * mult_plain(eps, L, D)
     x = x + omega * zero_ghost(eps)
@@ -273,12 +389,12 @@ def _lib():
 
 
 def _check(name: str, shape: tuple[int, ...], device: torch.device,
-           **tensors: torch.Tensor) -> None:
+           dtype: torch.dtype = torch.float32, /, **tensors: torch.Tensor) -> None:
     for arg, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{name}: {arg} is on {t.device}, expected {device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {arg} is {t.dtype}, the kernel takes float32")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {arg} is {t.dtype}, the kernel takes {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
         if tuple(t.shape[-3:]) != shape or t.dim() < 3:
@@ -340,6 +456,29 @@ def conv_diff_k(u: torch.Tensor, nu, scheme_id: int,
     return out
 
 
+def bdim_band_k(u, u0, f, V, mu0, mu1, dt: float, band: tuple[int, int],
+                perdir: tuple[int, ...] = ()) -> torch.Tensor:
+    """K2: `bdim_band_plain` in one launch over the whole field: the
+    far-field update on the rows outside ``band``, K14's update on the rows
+    inside, which reads ``f*`` at neighbours in the rows next to it."""
+    if not u.is_cuda:
+        return bdim_band_plain(u, u0, f, V, mu0, mu1, dt, band, perdir)
+    shape = tuple(u.shape[1:])
+    _check("bdim_band_k", shape, u.device, u=u, u0=u0, f=f, V=V, mu0=mu0, mu1=mu1)
+    for arg, t in (("u", u), ("u0", u0), ("f", f), ("V", V), ("mu0", mu0)):
+        _lead("bdim_band_k", arg, t, (3,))
+    _lead("bdim_band_k", "mu1", mu1, (3, 3))
+    lo, hi = int(band[0]), int(band[1])
+    if hi > lo and not 1 <= lo < hi <= shape[0] - 1:
+        raise ValueError(f"bdim_band_k: band {band} outside [1, {shape[0] - 1}]")
+    per = sum(1 << j for j in _dirs("bdim_band_k", perdir))
+    out = torch.empty_like(u)
+    _launch("bdim_band_k", _lib().wlt_bdim_band, _ptr(u), _ptr(u0), _ptr(f),
+            _ptr(V), _ptr(mu0), _ptr(mu1), ctypes.c_float(float(dt)), lo, hi,
+            per, _ptr(out), *shape, _stream(u.device))
+    return out
+
+
 def bdim_k(u, u0, f, V, mu0, mu1, dt: float) -> torch.Tensor:
     """K14: BDIM update with ``f* = u0 + dt·f − V`` fused in (`bdim_plain`);
     ghosts keep ``u``."""
@@ -374,26 +513,33 @@ def mult_k(x: torch.Tensor, L: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def gs_incr_k(x, r, L, D, iD, colors: Sequence[int], omega: float):
+def gs_incr_k(x, r, L, D, iD, colors: Sequence[int], omega: float,
+              mp: bool = False):
     """K15: red-black sweeps + increment (`gs_incr_plain`); ``colors=[]``
-    is the Jacobi smoother.  Returns new ``(x, r)``."""
+    is the Jacobi smoother.  ``mp`` launches the mixed-precision
+    instantiation (K4/K5 with ``mp=True``) on bf16 ``L``, ``D``, ``iD`` with
+    a bf16 scratch.  Returns new ``(x, r)``."""
     if not x.is_cuda:
-        return gs_incr_plain(x, r, L, D, iD, colors, omega)
+        return gs_incr_plain(x, r, L, D, iD, colors, omega, mp)
     shape = tuple(x.shape)
-    _check("gs_incr_k", shape, x.device, x=x, r=r, L=L, D=D, iD=iD)
+    name = "gs_incr_mp_k" if mp else "gs_incr_k"
+    cdt = BF16 if mp else torch.float32
+    _check(name, shape, x.device, x=x, r=r)
+    _check(name, shape, x.device, cdt, L=L, D=D, iD=iD)
     for arg, t in (("x", x), ("r", r), ("D", D), ("iD", iD)):
-        _lead("gs_incr_k", arg, t, ())
-    _lead("gs_incr_k", "L", L, (3,))
+        _lead(name, arg, t, ())
+    _lead(name, "L", L, (3,))
     cols = [int(c) for c in colors]
     if any(c not in (0, 1) for c in cols):
-        raise ValueError(f"gs_incr_k: colours must be 0 or 1, got {cols}")
+        raise ValueError(f"{name}: colours must be 0 or 1, got {cols}")
     carr = (ctypes.c_int * max(1, len(cols)))(*cols)
-    eps = torch.empty_like(x) if cols else x   # no scratch for Jacobi
+    eps = torch.empty_like(x, dtype=cdt) if cols else x   # no scratch for Jacobi
     x_out, r_out = torch.empty_like(x), torch.empty_like(r)
     lib = _lib()
-    _launch("gs_incr_k", lib.wlt_gs_incr, _ptr(x), _ptr(r), _ptr(L), _ptr(D),
-            _ptr(iD), _ptr(eps), _ptr(x_out), _ptr(r_out), carr, len(cols),
-            ctypes.c_float(float(omega)), *shape, _stream(x.device))
+    _launch(name, lib.wlt_gs_incr_mp if mp else lib.wlt_gs_incr, _ptr(x),
+            _ptr(r), _ptr(L), _ptr(D), _ptr(iD), _ptr(eps), _ptr(x_out),
+            _ptr(r_out), carr, len(cols), ctypes.c_float(float(omega)), *shape,
+            _stream(x.device))
     return x_out, r_out
 
 

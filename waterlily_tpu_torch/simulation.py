@@ -6,11 +6,14 @@ body measure and the multigrid pressure solver, and `sim_step` drives the
 host time loop around `mom_step_impl` (data-dependent CFL, like the
 reference's `sim_step!` loop at `WaterLily.jl:128-139`).
 
-Supported: the multigrid solver with constant boundary velocity, periodic
-directions (``perdir``), the convective outlet (``exit_bc``), a constant or
-callable initial velocity ``u0``, static or moving `AutoBody` geometry
-re-measured densely.  `sim_step_n` is a host loop over `step_once`.  Every
-tensor lives on ``device``, the card unless the caller asks for the CPU.
+Supported: the multigrid solver, a constant or callable boundary velocity
+``ubc(i, x, t)``, a body force ``g(i, x, t)``, the ``udf`` forcing hook of the
+step (`utils.les.sgs` is one), periodic directions (``perdir``), the
+convective outlet (``exit_bc``), a constant or callable initial velocity
+``u0``, static or moving `AutoBody` geometry re-measured densely, and
+mixed-precision smoothing (``mp_smooth``) on the flat engine.  `sim_step_n`
+is a host loop over `step_once`.  Every tensor lives on ``device``, the card
+unless the caller asks for the CPU.
 
 Two engines step the flow, as in the JAX package: ``engine="3d"`` runs
 `flow.mom_step_impl` (the generic engine, kernels of `ops/stencil3d.py`),
@@ -31,6 +34,7 @@ import torch
 from .models import flow as fl
 from .models import flowflat as ff
 from .models.body import Body, NoBody, measure_fill
+from .ops import mgflat
 from .ops import multigrid as mg
 
 __all__ = ["Simulation", "check_fn"]
@@ -43,28 +47,26 @@ def check_fn(f, D: int, dtype, nargs: int, name: str) -> None:
     """Constructor-time validation of a user callable (`check_fn`,
     `src/WaterLily.jl:78-84`): call it once per component on a dummy point
     and raise a readable error on a bad signature or a non-scalar result.
-    ``nargs == 2`` is an initial condition ``f(i, x)``; a callable with
-    ``nargs == 3`` (``ubc``/``g``, ``f(i, x, t)``) is not ported yet and
-    raises (ROADMAP queue 1, item 10)."""
+    ``nargs == 3`` is ``f(i, x, t)`` (``ubc``, ``g``), ``nargs == 2`` an
+    initial condition ``f(i, x)``."""
     if f is None or not callable(f):
         return
-    if nargs == 3:
-        raise NotImplementedError(
-            f"callable {name} is not ported yet: {fl.ROADMAP_FLOW_CONFIGS}")
-    x = torch.zeros((D,), dtype=dtype)
+    args = (torch.zeros((D,), dtype=dtype), torch.zeros((), dtype=dtype))[:nargs - 1]
+    sig = f"({', '.join(['i', 'x', 't'][:nargs])})"
     for i in range(D):
         try:
-            out = f(i, x)
+            out = f(i, *args)
         except TypeError as e:
             raise ValueError(
-                f"{name} must have signature {name}(i, x) with i an int "
-                f"component index and x a ({D},) position: {e}") from e
+                f"{name} must have signature {name}{sig} with i an int "
+                f"component index, x a ({D},) position and t a scalar time: "
+                f"{e}") from e
         except Exception as e:
             raise ValueError(
-                f"{name}(i, x) failed on a dummy point (i={i}, x=zeros({D})) "
-                f"— it must be written with torch ops: {e}") from e
+                f"{name}{sig} failed on a dummy point (i={i}, x=zeros({D}), "
+                f"t=0) — it must be written with torch ops: {e}") from e
         if torch.as_tensor(out).shape != ():
-            raise ValueError(f"{name}(i, x) must return a scalar per "
+            raise ValueError(f"{name}{sig} must return a scalar per "
                              f"component, got shape "
                              f"{tuple(torch.as_tensor(out).shape)} for i={i}")
 
@@ -104,13 +106,17 @@ def _band_box(V: torch.Tensor, mu0: torch.Tensor, mu1: torch.Tensor,
 class Simulation:
     """`Simulation(dims, ubc, L; ...)` (`src/WaterLily.jl:36-75`).
 
-    ``dims`` interior grid size, ``ubc`` constant boundary velocity,
-    ``L``/``U`` the length/velocity scales of ``sim_time = t U / L``, ``nu``
-    viscosity, ``eps`` BDIM kernel width, ``scheme`` the convective flux
-    limiter, ``body`` immersed geometry, ``dtype`` precision and ``device``
-    where every tensor lives.  The solver knobs default to the non-TPU
-    values of the JAX package: ``smooth_it=4``, ``fine_presmooth=True``, a
-    dense coarse solve below ``min_coarse_cells=64``.  ``engine`` picks the
+    ``dims`` interior grid size, ``ubc`` boundary velocity (a tuple, or a
+    callable ``ubc(i, x, t)`` written with torch ops, and then ``U`` must be
+    given), ``L``/``U`` the length/velocity scales of ``sim_time = t U / L``,
+    ``nu`` viscosity, ``g(i, x, t)`` body acceleration, ``eps`` BDIM kernel
+    width, ``scheme`` the convective flux limiter, ``body`` immersed
+    geometry, ``dtype`` precision and ``device`` where every tensor lives.
+    The solver knobs default to the non-TPU values of the JAX package:
+    ``smooth_it=4`` in float32, ``fine_presmooth=True``, a dense coarse
+    solve below ``min_coarse_cells=64``; ``mp_smooth=True`` asks for bf16
+    smoothing, which takes effect on the flat engine in float32 with no
+    periodic direction (`mgflat.mp_applies`).  ``engine`` picks the
     stepping engine (module docstring); ``"flat"`` needs D = 3.  ``perdir``
     lists the periodic directions (0-based), ``exit_bc`` puts the convective
     outlet on the x-high face, ``u0`` is a constant tuple or a callable
@@ -144,6 +150,9 @@ class Simulation:
                 f"psolver={psolver!r} is not ported yet: ROADMAP queue 1, "
                 "item 13 (solver injection)")
         if U is None:
+            if callable(ubc):
+                raise ValueError("U (velocity scale) must be given when ubc "
+                                 "is a function")
             U = math.sqrt(sum(float(v) ** 2 for v in ubc))
         self.U, self.L, self.eps = U, L, eps
         self.device = torch.device(device)
@@ -169,8 +178,7 @@ class Simulation:
         self.masks = tuple(mg.level_shapes(cfg.shape,
                                            min_cells=self._min_coarse)[1])
         if isinstance(self.body, NoBody):
-            self.levels = mg.update_mg(self.masks, self.flow.state.mu0,
-                                       cfg.perdir)
+            self.levels = self._levels(self.flow.state.mu0)
         else:
             self.measure(t=0.0)
 
@@ -204,9 +212,19 @@ class Simulation:
                                       cfg.exit_bc)
         self.flow.state = dataclasses.replace(self.flow.state,
                                               V=V, mu0=mu0, mu1=mu1)
-        self.levels = mg.update_mg(self.masks, mu0, cfg.perdir)
+        self.levels = self._levels(mu0)
         if self.engine == "flat":
             self._set_band(_band_box(V, mu0, mu1, cfg.perdir))
+
+    def _levels(self, mu0: torch.Tensor):
+        """The multigrid stack of ``mu0``; where ``mp_smooth`` takes effect,
+        with the bf16 coefficient copies of `mgflat.mp_levels`."""
+        cfg = self.flow.cfg
+        levels = mg.update_mg(self.masks, mu0, cfg.perdir)
+        if self.engine == "flat" and mgflat.mp_applies(
+                cfg.mp_smooth, cfg.dtype, cfg.perdir):
+            levels = mgflat.mp_levels(levels)
+        return levels
 
     def _set_band(self, band: torch.Tensor):
         """Set ``cfg.band_x`` from the raw x bounds of `_band_box` (one host
@@ -221,10 +239,8 @@ class Simulation:
 
     def step_once(self, remeasure: bool = True, udf=None):
         """One `mom_step` (+ optional body re-measure) with the host
-        bookkeeping of the Δt history and solver iteration counts."""
-        if udf is not None:
-            raise NotImplementedError(
-                "udf is not ported yet: ROADMAP queue 1, item 10 (udf/LES)")
+        bookkeeping of the Δt history and solver iteration counts.  ``udf(f,
+        state, u_adv, t)`` returns the forced momentum RHS of each phase."""
         if remeasure:
             self.measure()
         cfg = self.flow.cfg
@@ -232,7 +248,7 @@ class Simulation:
         t0 = _as_dtype(self.time, cfg.dtype)
         step = ff.mom_step_flat_impl if self.engine == "flat" else fl.mom_step_impl
         state, dt_next, iters, stats = step(cfg, self.flow.state, self.levels,
-                                            self.masks, dt, t0)
+                                            self.masks, dt, t0, udf)
         self.flow.state = state
         self.flow.dt.append(dt_next.item())
         self.flow.pois_n += iters
