@@ -6,14 +6,20 @@
 Phases (each prints its own lines; any failure exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit) and the toolchain;
-2. build the CUDA kernels of ``waterlily_tpu_torch/csrc`` with ``nvcc``;
+2. build the CUDA kernels of ``waterlily_tpu_torch/csrc`` with ``nvcc``; the
+   compiler's report (``-Xptxas -v``) must show all 27 conv–diff
+   instantiations (K12: 3 schemes × 8 periodic masks, K1: 3 schemes) with
+   no stack frame and no spills;
 3. each kernel (and each mode: K12 periodic, K9 keeping the exit plane, K2
    with its band in the middle, at row 1, at row Nx−1, empty and periodic,
    the bf16 smoothers with 0, 2 and 4 colours and with and without norms)
    against its plain PyTorch version in float32 on random inputs at the
    shapes the main paths give it (258³ fine level, 130³, 66³ and 18³ MG
    levels, a non-cubic (50, 34, 34) and an odd-interior (51, 34, 35)), and
-   the median time of each case at 258³ beside its plain version's;
+   the median time of each case at 258³ beside its plain version's; K12
+   and K1 are also checked and timed at the drag grid (322, 130, 130), and
+   each of their times is printed beside the one-thread-per-(cell,
+   component) kernels they replaced (``BEFORE_MS``);
 4. the main paths at full width, each built with ``Simulation`` and stepped
    10 times with ``sim_step(remeasure=False)``, first with ``engine="flat"``
    (the fused engine, what ``"auto"`` picks on CUDA), then with
@@ -117,6 +123,32 @@ KERNELS = {
     "copy_scale_k": (0.0, _PROBE, "benchmarks/leanprobe.py:99", 8, 1),
     "copy_scale6_k": (0.0, _PROBE, "benchmarks/bwprobe.py:128", 48, 6),
 }
+DRAG_GRID = (322, 130, 130)      # `drag_sim(128)` with its ghost cells
+CONV_DIFF = ("conv_diff_k", "conv_diff_bdim_k")
+# ms per call of the kernels that the tiled conv-diff core replaced (one thread
+# per (cell, component), every flux evaluated twice, cached global reads), on
+# an NVIDIA H100 80GB HBM3 at 700 W: at 258^3 from this script's phase 3 on
+# the commit before the tiles, at the drag grid from `tools/convdiff_bench.py`
+# run in that commit's checkout in one call with the tiled kernels
+BEFORE_MS = {
+    ((258,) * 3, "conv_diff_k", "quick"): 2.524,
+    ((258,) * 3, "conv_diff_k", "vanleer"): 2.594,
+    ((258,) * 3, "conv_diff_k", "cds"): 1.347,
+    ((258,) * 3, "conv_diff_k", "quick per=012"): 2.383,
+    ((258,) * 3, "conv_diff_k", "vanleer per=012"): 2.444,
+    ((258,) * 3, "conv_diff_k", "cds per=012"): 3.611,
+    ((258,) * 3, "conv_diff_k", "quick per=2"): 2.381,
+    ((258,) * 3, "conv_diff_bdim_k", "kb=0,s=1"): 2.611,
+    ((258,) * 3, "conv_diff_bdim_k", "kb=1,s=0.5"): 2.622,
+    (DRAG_GRID, "conv_diff_k", "quick"): 0.880,
+    (DRAG_GRID, "conv_diff_k", "vanleer"): 0.910,
+    (DRAG_GRID, "conv_diff_k", "cds"): 0.480,
+    (DRAG_GRID, "conv_diff_k", "quick per=012"): 0.839,
+    (DRAG_GRID, "conv_diff_k", "vanleer per=012"): 0.855,
+    (DRAG_GRID, "conv_diff_k", "cds per=012"): 1.207,
+    (DRAG_GRID, "conv_diff_k", "quick per=2"): 0.838,
+    (DRAG_GRID, "conv_diff_bdim_k", "kb=1,s=0.5"): 0.904,
+}
 # the kernels each main path launches (engine x configuration)
 PATH_KERNELS = {
     # a body band is set: the flat engine runs K1 and no K12
@@ -172,6 +204,27 @@ def nvcc_version(nvcc: str) -> str:
     out = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
                          check=True, timeout=60)
     return out.stdout.strip().splitlines()[-1]
+
+
+# ------------------------------------------------------------ phase 2
+def check_conv_diff_build(_build) -> None:
+    """Every conv-diff instantiation in the compiler's report, each without
+    a stack frame and without spills."""
+    log = _build.build_info.get("log")
+    check(bool(log), "phase2: no compiler report beside the kernel library")
+    entries = [e for e in _build.ptxas_report(log)
+               if "conv_diff_tile_kernel" in e["name"]]
+    check(len(entries) == 27, f"phase2: {len(entries)} conv-diff instantiations "
+          f"in the compiler's report, expected 27")
+    bad = [e for e in entries
+           if e["stack"] or e["spill_stores"] or e["spill_loads"]]
+    regs = sorted(e["registers"] for e in entries)
+    print(f"phase2 conv-diff: 27 instantiations, registers {regs[0]}-{regs[-1]}, "
+          f"{len(bad)} with a stack frame or spills", flush=True)
+    check(not bad, "phase2: conv-diff instantiations with a stack frame or "
+          "spills: " + "; ".join(f"{e['name'][-48:]} stack {e['stack']} B spills "
+                                 f"{e['spill_stores']}/{e['spill_loads']} B"
+                                 for e in bad))
 
 
 # ------------------------------------------------------------ phase 3
@@ -382,7 +435,8 @@ def phase_kernels(torch, np, wt, dev):
     torch.cuda.empty_cache()
     print(f"phase3 band_x of the {FINE}^3 sphere: {fine_band} "
           f"({fine_band[1] - fine_band[0]} of {fine[0]} rows)", flush=True)
-    shapes = [fine, (130,) * 3, (66,) * 3, (18,) * 3, (50, 34, 34), (51, 34, 35)]
+    shapes = [fine, (130,) * 3, (66,) * 3, (18,) * 3, (50, 34, 34), (51, 34, 35),
+              DRAG_GRID]
     stats = {k: {"max_abs_err": 0.0, "ms": None, "plain_ms": None,
                  "library_ms": None} for k in KERNELS}
     seen = set()
@@ -409,11 +463,15 @@ def phase_kernels(torch, np, wt, dev):
                       f"relative error {rel:.3e} > {tol:.0e}")
                 stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
             del got, want
-            if shape == fine:
+            if shape == fine or (shape == DRAG_GRID and name in CONV_DIFF):
                 ms, pms = median_ms(torch, kern, 20), median_ms(torch, plain, 4)
+                before = BEFORE_MS.get((shape, name, label))
                 print(f"phase3 time {name:16s} {label:24s} at {shape}: kernel "
-                      f"{ms:.4f} ms, plain {pms:.4f} ms per call", flush=True)
-                if stats[name]["ms"] is None:
+                      f"{ms:.4f} ms, plain {pms:.4f} ms per call"
+                      + ("" if name not in CONV_DIFF else
+                         f", before the tiles {before:.3f} ms" if before else
+                         ", before the tiles not measured"), flush=True)
+                if shape == fine and stats[name]["ms"] is None:
                     # the JSON keeps the first case of each kernel (conv_diff:
                     # quick, walls; gs_incr: Jacobi; K13: 4 colours, xyz
                     # periodic; K1: predictor; K7: 4 colours; K9: no CFL, no
@@ -787,6 +845,7 @@ def main() -> int:
     _build.load()
     print(f"phase2 nvcc build + load {time.perf_counter() - t0:.2f} s "
           f"({_build.build_info['path']})", flush=True)
+    check_conv_diff_build(_build)
 
     stats = phase_kernels(torch, np, wt, dev)
     runs = {(c, e): phase_main(torch, wt, st, dev, c, e) for c, e in MAIN_RUNS}

@@ -32,7 +32,14 @@ pytestmark = pytest.mark.cuda
 SHAPES = [(18, 18, 18), (26, 18, 10), (10, 6, 6)]
 # with an odd interior extent: same-colour cells meet across a periodic face
 PER_SHAPES = SHAPES + [(21, 18, 19)]
-PERDIRS = [(0, 1, 2), (2,), (0, 2)]
+# the seven periodic masks of K12 (the eighth, no periodic direction, is
+# `test_conv_diff_k`)
+PERDIRS = [(0, 1, 2), (2,), (0, 2), (0,), (1,), (0, 1), (1, 2)]
+PERDIR_IDS = ["xyz", "z", "xz", "x", "y", "xy", "yz"]
+# shapes that stress the conv-diff tiles (8 x 32 cells in y, z, marched over
+# chunks of 8 to 32 x rows): extents below one tile, one cell over a tile and a
+# chunk, and the drag grid's aspect
+TILE_SHAPES = [(6, 6, 6), (12, 10, 7), (34, 17, 33), (66, 18, 34), (82, 34, 34)]
 
 
 @pytest.fixture
@@ -62,7 +69,7 @@ def rel_err(got, want):
     return ((got - want).abs().max() / want.abs().max().clamp(min=1e-30)).item()
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + TILE_SHAPES)
 @pytest.mark.parametrize("sid", [0, 1, 2], ids=["quick", "vanleer", "cds"])
 def test_conv_diff_k(dev, shape, sid):
     d = inputs(shape, 0, dev)
@@ -123,19 +130,50 @@ def test_launch_counts_and_routing(dev):
 UBC = (1.0, 0.25, -0.5)     # all three non-zero: the BC! corners compose
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+def f_rows_of(nx, kind):
+    """The x rows of K1's ``f`` for a case: the middle third, a slab that
+    starts or ends on the edge of a 32-row chunk (where the field has one),
+    one row, every interior row, or None for all rows."""
+    return {"all": None, "slab": (nx // 3, 2 * nx // 3),
+            "from_chunk": (min(32, nx - 2), nx - 1),
+            "to_chunk": (1, min(32, nx - 1)),
+            "one": (nx // 2, nx // 2 + 1), "interior": (1, nx - 1)}[kind]
+
+
+@pytest.mark.parametrize("shape", SHAPES + TILE_SHAPES)
 @pytest.mark.parametrize("kb,scale", [(0.0, 1.0), (1.0, 0.5)],
                          ids=["predictor", "corrector"])
-@pytest.mark.parametrize("slab", [False, True], ids=["full", "slab"])
-def test_conv_diff_bdim_k(dev, shape, kb, scale, slab):
+@pytest.mark.parametrize("rows", ["all", "slab", "from_chunk", "to_chunk", "one",
+                                  "interior"])
+def test_conv_diff_bdim_k(dev, shape, kb, scale, rows):
     d = inputs(shape, 5, dev)
     nu = torch.tensor(0.03, device=dev)
-    rows = (shape[0] // 3, 2 * shape[0] // 3) if slab else (0, shape[0])
-    u_k, f_k = fz.conv_diff_bdim_k(d["u"], d["u0"], nu, 0.3, kb, scale, 0,
-                                   rows if slab else None)
+    f_rows = f_rows_of(shape[0], rows)
+    lo, hi = f_rows or (0, shape[0])
+    u_k, f_k = fz.conv_diff_bdim_k(d["u"], d["u0"], nu, 0.3, kb, scale, 0, f_rows)
     u_p, f_p = fz.conv_diff_bdim_plain(d["u"], d["u0"], nu, 0.3, kb, scale, st.quick)
     assert rel_err(u_k, u_p) <= 2e-5
-    assert rel_err(f_k[:, slice(*rows)], f_p[:, slice(*rows)]) <= 2e-5
+    assert rel_err(f_k[:, lo:hi], f_p[:, lo:hi]) <= 2e-5
+    # the entry point on a NaN-filled f: finite on the slab, untouched outside
+    u_new = torch.empty_like(d["u"])
+    f = torch.full_like(d["u"], float("nan"))
+    err = fz._lib().wlt_conv_diff_bdim(
+        fz._ptr(d["u"]), fz._ptr(d["u0"]), fz._ptr(nu), 0.3, kb, scale, lo, hi,
+        fz._ptr(u_new), fz._ptr(f), *shape, 0, fz._stream(dev))
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.isfinite(f[:, lo:hi]).all() and torch.equal(u_new, u_k)
+    assert torch.isnan(f[:, :lo]).all() and torch.isnan(f[:, hi:]).all()
+
+
+@pytest.mark.parametrize("sid", [1, 2], ids=["vanleer", "cds"])
+def test_conv_diff_bdim_k_schemes(dev, sid):
+    d = inputs((34, 17, 33), 18, dev)
+    nu = torch.tensor(0.03, device=dev)
+    got = fz.conv_diff_bdim_k(d["u"], d["u0"], nu, 0.3, 1.0, 0.5, sid)
+    want = fz.conv_diff_bdim_plain(d["u"], d["u0"], nu, 0.3, 1.0, 0.5, st.SCHEMES[sid])
+    for a, b in zip(got, want):
+        assert rel_err(a, b) <= 2e-5
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -201,9 +239,9 @@ def test_flat_engine_routing(dev):
     assert torch.isfinite(sim.flow.u).all() and torch.isfinite(sim.flow.p).all()
 
 
-@pytest.mark.parametrize("shape", PER_SHAPES)
+@pytest.mark.parametrize("shape", PER_SHAPES + TILE_SHAPES)
 @pytest.mark.parametrize("sid", [0, 1, 2], ids=["quick", "vanleer", "cds"])
-@pytest.mark.parametrize("perdir", PERDIRS, ids=["xyz", "z", "xz"])
+@pytest.mark.parametrize("perdir", PERDIRS, ids=PERDIR_IDS)
 def test_conv_diff_k_periodic(dev, shape, sid, perdir):
     d = inputs(shape, 9, dev)
     nu = torch.tensor(0.03, device=dev)

@@ -8,16 +8,17 @@
 // y*z) lane layout; here the same formulas run one thread per cell on dense
 // (nx, ny, nz) fields.
 //
-// What bounds them on an H100 (3.35 TB/s HBM3): all do < 1 flop per byte,
-// so each is bound by memory traffic; the bytes each must move per cell are
-// given beside it (floor = bytes x cells / 3.35 TB/s).  The stencil reuse is
-// left to L1/L2 as in stencil3d.cu.  Reductions are deterministic: per-block
+// What bounds them on an H100 (3.35 TB/s HBM3): all but K1 do < 1 flop per
+// byte, so each is bound by memory traffic; the bytes each must move per
+// cell are given beside it (floor = bytes x cells / 3.35 TB/s).  The stencil
+// reuse is left to L1/L2 as in stencil3d.cu; K1 runs on the shared-memory
+// tiles of convdiff_tile.cuh.  Reductions are deterministic: per-block
 // partials in a fixed tree order, then one block that folds them (a float
 // atomicAdd would change the L1 norm, and with it the iteration count, from
 // run to run); the CFL max is an integer atomicMax on the bits of a
 // non-negative float, which is order-free.
 
-#include "stencil_common.cuh"
+#include "convdiff_tile.cuh"
 
 namespace {
 
@@ -89,34 +90,53 @@ __global__ void fold_partials_kernel(const float* __restrict__ partials,
 //           = u_i                                            ghosts
 // with mm_i zero on component i's face-1 plane (pallas_flat.py:573-585).
 // f is written only on x rows [f_lo, f_hi): the caller reads it on the body
-// slab alone.  Bytes: reads u (3), u0 (3), writes u_new (3), f (3): 48
-// B/cell, 0.25 ms at 258^3 at the HBM roofline; like K12 each thread
-// recomputes its 6 fluxes from cached reads.
-template <int SCHEME>
-__global__ void conv_diff_bdim_kernel(const float* __restrict__ u,
-                                      const float* __restrict__ u0,
-                                      const float* __restrict__ nu_ptr,
-                                      float dt, float keep_base, float scale,
-                                      int f_lo, int f_hi,
-                                      float* __restrict__ u_new,
-                                      float* __restrict__ f, Grid3 g) {
-  int z = blockIdx.x * BZ + threadIdx.x;
-  int y = blockIdx.y * BY + threadIdx.y;
-  int i = blockIdx.z / g.nx;
-  int x = blockIdx.z - i * g.nx;
-  if (z >= g.nz || y >= g.ny) return;
-  int64_t ci = (int64_t)i * g.n + at(g, x, y, z);
-  bool m = interior(g, x, y, z);
-  float fi = m ? conv_diff_at<SCHEME, 0>(u, g, *nu_ptr, i, x, y, z) : 0.f;
-  if (x >= f_lo && x < f_hi) f[ci] = fi;
-  float ui = u[ci];
-  if (m) {
-    int face = i == 0 ? x : (i == 1 ? y : z);
-    float mm = face == 1 ? 0.f : 1.f;
-    ui = scale * (keep_base * ui + mm * (u0[ci] + dt * fi));
+// slab alone.  Bytes: reads u (3), u0 (3), writes u_new (3): 36 B/cell, and f
+// (3) on the rows of the slab: 12 B/cell there, 48 B/cell when every row is
+// asked for; with the slab on a third of the rows 40 B/cell, 0.21 ms at
+// 258^3 at the HBM roofline.  The RHS comes from the tiled core of
+// convdiff_tile.cuh (walled: PER = 0); this epilogue reads u0 once,
+// coalesced, before the step's fluxes, and takes u at the cell from the tile.
+struct BdimEpilogue {
+  struct Pre {
+    float u0[3];
+  };
+  const float* __restrict__ u0;
+  float dt, keep_base, scale;
+  int f_lo, f_hi;
+  float* __restrict__ u_new;
+  float* __restrict__ f;
+  // u0 at an interior cell (never read on ghosts)
+  __device__ __forceinline__ Pre pre(const Grid3& g, int x, int y, int z,
+                                     int64_t c) const {
+    Pre p = {};
+    if (interior(g, x, y, z)) {
+#pragma unroll
+      for (int i = 0; i < 3; ++i) p.u0[i] = u0[(int64_t)i * g.n + c];
+    }
+    return p;
   }
-  u_new[ci] = ui;
-}
+  __device__ __forceinline__ void operator()(const Grid3& g, int x, int y,
+                                             int z, int64_t c,
+                                             const float (&ri)[3],
+                                             const float (&uc)[3],
+                                             const Pre& p) const {
+    const bool m = interior(g, x, y, z);
+    const bool wf = x >= f_lo && x < f_hi;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      int64_t ci = (int64_t)i * g.n + c;
+      float fi = m ? ri[i] : 0.f;
+      if (wf) f[ci] = fi;
+      float ui = uc[i];
+      if (m) {
+        int face = i == 0 ? x : (i == 1 ? y : z);
+        float mm = face == 1 ? 0.f : 1.f;
+        ui = scale * (keep_base * ui + mm * (p.u0[i] + dt * fi));
+      }
+      u_new[ci] = ui;
+    }
+  }
+};
 
 // ------------------------------------------------------------ BC!
 // The BC! update (ops/bc.py bc_vector, src/core.jl:199-224) is a sequence of
@@ -450,26 +470,14 @@ int wlt_conv_diff_bdim(const float* u, const float* u0, const float* nu,
                        int f_hi, float* u_new, float* f, int64_t nx,
                        int64_t ny, int64_t nz, int scheme_id, void* stream) {
   Grid3 g = make_grid(nx, ny, nz);
-  dim3 block(BZ, BY);
-  dim3 grid = grid_of(g, 3);
+  BdimEpilogue epi = {u0, dt, keep_base, scale, f_lo, f_hi, u_new, f};
   cudaStream_t s = (cudaStream_t)stream;
   switch (scheme_id) {
-    case 0:
-      conv_diff_bdim_kernel<0><<<grid, block, 0, s>>>(
-          u, u0, nu, dt, keep_base, scale, f_lo, f_hi, u_new, f, g);
-      break;
-    case 1:
-      conv_diff_bdim_kernel<1><<<grid, block, 0, s>>>(
-          u, u0, nu, dt, keep_base, scale, f_lo, f_hi, u_new, f, g);
-      break;
-    case 2:
-      conv_diff_bdim_kernel<2><<<grid, block, 0, s>>>(
-          u, u0, nu, dt, keep_base, scale, f_lo, f_hi, u_new, f, g);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 0: return (int)launch_conv_diff_tile<0, 0>(u, nu, g, epi, s);
+    case 1: return (int)launch_conv_diff_tile<1, 0>(u, nu, g, epi, s);
+    case 2: return (int)launch_conv_diff_tile<2, 0>(u, nu, g, epi, s);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 int wlt_bc_div(const float* u, float u0, float u1, float u2, float* u_bc,

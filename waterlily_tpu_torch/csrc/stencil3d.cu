@@ -5,54 +5,49 @@
 //
 // Layout, indexing and thread shape: see stencil_common.cuh.
 //
-// What bounds these kernels on an H100 (3.35 TB/s HBM3): all do < 1 flop
-// per byte, so each is bound by memory traffic.  The bytes each must move per
-// cell are given beside each kernel; time = bytes x cells / 3.35 TB/s is the
-// floor.  This first version relies on the caches for the stencil reuse; a
-// shared-memory tile with halos (the Hopper form of the TPU's x-row VMEM
-// windows) is later work.
+// What bounds these kernels on an H100 (3.35 TB/s HBM3): the Poisson and BDIM
+// kernels do < 1 flop per byte, so each is bound by memory traffic.  The
+// bytes each must move per cell are given beside each kernel; time = bytes x
+// cells / 3.35 TB/s is the floor.  They rely on the caches for the stencil
+// reuse; K12 runs on the shared-memory tiles of convdiff_tile.cuh.
 
-#include "stencil_common.cuh"
+#include "convdiff_tile.cuh"
 
 namespace {
 
 // ------------------------------------------------------------ K12 conv_diff
 // Replaces waterlily_tpu/ops/pallas3d.py:274 conv_diff3d_generic and the
 // slab fixes its caller composes (models/flow.py:295-323): the whole jnp
-// formula of models/flow.py:276-292.
-//
-// Flux of component i through the lower j-face of cell p, with roll-wrap
-// reads ((k +- s) mod n), phiL at j-index 1 and phiR at j-index n-1; in the
-// directions whose bit is set in PER the periodic phiuP fluxes instead
-// (stencil_common.cuh flux).  One instantiation per scheme and periodic
-// mask.
+// formula of models/flow.py:276-292 at every cell, ghosts included, with
+// roll-wrap reads, and in the directions whose bit is set in PER the
+// periodic phiuP fluxes.  The tiled core of convdiff_tile.cuh (what bounds
+// it and what the design does are written there) with the plain store as
+// its epilogue; one instantiation per scheme and periodic mask.
 // Bytes: reads u (3 fields), writes r (3 fields): 24 B/cell, 0.12 ms at 258^3
-// at the HBM roofline.  Each thread recomputes 6 fluxes from ~30 reads that
-// the caches serve; the design keeps one thread per (cell, component) so all
-// 3 x 3 flux pairs stay in registers and nothing else touches memory.
-template <int SCHEME, int PER>
-__global__ void conv_diff_kernel(const float* __restrict__ u,
-                                 const float* __restrict__ nu_ptr,
-                                 float* __restrict__ r, Grid3 g) {
-  int z = blockIdx.x * BZ + threadIdx.x;
-  int y = blockIdx.y * BY + threadIdx.y;
-  int i = blockIdx.z / g.nx;
-  int x = blockIdx.z - i * g.nx;
-  if (z >= g.nz || y >= g.ny) return;
-  r[(int64_t)i * g.n + at(g, x, y, z)] =
-      conv_diff_at<SCHEME, PER>(u, g, *nu_ptr, i, x, y, z);
-}
+// at the HBM roofline.
+struct StoreRhs {
+  struct Pre {};
+  float* __restrict__ r;
+  __device__ __forceinline__ Pre pre(const Grid3&, int, int, int, int64_t) const {
+    return {};
+  }
+  __device__ __forceinline__ void operator()(const Grid3& g, int, int, int,
+                                             int64_t c, const float (&ri)[3],
+                                             const float (&)[3],
+                                             const Pre&) const {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) r[(int64_t)i * g.n + c] = ri[i];
+  }
+};
 
 template <int SCHEME>
 cudaError_t launch_conv_diff(const float* u, const float* nu, float* r,
                              int per, const Grid3& g, cudaStream_t s) {
-  dim3 block(BZ, BY);
-  dim3 grid = grid_of(g, 3);
+  StoreRhs epi = {r};
   switch (per) {
-#define WLT_CONV_DIFF_CASE(P)                                             \
-  case P:                                                                 \
-    conv_diff_kernel<SCHEME, P><<<grid, block, 0, s>>>(u, nu, r, g);      \
-    break;
+#define WLT_CONV_DIFF_CASE(P) \
+  case P:                     \
+    return launch_conv_diff_tile<SCHEME, P>(u, nu, g, epi, s);
     WLT_CONV_DIFF_CASE(0)
     WLT_CONV_DIFF_CASE(1)
     WLT_CONV_DIFF_CASE(2)
@@ -65,7 +60,6 @@ cudaError_t launch_conv_diff(const float* u, const float* nu, float* r,
     default:
       return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 // ------------------------------------------------------------ K14 bdim

@@ -4,9 +4,11 @@ The kernels are compiled on first use with `nvcc`, one process per source,
 all started together (`-gencode arch=compute_90a,code=sm_90a -Xcompiler
 -fPIC -c`), then linked into one shared library with a plain C interface,
 placed in ``build/`` at the repository root and loaded with `ctypes`.  The
-library name carries a hash of every source, the shared header and the
+library name carries a hash of every source, the shared headers and the
 flags, so a process started after a source was edited rebuilds it and never
-loads a stale library.  Nothing is built or loaded at import time.
+loads a stale library.  The compiler's resource report (`-Xptxas -v`) is kept
+beside the library and parsed by `ptxas_report`.  Nothing is built or loaded
+at import time.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -21,12 +24,13 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["SOURCES", "BUILD_DIR", "nvcc_path", "build", "load"]
+__all__ = ["SOURCES", "BUILD_DIR", "nvcc_path", "build", "load", "ptxas_report"]
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = (_PKG / "csrc" / "stencil3d.cu", _PKG / "csrc" / "fused3d.cu",
            _PKG / "csrc" / "probe.cu")
-_HEADER = _PKG / "csrc" / "stencil_common.cuh"
+_HEADERS = (_PKG / "csrc" / "stencil_common.cuh",
+            _PKG / "csrc" / "convdiff_tile.cuh")
 BUILD_DIR = _PKG.parent / "build"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -82,7 +86,7 @@ def nvcc_path() -> str:
 
 
 def _lib_path() -> Path:
-    h = hashlib.sha1(b"".join(p.read_bytes() for p in (*SOURCES, _HEADER))
+    h = hashlib.sha1(b"".join(p.read_bytes() for p in (*SOURCES, *_HEADERS))
                      + " ".join(_FLAGS).encode())
     return BUILD_DIR / f"libwlt-{h.hexdigest()[:12]}.so"
 
@@ -101,9 +105,12 @@ def build() -> Path:
     already built; returns its path.  Records the time and the compiler's
     register report in `build_info`."""
     out = _lib_path()
+    log_path = out.with_suffix(".log")
     if out.exists():
         build_info.setdefault("path", str(out))
         build_info.setdefault("seconds", 0.0)
+        if log_path.exists():
+            build_info.setdefault("log", log_path.read_text())
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
@@ -117,10 +124,24 @@ def build() -> Path:
         lib = str(Path(tmp) / "lib.so")
         logs.append(_run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
                           "-shared", "-o", lib, *objs]))
+        log_path.write_text("".join(logs))
         os.replace(lib, out)
     build_info.update(path=str(out), seconds=time.perf_counter() - t0,
                       log="".join(logs))
     return out
+
+
+_PTXAS_FN = re.compile(r"Function properties for (\S+)\s*\n\s*(\d+) bytes stack "
+                       r"frame, (\d+) bytes spill stores, (\d+) bytes spill loads"
+                       r"\s*\n.*?Used (\d+) registers", re.S)
+
+
+def ptxas_report(log: str) -> list[dict[str, object]]:
+    """The entries of a `-Xptxas -v` log: the mangled name, stack frame and
+    spill bytes and registers of each compiled function."""
+    return [dict(name=m[1], stack=int(m[2]), spill_stores=int(m[3]),
+                 spill_loads=int(m[4]), registers=int(m[5]))
+            for m in _PTXAS_FN.finditer(log)]
 
 
 @functools.cache

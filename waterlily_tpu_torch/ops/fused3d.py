@@ -5,7 +5,8 @@ Counterpart of `waterlily_tpu/ops/pallas_flat.py` for `engine="flat"`
 (`models/flowflat.py`, `ops/mgflat.py`).  The TPU kernels fuse passes over
 its ``(x, y·z)`` lane layout; the port keeps dense ``(Nx, Ny, Nz)`` tensors
 and fuses the same passes (sources in `csrc/fused3d.cu`, built with the
-kernels of `ops/stencil3d.py`, see `ops/_build.py`):
+kernels of `ops/stencil3d.py`, see `ops/_build.py`; K1 is the tiled
+conv–diff core of `csrc/convdiff_tile.cuh` with the BDIM epilogue):
 
 ====================  ================================================
 wrapper               replaces (TPU)

@@ -22,7 +22,10 @@ wrapper           replaces (TPU)                               JAX caller
 ================  ===========================================  ==================
 
 `conv_diff_k` takes the periodic directions (``perdir``) as a mode: there
-the boundary-slab fluxes are the periodic ϕuP ones (`_phi_slabs`).
+the boundary-slab fluxes are the periodic ϕuP ones (`_phi_slabs`).  It runs
+on the shared-memory tiles of `csrc/convdiff_tile.cuh` (one thread per cell,
+each face flux computed once), the core it shares with
+`fused3d.conv_diff_bdim_k`.
 
 Beside each kernel sits its plain version (``*_plain``): the jnp body of the
 JAX caller written in torch, general in the number of dims.  A wrapper given
