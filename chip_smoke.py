@@ -8,18 +8,21 @@ Phases (each prints its own lines; any failure exits non-zero):
 1. the card (``nvidia-smi`` name and power limit) and the toolchain;
 2. build the CUDA kernels of ``waterlily_tpu_torch/csrc`` with ``nvcc``; the
    compiler's report (``-Xptxas -v``) must show all 27 conv–diff
-   instantiations (K12: 3 schemes × 8 periodic masks, K1: 3 schemes) with
+   instantiations (K12: 3 schemes × 8 periodic masks, K1: 3 schemes) and
+   the 8 of K7's tiled cascade (1–4 colours, with and without norms) with
    no stack frame and no spills;
 3. each kernel (and each mode: K12 periodic, K9 keeping the exit plane, K2
    with its band in the middle, at row 1, at row Nx−1, empty and periodic,
-   the bf16 smoothers with 0, 2 and 4 colours and with and without norms)
+   the bf16 smoothers with 0, 2 and 4 colours and with and without norms,
+   K7 with 4, 2 and 3 colours and K6)
    against its plain PyTorch version in float32 on random inputs at the
    shapes the main paths give it (258³ fine level, 130³, 66³ and 18³ MG
    levels, a non-cubic (50, 34, 34) and an odd-interior (51, 34, 35)), and
-   the median time of each case at 258³ beside its plain version's; K12
-   and K1 are also checked and timed at the drag grid (322, 130, 130), and
-   each of their times is printed beside the one-thread-per-(cell,
-   component) kernels they replaced (``BEFORE_MS``);
+   the median time of each case at 258³ beside its plain version's; K12,
+   K1 and K7 are also checked and timed at the drag grid (322, 130, 130),
+   and each of their times is printed beside the kernels they replaced
+   (``BEFORE_MS``: K12 and K1 one thread per (cell, component), K7 a launch
+   per colour);
 4. the main paths at full width, each built with ``Simulation`` and stepped
    10 times with ``sim_step(remeasure=False)``, first with ``engine="flat"``
    (the fused engine, what ``"auto"`` picks on CUDA), then with
@@ -124,12 +127,16 @@ KERNELS = {
     "copy_scale6_k": (0.0, _PROBE, "benchmarks/bwprobe.py:128", 48, 6),
 }
 DRAG_GRID = (322, 130, 130)      # `drag_sim(128)` with its ghost cells
-CONV_DIFF = ("conv_diff_k", "conv_diff_bdim_k")
-# ms per call of the kernels that the tiled conv-diff core replaced (one thread
-# per (cell, component), every flux evaluated twice, cached global reads), on
-# an NVIDIA H100 80GB HBM3 at 700 W: at 258^3 from this script's phase 3 on
-# the commit before the tiles, at the drag grid from `tools/convdiff_bench.py`
-# run in that commit's checkout in one call with the tiled kernels
+# the redesigned kernels: timed at the drag grid too, beside `BEFORE_MS`
+REDESIGNED = ("conv_diff_k", "conv_diff_bdim_k", "incr_gs_k")
+# ms per call of the kernels that the redesigns replaced, on an NVIDIA H100
+# 80GB HBM3 at 700 W.  K12 and K1 (one thread per (cell, component), every
+# flux evaluated twice, cached global reads): at 258^3 from this script's
+# phase 3 on the commit before the tiles, at the drag grid from
+# `tools/convdiff_bench.py` run in that commit's checkout in one call with
+# the tiled kernels.  K7 (a head pass, a launch per colour, a tail pass):
+# from `tools/incr_gs_bench.py` run in the parent commit's checkout in one
+# call with the cascade
 BEFORE_MS = {
     ((258,) * 3, "conv_diff_k", "quick"): 2.524,
     ((258,) * 3, "conv_diff_k", "vanleer"): 2.594,
@@ -148,6 +155,14 @@ BEFORE_MS = {
     (DRAG_GRID, "conv_diff_k", "cds per=012"): 1.207,
     (DRAG_GRID, "conv_diff_k", "quick per=2"): 0.838,
     (DRAG_GRID, "conv_diff_bdim_k", "kb=1,s=0.5"): 0.904,
+    ((258,) * 3, "incr_gs_k", "[0, 1, 0, 1] norms=True"): 1.2501,
+    ((258,) * 3, "incr_gs_k", "[1, 0] norms=True"): 0.8662,
+    ((258,) * 3, "incr_gs_k", "[] norms=True"): 0.2271,
+    ((258,) * 3, "incr_gs_k", "[0, 1, 0] norms=False"): 1.0379,
+    (DRAG_GRID, "incr_gs_k", "[0, 1, 0, 1] norms=True"): 0.4040,
+    (DRAG_GRID, "incr_gs_k", "[1, 0] norms=True"): 0.2857,
+    (DRAG_GRID, "incr_gs_k", "[] norms=True"): 0.0827,
+    (DRAG_GRID, "incr_gs_k", "[0, 1, 0] norms=False"): 0.3337,
 }
 # the kernels each main path launches (engine x configuration)
 PATH_KERNELS = {
@@ -207,24 +222,32 @@ def nvcc_version(nvcc: str) -> str:
 
 
 # ------------------------------------------------------------ phase 2
-def check_conv_diff_build(_build) -> None:
-    """Every conv-diff instantiation in the compiler's report, each without
-    a stack frame and without spills."""
+# the tiled kernels held to no stack frame and no spills: the kernel's name
+# in the compiler's report and the number of its instantiations
+TILED = {"conv-diff": ("conv_diff_tile_kernel", 27),
+         "K7 cascade": ("incr_gs_tile_kernel", 8)}
+
+
+def check_build(_build) -> None:
+    """Every instantiation of the tiled kernels in the compiler's report,
+    each without a stack frame and without spills."""
     log = _build.build_info.get("log")
     check(bool(log), "phase2: no compiler report beside the kernel library")
-    entries = [e for e in _build.ptxas_report(log)
-               if "conv_diff_tile_kernel" in e["name"]]
-    check(len(entries) == 27, f"phase2: {len(entries)} conv-diff instantiations "
-          f"in the compiler's report, expected 27")
-    bad = [e for e in entries
-           if e["stack"] or e["spill_stores"] or e["spill_loads"]]
-    regs = sorted(e["registers"] for e in entries)
-    print(f"phase2 conv-diff: 27 instantiations, registers {regs[0]}-{regs[-1]}, "
-          f"{len(bad)} with a stack frame or spills", flush=True)
-    check(not bad, "phase2: conv-diff instantiations with a stack frame or "
-          "spills: " + "; ".join(f"{e['name'][-48:]} stack {e['stack']} B spills "
-                                 f"{e['spill_stores']}/{e['spill_loads']} B"
-                                 for e in bad))
+    report = _build.ptxas_report(log)
+    for label, (kernel, count) in TILED.items():
+        entries = [e for e in report if kernel in e["name"]]
+        check(len(entries) == count, f"phase2: {len(entries)} {label} "
+              f"instantiations in the compiler's report, expected {count}")
+        bad = [e for e in entries
+               if e["stack"] or e["spill_stores"] or e["spill_loads"]]
+        regs = sorted(e["registers"] for e in entries)
+        print(f"phase2 {label}: {count} instantiations, registers "
+              f"{regs[0]}-{regs[-1]}, {len(bad)} with a stack frame or spills",
+              flush=True)
+        check(not bad, f"phase2: {label} instantiations with a stack frame or "
+              "spills: " + "; ".join(f"{e['name'][-48:]} stack {e['stack']} B "
+                                     f"spills {e['spill_stores']}/"
+                                     f"{e['spill_loads']} B" for e in bad))
 
 
 # ------------------------------------------------------------ phase 3
@@ -295,16 +318,18 @@ def kernel_cases(torch, st, fz, ps, shape, rng, dev, band):
             un, fp = fz.conv_diff_bdim_plain(u, u0, nu, 0.3, kb, sc, st.quick)
             return un, fp[:, lo:hi]
         cases.append(("conv_diff_bdim_k", f"kb={kb:g},s={sc:g}", k1, p1))
-    # K7 (K6 with no colours) with its norms, each compared on its own scale
-    for cols in ([0, 1, 0, 1], []):
-        def k7(cols=cols):
-            xo, ro, nv = fz.incr_gs_k(x, r, eps, lev.L, lev.D, lev.iD, cols, 0.9, True)
-            return xo, ro, nv[0:1], nv[1:2]
+    # K7 (K6 with no colours), each norm compared on its own scale: the
+    # tiled cascade with 4 and 2 colours with norms and 3 without, K6
+    for cols, nrm in (([0, 1, 0, 1], True), ([1, 0], True), ([], True),
+                      ([0, 1, 0], False)):
+        def k7(cols=cols, nrm=nrm):
+            out = fz.incr_gs_k(x, r, eps, lev.L, lev.D, lev.iD, cols, 0.9, nrm)
+            return (*out[:2], out[2][0:1], out[2][1:2]) if nrm else out
 
-        def p7(cols=cols):
-            xo, ro, nv = fz.incr_gs_plain(x, r, eps, lev.L, lev.D, lev.iD, cols, 0.9, True)
-            return xo, ro, nv[0:1], nv[1:2]
-        cases.append(("incr_gs_k", str(cols), k7, p7))
+        def p7(cols=cols, nrm=nrm):
+            out = fz.incr_gs_plain(x, r, eps, lev.L, lev.D, lev.iD, cols, 0.9, nrm)
+            return (*out[:2], out[2][0:1], out[2][1:2]) if nrm else out
+        cases.append(("incr_gs_k", f"{cols} norms={nrm}", k7, p7))
     cases.append(("bc_div_k", "", lambda: fz.bc_div_k(u, UBC),
                   lambda: fz.bc_div_plain(u, UBC)))
     for se in (False, True):
@@ -463,18 +488,18 @@ def phase_kernels(torch, np, wt, dev):
                       f"relative error {rel:.3e} > {tol:.0e}")
                 stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
             del got, want
-            if shape == fine or (shape == DRAG_GRID and name in CONV_DIFF):
+            if shape == fine or (shape == DRAG_GRID and name in REDESIGNED):
                 ms, pms = median_ms(torch, kern, 20), median_ms(torch, plain, 4)
                 before = BEFORE_MS.get((shape, name, label))
                 print(f"phase3 time {name:16s} {label:24s} at {shape}: kernel "
                       f"{ms:.4f} ms, plain {pms:.4f} ms per call"
-                      + ("" if name not in CONV_DIFF else
-                         f", before the tiles {before:.3f} ms" if before else
-                         ", before the tiles not measured"), flush=True)
+                      + ("" if name not in REDESIGNED else
+                         f", before the redesign {before:.3f} ms" if before else
+                         ", before the redesign not measured"), flush=True)
                 if shape == fine and stats[name]["ms"] is None:
                     # the JSON keeps the first case of each kernel (conv_diff:
                     # quick, walls; gs_incr: Jacobi; K13: 4 colours, xyz
-                    # periodic; K1: predictor; K7: 4 colours; K9: no CFL, no
+                    # periodic; K1: predictor; K7: 4 colours, norms; K9: no CFL, no
                     # exit; K10: no exit; K2: the sphere's band; the bf16
                     # K15: Jacobi; the bf16 K7: 4 colours with norms; the
                     # probes: 256 threads per block)
@@ -845,7 +870,7 @@ def main() -> int:
     _build.load()
     print(f"phase2 nvcc build + load {time.perf_counter() - t0:.2f} s "
           f"({_build.build_info['path']})", flush=True)
-    check_conv_diff_build(_build)
+    check_build(_build)
 
     stats = phase_kernels(torch, np, wt, dev)
     runs = {(c, e): phase_main(torch, wt, st, dev, c, e) for c, e in MAIN_RUNS}

@@ -176,20 +176,66 @@ def test_conv_diff_bdim_k_schemes(dev, sid):
         assert rel_err(a, b) <= 2e-5
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("colors", [[], [0, 1, 0, 1]], ids=["K6", "K7"])
-def test_incr_gs_k(dev, shape, colors):
+# K7's colour lists: none (K6), the tiled cascade with 1 to 4 colours, also
+# lists that do not alternate, and five colours (the per-colour route)
+INCR_COLORS = [[], [1], [1, 0], [0, 1, 0], [1, 1], [0, 1, 0, 1], [0, 1, 0, 1, 0]]
+INCR_IDS = ["K6", "1", "10", "010", "11", "0101", "01010"]
+
+
+@pytest.mark.parametrize("shape", SHAPES + TILE_SHAPES)
+@pytest.mark.parametrize("colors", INCR_COLORS, ids=INCR_IDS)
+@pytest.mark.parametrize("want_norms", [True, False], ids=["norms", "plain"])
+def test_incr_gs_k(dev, shape, colors, want_norms):
     d = inputs(shape, 6, dev)
     lev = d["lev"]
     args = (d["x"], d["r"], d["eps"], lev.L, lev.D, lev.iD, colors, 0.9)
-    got = fz.incr_gs_k(*args, want_norms=True)
-    want = fz.incr_gs_plain(*args, want_norms=True)
+    st.reset_launch_counts()
+    got = fz.incr_gs_k(*args, want_norms=want_norms)
+    want = fz.incr_gs_plain(*args, want_norms=want_norms)
+    assert st.launch_counts()["incr_gs_k"] == 1
     for a, b in zip(got[:2], want[:2]):
         assert rel_err(a, b) <= 1e-5
+    if want_norms:
+        for k in range(2):
+            assert rel_err(got[2][k], want[2][k]) <= 1e-5
+        # the norms reduce in a fixed order: equal from call to call
+        assert torch.equal(fz.incr_gs_k(*args, want_norms=True)[2], got[2])
+
+
+@pytest.mark.parametrize("shape", SHAPES + TILE_SHAPES + [(258, 258, 258),
+                                                          (322, 130, 130)])
+@pytest.mark.parametrize("colors", INCR_COLORS, ids=INCR_IDS)
+def test_incr_gs_partials_match_the_grid(dev, shape, colors):
+    """`wlt_incr_gs_partials` gives the block count of the grid the route
+    launches: the entry writes exactly that many sums and maxima into a
+    NaN-filled buffer that is longer than they need, and the norms come
+    out right."""
+    d = inputs(shape, 19, dev) if max(shape) < 100 else dict(
+        x=torch.zeros(shape, device=dev), r=torch.ones(shape, device=dev),
+        eps=torch.zeros(shape, device=dev),
+        lev=ps.make_level(bc_vector(torch.ones((3,) + shape, device=dev),
+                                    (0.0,) * 3)))
+    lev, lib = d["lev"], fz._lib()
+    nb = lib.wlt_incr_gs_partials(*shape, len(colors), 0)
+    assert nb > 0
+    partials = torch.full((2 * nb + 64,), float("nan"), device=dev)
+    nv = torch.empty(2, device=dev)
+    x_out, r_out = torch.empty_like(d["x"]), torch.empty_like(d["r"])
+    e = torch.empty_like(d["x"])
+    carr = (fz.ctypes.c_int * max(1, len(colors)))(*colors)
+    err = lib.wlt_incr_gs(
+        fz._ptr(d["x"]), fz._ptr(d["r"]), fz._ptr(d["eps"]), fz._ptr(lev.L),
+        fz._ptr(lev.D), fz._ptr(lev.iD), fz._ptr(e), fz._ptr(x_out),
+        fz._ptr(r_out), carr, len(colors), fz.ctypes.c_float(0.9),
+        fz._ptr(partials), fz._ptr(nv), *shape, fz._stream(dev))
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.isfinite(partials[:2 * nb]).all()
+    assert torch.isnan(partials[2 * nb:]).all()
+    want = fz.incr_gs_plain(d["x"], d["r"], d["eps"], lev.L, lev.D, lev.iD,
+                            colors, 0.9, want_norms=True)[2]
     for k in range(2):
-        assert rel_err(got[2][k], want[2][k]) <= 1e-5
-    # the norms reduce in a fixed order: equal from call to call
-    assert torch.equal(fz.incr_gs_k(*args, want_norms=True)[2], got[2])
+        assert rel_err(nv[k], want[k]) <= 1e-5
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -472,3 +518,22 @@ def test_mp_run_equals_the_run_with_only_its_smoothers_plain(dev):
     assert n["conv_diff_bdim_k"] == 6 and n["gs_incr_k"] > 0 and n["mult_k"] > 0
     assert a.pois_n == b.pois_n
     assert torch.equal(a.flow.u, b.flow.u) and torch.equal(a.flow.p, b.flow.p)
+
+
+@pytest.mark.parametrize("engine", ["flat", "3d"])
+def test_custom_scheme_runs_plain(dev, engine):
+    """A user's scheme has no kernel: the conv–diff runs as plain PyTorch on
+    the card (no K12 or K1 launch), and a lambda that wraps `quick` follows
+    the `quick` run, whose conv–diff is the kernel, to float32 rounding."""
+    a = sphere(16, dev, engine=engine)
+    b = sphere(16, dev, engine=engine, scheme=lambda u, c, d: st.quick(u, c, d))
+    for _ in range(2):
+        a.sim_step(remeasure=False)
+    st.reset_launch_counts()
+    for _ in range(2):
+        b.sim_step(remeasure=False)
+    n = st.launch_counts()
+    assert n["conv_diff_k"] == n["conv_diff_bdim_k"] == 0 and n["mult_k"] > 0
+    su = a.flow.u.abs().max()
+    assert ((a.flow.u - b.flow.u).abs().max() <= 1e-6 * su).item()
+    assert torch.isfinite(b.flow.p).all()

@@ -164,5 +164,5 @@ def test_wrappers_on_cpu_take_the_plain_version():
             assert torch.equal(a, b)
     assert st.launch_counts() == before        # no kernel launched on the CPU
     assert not st.use_kernels(T["x"])           # CPU tensors take plain ops
-    with pytest.raises(NotImplementedError):
-        st.scheme_id(lambda u, c, d: c)
+    # a scheme without a kernel: None, and the callers take the plain route
+    assert st.scheme_id(lambda u, c, d: c) is None

@@ -100,10 +100,12 @@ def conv_diff(u: torch.Tensor, scheme: Callable, nu,
               perdir: tuple[int, ...] = ()) -> torch.Tensor:
     """Convective + diffusive momentum RHS (`conv_diff!`, `Flow.jl:38-62`),
     periodic in ``perdir``: `stencil3d.conv_diff_plain`, or the K12 kernel
-    for 3-D float32 CUDA fields.  Every cell of the result is defined; the
+    for 3-D float32 CUDA fields and a scheme the kernel covers (a user's
+    scheme runs as plain PyTorch).  Every cell of the result is defined; the
     ghost rows matter because `bdim_update` reads ``f*`` at them."""
-    if st.use_kernels(u[0]):
-        return st.conv_diff_k(u, nu, st.scheme_id(scheme), perdir)
+    sid = st.scheme_id(scheme)
+    if sid is not None and st.use_kernels(u[0]):
+        return st.conv_diff_k(u, nu, sid, perdir)
     return st.conv_diff_plain(u, nu, scheme, perdir)
 
 

@@ -69,10 +69,12 @@ def conv_diff_bdim(u, u0, nu, dt: float, keep_base: float, scale: float,
                    scheme, f_rows: Optional[tuple[int, int]] = None):
     """Conv–diff RHS with the far-field BDIM and interior scale fused in
     (`fused3d.conv_diff_bdim_plain`); the K1 kernel for 3-D float32 CUDA
-    fields.  Returns ``(u_new, f)``."""
-    if st.use_kernels(u[0]):
-        return fz.conv_diff_bdim_k(u, u0, nu, dt, keep_base, scale,
-                                   st.scheme_id(scheme), f_rows)
+    fields and a scheme the kernel covers (a user's scheme runs as plain
+    PyTorch).  Returns ``(u_new, f)``."""
+    sid = st.scheme_id(scheme)
+    if sid is not None and st.use_kernels(u[0]):
+        return fz.conv_diff_bdim_k(u, u0, nu, dt, keep_base, scale, sid,
+                                   f_rows)
     return fz.conv_diff_bdim_plain(u, u0, nu, dt, keep_base, scale, scheme)
 
 

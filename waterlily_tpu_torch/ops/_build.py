@@ -156,6 +156,9 @@ def load() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.wlt_error_string.argtypes = [ctypes.c_int]
     lib.wlt_error_string.restype = ctypes.c_char_p
-    lib.wlt_reduce_blocks.argtypes = [_I64, _I64, _I64]
-    lib.wlt_reduce_blocks.restype = _I64
+    lib.wlt_incr_gs_partials.argtypes = [_I64, _I64, _I64, ctypes.c_int,
+                                         ctypes.c_int]
+    lib.wlt_incr_gs_partials.restype = _I64
+    lib.wlt_incr_gs_scratch.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.wlt_incr_gs_scratch.restype = ctypes.c_int
     return lib

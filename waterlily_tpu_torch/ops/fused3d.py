@@ -215,12 +215,15 @@ def conv_diff_bdim_k(u, u0, nu, dt: float, keep_base: float, scale: float,
 
 def incr_gs_k(x, r, eps, L, D, iD, colors: Sequence[int], omega: float,
               want_norms: bool = False, mp: bool = False):
-    """K7 (K6 with no colours): `incr_gs_plain` as one kernel entry (a head
-    pass, a sweep per colour, a tail pass, and with ``want_norms`` the fold
-    of the per-block norm partials).  ``mp`` launches the mixed-precision
-    instantiation on bf16 ``L``, ``D``, ``iD`` with a bf16 scratch.  Returns
-    ``(x′, r′)`` or ``(x′, r′, norms)`` with ``norms = [Σ|r′|, max|r′|]`` on
-    the card."""
+    """K7 (K6 with no colours): `incr_gs_plain` as one kernel entry.  In
+    float32 with 1 to 4 colours it is one launch of the tiled cascade (and
+    with ``want_norms`` the fold of its per-block norm partials); with no
+    colours one pass; with more than 4 colours, and with ``mp``, a head
+    pass, a sweep per colour, a tail pass and the fold (the route is chosen
+    by ``len(colors)`` and ``mp``, see `csrc/fused3d.cu`).  ``mp`` launches
+    the mixed-precision instantiation on bf16 ``L``, ``D``, ``iD`` with a
+    bf16 scratch.  Returns ``(x′, r′)`` or ``(x′, r′, norms)`` with
+    ``norms = [Σ|r′|, max|r′|]`` on the card."""
     if not x.is_cuda or plain_route("incr_gs_mp_k" if mp else "incr_gs_k"):
         return incr_gs_plain(x, r, eps, L, D, iD, colors, omega, want_norms, mp)
     shape = tuple(x.shape)
@@ -239,12 +242,18 @@ def incr_gs_k(x, r, eps, L, D, iD, colors: Sequence[int], omega: float,
                          "increment alone is float32)")
     carr = (ctypes.c_int * max(1, len(cols)))(*cols)
     lib = _lib()
-    e = torch.empty_like(x, dtype=cdt) if cols else x   # no scratch without sweeps
+    # the per-colour route's scratch; the cascade and K6 take none
+    scratch = lib.wlt_incr_gs_scratch(len(cols), int(mp))
+    e = torch.empty_like(x, dtype=cdt) if scratch else x
     x_out, r_out = torch.empty_like(x), torch.empty_like(r)
     partials = nv = None
     if want_norms:
-        partials = torch.empty(2 * lib.wlt_reduce_blocks(*shape),
-                               dtype=torch.float32, device=x.device)
+        # one sum and one max per block of the grid this route launches
+        nb = lib.wlt_incr_gs_partials(*shape, len(cols), int(mp))
+        if nb <= 0:
+            raise RuntimeError(f"{name}: the cascade's grid could not be "
+                               "sized on this device")
+        partials = torch.empty(2 * nb, dtype=torch.float32, device=x.device)
         nv = torch.empty(2, dtype=torch.float32, device=x.device)
     _launch(name, lib.wlt_incr_gs_mp if mp else lib.wlt_incr_gs, _ptr(x),
             _ptr(r), _ptr(eps), _ptr(L),

@@ -25,7 +25,12 @@ wrapper           replaces (TPU)                               JAX caller
 the boundary-slab fluxes are the periodic ϕuP ones (`_phi_slabs`).  It runs
 on the shared-memory tiles of `csrc/convdiff_tile.cuh` (one thread per cell,
 each face flux computed once), the core it shares with
-`fused3d.conv_diff_bdim_k`.
+`fused3d.conv_diff_bdim_k`.  The kernels cover the schemes of `SCHEMES`
+(`quick`, `vanleer`, `cds`), each compiled into its template instantiation;
+a user's ``scheme(u, c, d)`` cannot be compiled into the CUDA kernel, so
+`scheme_id` gives None for it and the callers (`flow.conv_diff`,
+`flowflat.conv_diff_bdim`) run it as plain PyTorch (`conv_diff_plain`), on
+the card too, chosen by the argument.
 
 Beside each kernel sits its plain version (``*_plain``): the jnp body of the
 JAX caller written in torch, general in the number of dims.  A wrapper given
@@ -159,15 +164,14 @@ def vanleer(u, c, d):
 SCHEMES: tuple[Callable, ...] = (quick, vanleer, cds)
 
 
-def scheme_id(scheme: Callable) -> int:
-    """Template index of a convection scheme; raises for a scheme that has
-    no kernel."""
+def scheme_id(scheme: Callable) -> Optional[int]:
+    """Template index of a convection scheme, or None for a scheme that has
+    no kernel (a user's callable: the callers then take the plain
+    conv–diff)."""
     for k, s in enumerate(SCHEMES):
         if s is scheme:
             return k
-    raise NotImplementedError(
-        f"scheme {getattr(scheme, '__name__', scheme)!r} has no CUDA kernel; "
-        "the kernel covers quick, vanleer and cds")
+    return None
 
 
 # ---------------------------------------------------------------- plain
