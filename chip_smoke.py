@@ -8,21 +8,23 @@ Phases (each prints its own lines; any failure exits non-zero):
 1. the card (``nvidia-smi`` name and power limit) and the toolchain;
 2. build the CUDA kernels of ``waterlily_tpu_torch/csrc`` with ``nvcc``; the
    compiler's report (``-Xptxas -v``) must show all 27 conv–diff
-   instantiations (K12: 3 schemes × 8 periodic masks, K1: 3 schemes) and
-   the 8 of K7's tiled cascade (1–4 colours, with and without norms) with
-   no stack frame and no spills;
+   instantiations (K12: 3 schemes × 8 periodic masks, K1: 3 schemes), the 8
+   of K7's tiled cascade (1–4 colours, with and without norms) and the 4
+   each of K15's and K13's (1–4 colours) with no stack frame and no spills;
 3. each kernel (and each mode: K12 periodic, K9 keeping the exit plane, K2
    with its band in the middle, at row 1, at row Nx−1, empty and periodic,
    the bf16 smoothers with 0, 2 and 4 colours and with and without norms,
-   K7 with 4, 2 and 3 colours and K6)
+   K7 with 4, 2 and 3 colours and K6, K15 and K13 with 4 colours on each
+   of their routes, the tiled cascade and the per-colour launches, where
+   the shape allows it)
    against its plain PyTorch version in float32 on random inputs at the
    shapes the main paths give it (258³ fine level, 130³, 66³ and 18³ MG
    levels, a non-cubic (50, 34, 34) and an odd-interior (51, 34, 35)), and
    the median time of each case at 258³ beside its plain version's; K12,
-   K1 and K7 are also checked and timed at the drag grid (322, 130, 130),
-   and each of their times is printed beside the kernels they replaced
-   (``BEFORE_MS``: K12 and K1 one thread per (cell, component), K7 a launch
-   per colour);
+   K1, K7, K15 and K13 are also timed at the drag grid (322, 130, 130), K15
+   and K13 at 130³ too, and each of their times is printed beside the
+   kernels they replaced (``BEFORE_MS``: K12 and K1 one thread per (cell,
+   component), K7, K15 and K13 a launch per colour);
 4. the main paths at full width, each built with ``Simulation`` and stepped
    10 times with ``sim_step(remeasure=False)``, first with ``engine="flat"``
    (the fused engine, what ``"auto"`` picks on CUDA), then with
@@ -106,7 +108,9 @@ KERNELS = {
     "conv_diff_k": (2e-5, _STENCIL, "waterlily_tpu/ops/pallas3d.py:274", 24, 200),
     "bdim_k": (2e-5, _STENCIL, "waterlily_tpu/ops/pallas3d.py:372", 108, 60),
     "mult_k": (1e-5, _STENCIL, "waterlily_tpu/ops/pallas3d.py:504", 24, 13),
-    "gs_incr_k": (1e-5, _STENCIL, "waterlily_tpu/ops/pallas3d.py:416", 36, 17),
+    # 4 colours: e0 = r iD, four sweeps of 13 operations on half the cells,
+    # A e and the two updates
+    "gs_incr_k": (1e-5, _STENCIL, "waterlily_tpu/ops/pallas3d.py:416", 36, 44),
     "gauss_sweeps_k": (1e-5, _STENCIL, "waterlily_tpu/ops/pallas3d.py:312", 28, 28),
     "conv_diff_bdim_k": (2e-5, _FUSED, "waterlily_tpu/ops/pallas_flat.py:376",
                          None, 215),
@@ -128,7 +132,11 @@ KERNELS = {
 }
 DRAG_GRID = (322, 130, 130)      # `drag_sim(128)` with its ghost cells
 # the redesigned kernels: timed at the drag grid too, beside `BEFORE_MS`
-REDESIGNED = ("conv_diff_k", "conv_diff_bdim_k", "incr_gs_k")
+REDESIGNED = ("conv_diff_k", "conv_diff_bdim_k", "incr_gs_k", "gs_incr_k",
+              "gauss_sweeps_k")
+# the shapes at which a redesigned kernel is timed besides 258^3: the
+# smoothers whose routes change with the level also at 130^3
+TIMED_AT = {DRAG_GRID: REDESIGNED, (130,) * 3: ("gs_incr_k", "gauss_sweeps_k")}
 # ms per call of the kernels that the redesigns replaced, on an NVIDIA H100
 # 80GB HBM3 at 700 W.  K12 and K1 (one thread per (cell, component), every
 # flux evaluated twice, cached global reads): at 258^3 from this script's
@@ -136,7 +144,9 @@ REDESIGNED = ("conv_diff_k", "conv_diff_bdim_k", "incr_gs_k")
 # `tools/convdiff_bench.py` run in that commit's checkout in one call with
 # the tiled kernels.  K7 (a head pass, a launch per colour, a tail pass):
 # from `tools/incr_gs_bench.py` run in the parent commit's checkout in one
-# call with the cascade
+# call with the cascade.  K15 and K13 (a launch per colour, and per colour
+# and periodic direction): from `tools/smoother_bench.py --smoke` run in the
+# parent commit's checkout (Jacobi, K15 with no colours, is unchanged)
 BEFORE_MS = {
     ((258,) * 3, "conv_diff_k", "quick"): 2.524,
     ((258,) * 3, "conv_diff_k", "vanleer"): 2.594,
@@ -163,6 +173,27 @@ BEFORE_MS = {
     (DRAG_GRID, "incr_gs_k", "[1, 0] norms=True"): 0.2857,
     (DRAG_GRID, "incr_gs_k", "[] norms=True"): 0.0827,
     (DRAG_GRID, "incr_gs_k", "[0, 1, 0] norms=False"): 0.3337,
+    ((258,) * 3, "gs_incr_k", "[0, 1, 0, 1]"): 1.0690,
+    ((258,) * 3, "gs_incr_k", "[1, 0]"): 0.6877,
+    ((258,) * 3, "gs_incr_k", "[]"): 0.2352,
+    ((258,) * 3, "gauss_sweeps_k", "[0, 1, 0, 1] per=012"): 0.8776,
+    ((258,) * 3, "gauss_sweeps_k", "[1, 0] per=012"): 0.4684,
+    ((258,) * 3, "gauss_sweeps_k", "[0, 1, 0, 1] per=2"): 0.8528,
+    ((258,) * 3, "gauss_sweeps_k", "[1, 0] per=2"): 0.4572,
+    ((130,) * 3, "gs_incr_k", "[0, 1, 0, 1]"): 0.1473,
+    ((130,) * 3, "gs_incr_k", "[1, 0]"): 0.0961,
+    ((130,) * 3, "gs_incr_k", "[]"): 0.0382,
+    ((130,) * 3, "gauss_sweeps_k", "[0, 1, 0, 1] per=012"): 0.1482,
+    ((130,) * 3, "gauss_sweeps_k", "[1, 0] per=012"): 0.0765,
+    ((130,) * 3, "gauss_sweeps_k", "[0, 1, 0, 1] per=2"): 0.1282,
+    ((130,) * 3, "gauss_sweeps_k", "[1, 0] per=2"): 0.0695,
+    (DRAG_GRID, "gs_incr_k", "[0, 1, 0, 1]"): 0.3455,
+    (DRAG_GRID, "gs_incr_k", "[1, 0]"): 0.2304,
+    (DRAG_GRID, "gs_incr_k", "[]"): 0.0809,
+    (DRAG_GRID, "gauss_sweeps_k", "[0, 1, 0, 1] per=012"): 0.3059,
+    (DRAG_GRID, "gauss_sweeps_k", "[1, 0] per=012"): 0.1619,
+    (DRAG_GRID, "gauss_sweeps_k", "[0, 1, 0, 1] per=2"): 0.2768,
+    (DRAG_GRID, "gauss_sweeps_k", "[1, 0] per=2"): 0.1512,
 }
 # the kernels each main path launches (engine x configuration)
 PATH_KERNELS = {
@@ -225,7 +256,9 @@ def nvcc_version(nvcc: str) -> str:
 # the tiled kernels held to no stack frame and no spills: the kernel's name
 # in the compiler's report and the number of its instantiations
 TILED = {"conv-diff": ("conv_diff_tile_kernel", 27),
-         "K7 cascade": ("incr_gs_tile_kernel", 8)}
+         "K7 cascade": ("incr_gs_tile_kernel", 8),
+         "K15 cascade": ("gs_incr_tile_kernel", 4),
+         "K13 cascade": ("gauss_sweeps_tile_kernel", 4)}
 
 
 def check_build(_build) -> None:
@@ -291,21 +324,39 @@ def kernel_cases(torch, st, fz, ps, shape, rng, dev, band):
                   lambda: st.bdim_plain(u, u0, f, V, mu0, mu1, 0.3)))
     cases.append(("mult_k", "", lambda: st.mult_k(x, lev.L, lev.D),
                   lambda: st.mult_plain(x, lev.L, lev.D)))
-    for cols in ([], [0, 1, 0, 1], [1, 0]):
+    # K15: the route the level takes, then 4 colours on each route
+    gs = (x, r, lev.L, lev.D, lev.iD)
+    for cols in ([0, 1, 0, 1], [1, 0], []):
         cases.append(("gs_incr_k", str(cols),
-                      lambda cols=cols: st.gs_incr_k(x, r, lev.L, lev.D, lev.iD, cols, 0.9),
-                      lambda cols=cols: st.gs_incr_plain(x, r, lev.L, lev.D, lev.iD, cols, 0.9)))
-    # K13 on a periodic level, from a periodic-synced eps
+                      lambda cols=cols: st.gs_incr_k(*gs, cols, 0.9),
+                      lambda cols=cols: st.gs_incr_plain(*gs, cols, 0.9)))
+    for route, rname in ((st.CASCADE, "cascade"), (st.PER_COLOUR, "per-colour")):
+        cases.append(("gs_incr_k", f"[0, 1, 0, 1] {rname}",
+                      lambda route=route: st._gs_incr_launch(*gs, [0, 1, 0, 1],
+                                                             0.9, False, route),
+                      lambda: st.gs_incr_plain(*gs, [0, 1, 0, 1], 0.9)))
+    # K13 on a periodic level, from a periodic-synced eps: the route the
+    # level takes, then 4 colours on each route the shape allows (the
+    # cascade needs even periodic extents)
     for per in ((0, 1, 2), (2,)):
         Lp = bc_vector(L_raw, (0.0,) * 3, perdir=per)
-        iDp = ps.make_level(Lp).iD
-        ep = per_bc(eps, per)
+        sw = (per_bc(eps, per), r, Lp, ps.make_level(Lp).iD)
+        tag = f"per={''.join(map(str, per))}"
         for cols in ([0, 1, 0, 1], [1, 0]):
-            cases.append(("gauss_sweeps_k", f"{cols} per={''.join(map(str, per))}",
-                          lambda cols=cols, per=per, Lp=Lp, iDp=iDp, ep=ep:
-                              st.gauss_sweeps_k(ep, r, Lp, iDp, cols, per),
-                          lambda cols=cols, per=per, Lp=Lp, iDp=iDp, ep=ep:
-                              st.gauss_sweeps_plain(ep, r, Lp, iDp, cols, per)))
+            cases.append(("gauss_sweeps_k", f"{cols} {tag}",
+                          lambda cols=cols, per=per, sw=sw:
+                              st.gauss_sweeps_k(*sw, cols, per),
+                          lambda cols=cols, per=per, sw=sw:
+                              st.gauss_sweeps_plain(*sw, cols, per)))
+        even = all((shape[j] - 2) % 2 == 0 for j in per)
+        for route, rname in ((st.CASCADE, "cascade"), (st.PER_COLOUR, "per-colour")):
+            if route == st.CASCADE and not even:
+                continue
+            cases.append(("gauss_sweeps_k", f"[0, 1, 0, 1] {tag} {rname}",
+                          lambda route=route, per=per, sw=sw:
+                              st._gauss_sweeps_launch(*sw, [0, 1, 0, 1], per, route),
+                          lambda per=per, sw=sw:
+                              st.gauss_sweeps_plain(*sw, [0, 1, 0, 1], per)))
     # K1 with a body slab in the middle third of x: u_new everywhere, f on
     # the slab only (its other rows are never written)
     lo, hi = shape[0] // 3, 2 * shape[0] // 3
@@ -488,7 +539,7 @@ def phase_kernels(torch, np, wt, dev):
                       f"relative error {rel:.3e} > {tol:.0e}")
                 stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
             del got, want
-            if shape == fine or (shape == DRAG_GRID and name in REDESIGNED):
+            if shape == fine or name in TIMED_AT.get(shape, ()):
                 ms, pms = median_ms(torch, kern, 20), median_ms(torch, plain, 4)
                 before = BEFORE_MS.get((shape, name, label))
                 print(f"phase3 time {name:16s} {label:24s} at {shape}: kernel "
@@ -498,7 +549,7 @@ def phase_kernels(torch, np, wt, dev):
                          ", before the redesign not measured"), flush=True)
                 if shape == fine and stats[name]["ms"] is None:
                     # the JSON keeps the first case of each kernel (conv_diff:
-                    # quick, walls; gs_incr: Jacobi; K13: 4 colours, xyz
+                    # quick, walls; gs_incr: 4 colours; K13: 4 colours, xyz
                     # periodic; K1: predictor; K7: 4 colours, norms; K9: no CFL, no
                     # exit; K10: no exit; K2: the sphere's band; the bf16
                     # K15: Jacobi; the bf16 K7: 4 colours with norms; the

@@ -93,15 +93,29 @@ def test_mult_k(dev, shape):
                    st.mult_plain(d["x"], lev.L, lev.D)) <= 1e-5
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("colors", [[], [0, 1, 0, 1], [1, 0]],
-                         ids=["jacobi", "rb4", "br2"])
-def test_gs_incr_k(dev, shape, colors):
+# K15's colour lists (Jacobi, lists that do not alternate, five colours:
+# the per-colour route) and the routes each is held on: the one the shape
+# gives (None) and each route that takes it
+GS_COLORS = [[], [1], [1, 0], [0, 1, 0], [1, 1], [0, 1, 0, 1], [0, 0, 1, 1],
+             [0, 1, 0, 1, 0]]
+GS_CASES = [(c, route) for c in GS_COLORS
+            for route in (None, st.PER_COLOUR, st.CASCADE)
+            if route != st.CASCADE or 1 <= len(c) <= 4]
+ROUTE_IDS = {None: "auto", st.PER_COLOUR: "per-colour", st.CASCADE: "cascade"}
+
+
+@pytest.mark.parametrize("shape", PER_SHAPES + TILE_SHAPES)
+@pytest.mark.parametrize("colors,route", GS_CASES,
+                         ids=[f"{''.join(map(str, c)) or 'jacobi'}-{ROUTE_IDS[r]}"
+                              for c, r in GS_CASES])
+def test_gs_incr_k(dev, shape, colors, route):
     d = inputs(shape, 3, dev)
     lev = d["lev"]
-    got = st.gs_incr_k(d["x"], d["r"], lev.L, lev.D, lev.iD, colors, 0.9)
-    want = st.gs_incr_plain(d["x"], d["r"], lev.L, lev.D, lev.iD, colors, 0.9)
-    for a, b in zip(got, want):
+    args = (d["x"], d["r"], lev.L, lev.D, lev.iD, colors, 0.9)
+    st.reset_launch_counts()
+    got = st._gs_incr_launch(*args, mp=False, route=route)
+    assert st.launch_counts()["gs_incr_k"] == 1
+    for a, b in zip(got, st.gs_incr_plain(*args)):
         assert rel_err(a, b) <= 1e-5
 
 
@@ -296,19 +310,85 @@ def test_conv_diff_k_periodic(dev, shape, sid, perdir):
     assert rel_err(got, want) <= 2e-5
 
 
-@pytest.mark.parametrize("shape", PER_SHAPES)
-@pytest.mark.parametrize("colors", [[0, 1, 0, 1], [1, 0]], ids=["rb4", "br2"])
-@pytest.mark.parametrize("perdir", [(0, 1, 2), (2,), ()], ids=["xyz", "z", "none"])
-def test_gauss_sweeps_k(dev, shape, colors, perdir):
+def even_periodic(shape, perdir):
+    """An even interior extent in every periodic direction: what K13's
+    cascade needs."""
+    return all((shape[j] - 2) % 2 == 0 for j in perdir)
+
+
+SWEEP_COLORS = [[0, 1, 0, 1], [1, 0], [1], [0, 0, 1, 1]]
+SWEEP_PERDIRS = [(0, 1, 2), (2,), (), (0,), (1, 2), (2, 0)]
+
+
+@pytest.mark.parametrize("shape", PER_SHAPES + TILE_SHAPES)
+@pytest.mark.parametrize("colors", SWEEP_COLORS,
+                         ids=lambda c: "".join(map(str, c)))
+@pytest.mark.parametrize("perdir", SWEEP_PERDIRS,
+                         ids=["xyz", "z", "none", "x", "yz", "zx"])
+@pytest.mark.parametrize("route", [None, st.PER_COLOUR, st.CASCADE],
+                         ids=["auto", "per-colour", "cascade"])
+def test_gauss_sweeps_k(dev, shape, colors, perdir, route):
+    """Every cell, the ghosts included, on both routes (the cascade where
+    the periodic extents are even; `test_gauss_sweeps_k_odd_extent` holds
+    the others to the per-colour route)."""
+    if route == st.CASCADE and not even_periodic(shape, perdir):
+        route = st.PER_COLOUR
     d = inputs(shape, 10, dev)
     lev = d["lev"]
     L = bc_vector(lev.L, (0.0,) * 3, perdir=perdir)
     iD = ps.make_level(L).iD
     eps = wt.bc.per_bc(d["x"], perdir)
-    got = st.gauss_sweeps_k(eps, d["r"], L, iD, colors, perdir)
+    st.reset_launch_counts()
+    got = st._gauss_sweeps_launch(eps, d["r"], L, iD, colors, perdir, route)
+    assert st.launch_counts()["gauss_sweeps_k"] == 1
     assert rel_err(got, st.gauss_sweeps_plain(eps, d["r"], L, iD, colors,
                                               perdir)) <= 1e-5
     assert torch.equal(eps, wt.bc.per_bc(d["x"], perdir))   # input untouched
+
+
+@pytest.mark.parametrize("perdir", [(0, 1, 2), (0,), (2,), (0, 2)],
+                         ids=["xyz", "x", "z", "xz"])
+def test_gauss_sweeps_k_odd_extent(dev, perdir):
+    """(21, 18, 19) has odd interior extents in x and z: a periodic odd
+    direction takes the per-colour launches, and the cascade refuses it."""
+    shape = (21, 18, 19)
+    lib = st._lib()
+    for n in range(1, 5):
+        assert lib.wlt_gauss_sweeps_route(*shape, n, sum(1 << j for j in perdir)) \
+            == st.PER_COLOUR
+    d = inputs(shape, 11, dev)
+    L = bc_vector(d["lev"].L, (0.0,) * 3, perdir=perdir)
+    iD = ps.make_level(L).iD
+    with pytest.raises(RuntimeError):
+        st._gauss_sweeps_launch(d["x"], d["r"], L, iD, [0, 1], perdir,
+                                st.CASCADE)
+
+
+# the route each level of the 258^3 and drag stacks takes with 4 colours,
+# from both routes' device times at these levels (PERF.md section 6): K15
+# (float32) takes the cascade from 500,000 cells, K13 (x, y, z or z alone
+# periodic, even extents) at every size
+LEVEL_ROUTES = {
+    (258, 258, 258): st.CASCADE, (130, 130, 130): st.CASCADE,
+    (66, 66, 66): st.PER_COLOUR, (34, 34, 34): st.PER_COLOUR,
+    (18, 18, 18): st.PER_COLOUR,
+    (322, 130, 130): st.CASCADE, (162, 66, 66): st.CASCADE,
+    (82, 34, 34): st.PER_COLOUR,
+}
+
+
+@pytest.mark.parametrize("shape", list(LEVEL_ROUTES),
+                         ids=lambda s: "x".join(map(str, s)))
+def test_smoother_routes_by_level(dev, shape):
+    lib = st._lib()
+    assert lib.wlt_gs_incr_route(*shape, 4, 0) == LEVEL_ROUTES[shape]
+    for per in (0b111, 0b100):
+        assert lib.wlt_gauss_sweeps_route(*shape, 4, per) == st.CASCADE
+    # Jacobi, five colours and bf16 always take the per-colour launches
+    for n, mp in ((0, 0), (5, 0), (4, 1)):
+        assert lib.wlt_gs_incr_route(*shape, n, mp) == st.PER_COLOUR
+    for n in (0, 5):
+        assert lib.wlt_gauss_sweeps_route(*shape, n, 0b111) == st.PER_COLOUR
 
 
 @pytest.mark.parametrize("shape", PER_SHAPES)

@@ -9,9 +9,10 @@
 // kernels do < 1 flop per byte, so each is bound by memory traffic.  The
 // bytes each must move per cell are given beside each kernel; time = bytes x
 // cells / 3.35 TB/s is the floor.  They rely on the caches for the stencil
-// reuse; K12 runs on the shared-memory tiles of convdiff_tile.cuh.
+// reuse; K12 runs on the shared-memory tiles of convdiff_tile.cuh, K15 and
+// K13 on the red-black cascade of rb_cascade.cuh where it wins.
 
-#include "convdiff_tile.cuh"
+#include "rb_cascade.cuh"
 
 namespace {
 
@@ -190,14 +191,29 @@ __global__ void mult_kernel(const float* __restrict__ x,
 // jacobi_incr3d (poisson.py:128-184, non-periodic).
 //   eps = r iD (zero ghosts); per colour: eps[colour cells] = gauss(eps);
 //   x += w eps; r -= w A eps.
-// One launch per colour plus one increment launch (the TPU kernel's
-// communication-avoiding cascade is later work).  The colour sweep updates
-// eps in place: a cell's 6 neighbours all have the other colour, so no
-// thread reads a value another thread of the same launch writes.
-// Bytes: init 12 B/cell; a sweep reads r, iD, L (3), eps and writes half of
-// eps: ~26 B/cell; the increment reads x, r, eps, L (3), D and writes x, r:
-// 36 B/cell.  With 4 colours ~152 B/cell, 0.78 ms at 258^3 at the roofline.
-// Jacobi (no colours) fuses eps = r iD into the increment: 36 B/cell.
+// Routes, chosen from the arguments and the shape (gs_incr_route):
+// * float32 with 1 to RB_MAX_IT colours on a level of at least
+//   GS_INCR_TILE_MIN_CELLS cells: one launch of the tiled cascade
+//   (rb_cascade.cuh, form RB_GS_INCR: stage 0 forms e0 = r iD, the tail x',
+//   r'), which must move x, r, L (3), D, iD in and x', r' out: 36 B/cell,
+//   0.185 ms at 258^3 at the roofline.
+// * Jacobi (no colours), more colours, bf16 and smaller levels: one launch
+//   per colour plus one increment launch.  The colour sweep updates eps in
+//   place: a cell's 6 neighbours all have the other colour, so no thread
+//   reads a value another thread of the same launch writes.  Bytes: init
+//   12 B/cell; a sweep reads r, iD, L (3), eps and writes half of eps:
+//   ~26 B/cell; the increment reads x, r, eps, L (3), D and writes x, r:
+//   36 B/cell.  With 4 colours ~152 B/cell, 0.78 ms at 258^3 at the
+//   roofline.  Jacobi fuses eps = r iD into the increment: 36 B/cell.
+// The size rule: the cascade marches one block an SM in lock-step at a
+// near-fixed cost per step (~2 us at 258^3), so on a small level its march
+// loses to the few bytes of the per-colour launches.  Device time per call
+// with 4 colours, both routes in one call on an H100 (PERF.md section 6):
+// 258^3 0.574 against 1.060 ms, 322x130x130 0.193 / 0.341, 130^3 0.089 /
+// 0.145, 162x66x66 (706K cells) 0.037 / 0.044; 66^3 (287K) 0.025 / 0.024,
+// 82x34x34 0.0180 / 0.0175, 34^3 0.016 / 0.015, 18^3 0.015 / 0.014.  The
+// threshold sits between the largest level that lost and the smallest that
+// won.
 //
 // MP instantiations (pallas_flat.py:759 gs_incr and :891 jacobi_incr with
 // mp=True; the arithmetic is in stencil_common.cuh): L, D, iD and the eps
@@ -205,6 +221,55 @@ __global__ void mult_kernel(const float* __restrict__ x,
 // reads it, A eps is accumulated in bf16, and x += w eps, r -= w A eps are
 // float32.  Jacobi must move x, r in and out (16 B) and the five bf16
 // coefficients (10 B): 26 B/cell against 36 in float32, 0.13 ms at 258^3.
+constexpr int64_t GS_INCR_TILE_MIN_CELLS = 500000;
+
+template <int IT>
+__global__ void __launch_bounds__(RbShape<IT>::NT, 1)
+    gs_incr_tile_kernel(const float* __restrict__ x,
+                        const float* __restrict__ r,
+                        const float* __restrict__ L,
+                        const float* __restrict__ D,
+                        const float* __restrict__ iD, float omega,
+                        unsigned cmask, int xc, float* __restrict__ x_out,
+                        float* __restrict__ r_out, Grid3 g) {
+  float acc_s = 0.f, acc_m = 0.f;
+  rb_cascade<IT, RB_GS_INCR>(x, r, nullptr, L, D, iD, omega, cmask, 0u, xc,
+                             x_out, r_out, acc_s, acc_m, g);
+}
+
+template <int IT>
+cudaError_t launch_gs_incr_it(const float* x, const float* r, const float* L,
+                              const float* D, const float* iD, float omega,
+                              unsigned cmask, float* x_out, float* r_out,
+                              const Grid3& g, cudaStream_t s) {
+  static int slots = 0;
+  constexpr int smem = rb_smem<IT, RB_GS_INCR>();
+  dim3 grid;
+  int xc;
+  cudaError_t err =
+      rb_cascade_grid<IT>(gs_incr_tile_kernel<IT>, smem, slots, g, grid, xc);
+  if (err != cudaSuccess) return err;
+  gs_incr_tile_kernel<IT><<<grid, RbShape<IT>::NT, smem, s>>>(
+      x, r, L, D, iD, omega, cmask, xc, x_out, r_out, g);
+  return cudaGetLastError();
+}
+
+// colour k of the list as bit k of a mask
+__host__ unsigned color_mask(const int* colors, int ncolors) {
+  unsigned cmask = 0;
+  for (int k = 0; k < ncolors; ++k) cmask |= (unsigned)(colors[k] & 1) << k;
+  return cmask;
+}
+
+__host__ bool gs_incr_tile_ok(int ncolors, bool mp) {
+  return !mp && ncolors >= 1 && ncolors <= RB_MAX_IT;
+}
+
+// 1: the cascade, 0: the per-colour launches
+__host__ int gs_incr_route(const Grid3& g, int ncolors, bool mp) {
+  return gs_incr_tile_ok(ncolors, mp) && g.n >= GS_INCR_TILE_MIN_CELLS;
+}
+
 template <bool MP>
 __global__ void eps_init_kernel(const float* __restrict__ r,
                                 const coef_t<MP>* __restrict__ iD,
@@ -297,12 +362,33 @@ __global__ void increment_kernel(const float* __restrict__ x,
   }
 }
 
+// route: 1 the cascade (float32, 1 to RB_MAX_IT colours), 0 the per-colour
+// launches, which need the eps scratch
 template <bool MP>
 cudaError_t launch_gs_incr(const float* x, const float* r, const coef_t<MP>* L,
                            const coef_t<MP>* D, const coef_t<MP>* iD,
                            coef_t<MP>* eps, float* x_out, float* r_out,
                            const int* colors, int ncolors, float omega,
-                           const Grid3& g, cudaStream_t s) {
+                           int route, const Grid3& g, cudaStream_t s) {
+  if (route == 1) {
+    if constexpr (!MP) {
+      const unsigned cm = color_mask(colors, ncolors);
+#define WLT_GS_CASE(IT)                                                   \
+  case IT:                                                                \
+    return launch_gs_incr_it<IT>(x, r, L, D, iD, omega, cm, x_out, r_out, \
+                                 g, s)
+      switch (ncolors) {
+        WLT_GS_CASE(1);
+        WLT_GS_CASE(2);
+        WLT_GS_CASE(3);
+        WLT_GS_CASE(4);
+        default: break;
+      }
+#undef WLT_GS_CASE
+    }
+    return cudaErrorInvalidValue;
+  }
+  if (route != 0) return cudaErrorInvalidValue;
   dim3 block(BZ, BY);
   dim3 grid = grid_of(g, 1);
   cudaError_t err;
@@ -327,13 +413,69 @@ cudaError_t launch_gs_incr(const float* x, const float* r, const coef_t<MP>* L,
 // gauss_sweep3d (poisson.py:163-172, the periodic smoother path): per
 // colour, the periodic ghost planes of eps are refreshed (perBC!: plane 0
 // takes plane n-2, plane n-1 takes plane 1, direction by direction in the
-// caller's order), then gs_sweep_kernel updates the cells of that colour in
-// place.  The refresh before a sweep is part of the arithmetic: a cell next
-// to a periodic face reads its partner plane through the ghost, and that
-// value must be the one the previous colour's sweep wrote (with an odd
-// interior extent the partner has the same colour as the cell).
-// Bytes per colour: the sweep ~26 B/cell, the refresh 8 B per ghost cell;
-// the whole call must move eps, r, L (3), iD in and eps out: 28 B/cell.
+// caller's order), then the cells of that colour are updated in place.  The
+// refresh before a sweep is part of the arithmetic: a cell next to a
+// periodic face reads its partner plane through the ghost, and that value
+// must be the one the previous colour's sweep wrote (with an odd interior
+// extent the partner has the same colour as the cell).  The call must move
+// eps, r, L (3), iD in and eps out: 28 B/cell, 0.144 ms at 258^3.
+// Routes, chosen from the arguments and the shape (gauss_sweeps_tile_ok):
+// * 1 to RB_MAX_IT colours and an even interior extent in every periodic
+//   direction: one launch of the tiled cascade (rb_cascade.cuh, form
+//   RB_SWEEPS: stage 0 takes e0 from eps, the tail writes eps'; the
+//   periodic ghosts are images of their sources, and the last colour leaves
+//   them alone as the reference does).  No size rule: against the 13 to 17
+//   launches of the other route it won at every level timed, device time
+//   with 4 colours, x, y, z periodic, on an H100 (PERF.md section 6): 258^3
+//   0.552 against 0.870 ms, 130^3 0.088 / 0.144, 66^3 0.029 / 0.049, 18^3
+//   0.020 / 0.037, and the drag stack down to 82x34x34 0.023 / 0.042.
+// * otherwise a copy of eps into the output, then per colour a launch of
+//   per_ghost_kernel per periodic direction and one of gs_sweep_kernel on
+//   the output in place: the sweep ~26 B/cell, the refresh 8 B per ghost
+//   cell.  An odd periodic extent must take it: a face cell's partner has
+//   its own colour, and the cascade would read the partner's new value.
+
+template <int IT>
+__global__ void __launch_bounds__(RbShape<IT>::NT, 1)
+    gauss_sweeps_tile_kernel(const float* __restrict__ eps,
+                             const float* __restrict__ r,
+                             const float* __restrict__ L,
+                             const float* __restrict__ iD, unsigned cmask,
+                             unsigned per, int xc,
+                             float* __restrict__ eps_out, Grid3 g) {
+  float acc_s = 0.f, acc_m = 0.f;
+  rb_cascade<IT, RB_SWEEPS>(nullptr, r, eps, L, nullptr, iD, 0.f, cmask, per,
+                            xc, eps_out, nullptr, acc_s, acc_m, g);
+}
+
+template <int IT>
+cudaError_t launch_gauss_sweeps_it(const float* eps, const float* r,
+                                   const float* L, const float* iD,
+                                   unsigned cmask, unsigned per,
+                                   float* eps_out, const Grid3& g,
+                                   cudaStream_t s) {
+  static int slots = 0;
+  constexpr int smem = rb_smem<IT, RB_SWEEPS>();
+  dim3 grid;
+  int xc;
+  cudaError_t err = rb_cascade_grid<IT>(gauss_sweeps_tile_kernel<IT>, smem,
+                                        slots, g, grid, xc);
+  if (err != cudaSuccess) return err;
+  gauss_sweeps_tile_kernel<IT><<<grid, RbShape<IT>::NT, smem, s>>>(
+      eps, r, L, iD, cmask, per, xc, eps_out, g);
+  return cudaGetLastError();
+}
+
+// per: bit j set = direction j periodic
+__host__ bool gauss_sweeps_tile_ok(const Grid3& g, int ncolors,
+                                   unsigned per) {
+  const int dims[3] = {g.nx, g.ny, g.nz};
+  for (int j = 0; j < 3; ++j)
+    if ((per >> j & 1u) && (dims[j] < 4 || (dims[j] - 2) % 2 != 0))
+      return false;
+  return ncolors >= 1 && ncolors <= RB_MAX_IT;
+}
+
 __global__ void per_ghost_kernel(float* eps, int j, Grid3 g) {
   // one thread per cell of the two ghost planes of direction j; the plane
   // spans the other two directions (a, b) in full
@@ -407,47 +549,95 @@ int wlt_bdim_band(const float* u, const float* u0, const float* f,
   return (int)cudaGetLastError();
 }
 
-// eps: scratch field (unused with no colours)
+// 1 if wlt_gs_incr (mp = 0) or wlt_gs_incr_mp (mp = 1) with ncolors
+// colours on this shape takes the cascade (no eps scratch), 0 if it takes
+// the per-colour launches
+int wlt_gs_incr_route(int64_t nx, int64_t ny, int64_t nz, int ncolors,
+                      int mp) {
+  return gs_incr_route(make_grid(nx, ny, nz), ncolors, mp != 0);
+}
+
+// eps: scratch field of the per-colour route (unused with no colours);
+// route: as wlt_gs_incr_route gives it (1 needs float32 and 1 to
+// RB_MAX_IT colours)
 int wlt_gs_incr(const float* x, const float* r, const float* L,
                 const float* D, const float* iD, float* eps, float* x_out,
                 float* r_out, const int* colors, int ncolors, float omega,
-                int64_t nx, int64_t ny, int64_t nz, void* stream) {
+                int route, int64_t nx, int64_t ny, int64_t nz, void* stream) {
   return (int)launch_gs_incr<false>(x, r, L, D, iD, eps, x_out, r_out, colors,
-                                    ncolors, omega, make_grid(nx, ny, nz),
+                                    ncolors, omega, route,
+                                    make_grid(nx, ny, nz),
                                     (cudaStream_t)stream);
 }
 
-// the mixed-precision instantiation: L, D, iD and the eps scratch are bf16
+// the mixed-precision instantiation: L, D, iD and the eps scratch are
+// bf16; route 0
 int wlt_gs_incr_mp(const float* x, const float* r, const bf16* L,
                    const bf16* D, const bf16* iD, bf16* eps, float* x_out,
                    float* r_out, const int* colors, int ncolors, float omega,
-                   int64_t nx, int64_t ny, int64_t nz, void* stream) {
+                   int route, int64_t nx, int64_t ny, int64_t nz,
+                   void* stream) {
   return (int)launch_gs_incr<true>(x, r, L, D, iD, eps, x_out, r_out, colors,
-                                   ncolors, omega, make_grid(nx, ny, nz),
+                                   ncolors, omega, route,
+                                   make_grid(nx, ny, nz),
                                    (cudaStream_t)stream);
 }
 
-// eps is updated in place; perdir lists the periodic directions in the
-// order their ghosts are refreshed (nper of them, none for a plain sweep)
-int wlt_gauss_sweeps(float* eps, const float* r, const float* L,
-                     const float* iD, const int* colors, int ncolors,
-                     const int* perdir, int nper, int64_t nx, int64_t ny,
-                     int64_t nz, void* stream) {
+// 1 if wlt_gauss_sweeps with ncolors colours and the periodic directions
+// of the mask per (bit j: direction j) takes the cascade on this shape
+int wlt_gauss_sweeps_route(int64_t nx, int64_t ny, int64_t nz, int ncolors,
+                           int per) {
+  return gauss_sweeps_tile_ok(make_grid(nx, ny, nz), ncolors, (unsigned)per);
+}
+
+// eps_out = the sweeps of eps, which is not modified; perdir lists the
+// periodic directions in the order their ghosts are refreshed (nper of
+// them, none for a plain sweep); route: as wlt_gauss_sweeps_route gives it
+// (1 needs 1 to RB_MAX_IT colours and even periodic extents)
+int wlt_gauss_sweeps(const float* eps, float* eps_out, const float* r,
+                     const float* L, const float* iD, const int* colors,
+                     int ncolors, const int* perdir, int nper, int route,
+                     int64_t nx, int64_t ny, int64_t nz, void* stream) {
   Grid3 g = make_grid(nx, ny, nz);
   const int dims[3] = {g.nx, g.ny, g.nz};
-  dim3 block(BZ, BY);
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
+  unsigned per = 0;
+  for (int q = 0; q < nper; ++q) {
+    if (perdir[q] < 0 || perdir[q] > 2) return (int)cudaErrorInvalidValue;
+    per |= 1u << perdir[q];
+  }
+  if (route == 1) {
+    if (!gauss_sweeps_tile_ok(g, ncolors, per))
+      return (int)cudaErrorInvalidValue;
+    const unsigned cm = color_mask(colors, ncolors);
+#define WLT_SW_CASE(IT)                                                  \
+  case IT:                                                               \
+    return (int)launch_gauss_sweeps_it<IT>(eps, r, L, iD, cm, per, eps_out, \
+                                           g, s)
+    switch (ncolors) {
+      WLT_SW_CASE(1);
+      WLT_SW_CASE(2);
+      WLT_SW_CASE(3);
+      WLT_SW_CASE(4);
+      default: return (int)cudaErrorInvalidValue;
+    }
+#undef WLT_SW_CASE
+  }
+  if (route != 0) return (int)cudaErrorInvalidValue;
+  err = cudaMemcpyAsync(eps_out, eps, g.n * sizeof(float),
+                        cudaMemcpyDeviceToDevice, s);
+  if (err != cudaSuccess) return (int)err;
+  dim3 block(BZ, BY);
   for (int k = 0; k < ncolors; ++k) {
     for (int q = 0; q < nper; ++q) {
       int j = perdir[q];
-      if (j < 0 || j > 2) return (int)cudaErrorInvalidValue;
       int ka = j == 0 ? 1 : 0, kb = j == 2 ? 1 : 2;
       dim3 pg((dims[kb] + BZ - 1) / BZ, (dims[ka] + BY - 1) / BY);
-      per_ghost_kernel<<<pg, block, 0, s>>>(eps, j, g);
+      per_ghost_kernel<<<pg, block, 0, s>>>(eps_out, j, g);
       if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     }
-    gs_sweep_kernel<false><<<grid_of(g, 1), block, 0, s>>>(r, L, iD, eps,
+    gs_sweep_kernel<false><<<grid_of(g, 1), block, 0, s>>>(r, L, iD, eps_out,
                                                            colors[k], g);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }

@@ -30,7 +30,8 @@ _PKG = Path(__file__).resolve().parents[1]
 SOURCES = (_PKG / "csrc" / "stencil3d.cu", _PKG / "csrc" / "fused3d.cu",
            _PKG / "csrc" / "probe.cu")
 _HEADERS = (_PKG / "csrc" / "stencil_common.cuh",
-            _PKG / "csrc" / "convdiff_tile.cuh")
+            _PKG / "csrc" / "convdiff_tile.cuh",
+            _PKG / "csrc" / "rb_cascade.cuh")
 BUILD_DIR = _PKG.parent / "build"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -47,7 +48,7 @@ _SIGNATURES = {
     "wlt_mult": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
     "wlt_gs_incr": [_P, _P, _P, _P, _P, _P, _P, _P,
                     ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-                    ctypes.c_float, _I64, _I64, _I64, _P],
+                    ctypes.c_float, ctypes.c_int, _I64, _I64, _I64, _P],
     "wlt_conv_diff_bdim": [_P, _P, _P, _F, _F, _F, ctypes.c_int, ctypes.c_int,
                            _P, _P, _I64, _I64, _I64, ctypes.c_int, _P],
     "wlt_bc_div": [_P, _F, _F, _F, _P, _P, _I64, _I64, _I64, _P],
@@ -56,9 +57,9 @@ _SIGNATURES = {
     "wlt_incr_gs": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                     ctypes.POINTER(ctypes.c_int), ctypes.c_int,
                     _F, _P, _P, _I64, _I64, _I64, _P],
-    "wlt_gauss_sweeps": [_P, _P, _P, _P, ctypes.POINTER(ctypes.c_int),
+    "wlt_gauss_sweeps": [_P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_int),
                          ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                         ctypes.c_int, _I64, _I64, _I64, _P],
+                         ctypes.c_int, ctypes.c_int, _I64, _I64, _I64, _P],
     "wlt_bc": [_P, _F, _F, _F, ctypes.c_int, _P, _I64, _I64, _I64, _P],
     "wlt_div": [_P, _P, _I64, _I64, _I64, _P],
     "wlt_bdim_band": [_P, _P, _P, _P, _P, _P, _F, ctypes.c_int, ctypes.c_int,
@@ -161,4 +162,8 @@ def load() -> ctypes.CDLL:
     lib.wlt_incr_gs_partials.restype = _I64
     lib.wlt_incr_gs_scratch.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.wlt_incr_gs_scratch.restype = ctypes.c_int
+    for name in ("wlt_gs_incr_route", "wlt_gauss_sweeps_route"):
+        fn = getattr(lib, name)
+        fn.argtypes = [_I64, _I64, _I64, ctypes.c_int, ctypes.c_int]
+        fn.restype = ctypes.c_int
     return lib

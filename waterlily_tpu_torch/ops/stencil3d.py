@@ -32,6 +32,14 @@ a user's ``scheme(u, c, d)`` cannot be compiled into the CUDA kernel, so
 `flowflat.conv_diff_bdim`) run it as plain PyTorch (`conv_diff_plain`), on
 the card too, chosen by the argument.
 
+`gs_incr_k` (float32, 1–4 colours) and `gauss_sweeps_k` (1–4 colours, even
+interior extents in the periodic directions) run on large levels as one
+launch of the red-black cascade of `csrc/rb_cascade.cuh`, the core they
+share with `fused3d.incr_gs_k`; smaller levels, Jacobi, longer colour lists,
+bf16 and odd periodic extents take one launch per colour.  The C side picks
+the route from the shape and the arguments (`wlt_gs_incr_route`,
+`wlt_gauss_sweeps_route`), never from a failure.
+
 Beside each kernel sits its plain version (``*_plain``): the jnp body of the
 JAX caller written in torch, general in the number of dims.  A wrapper given
 a CPU tensor returns the plain version; given a CUDA tensor it launches the
@@ -520,14 +528,35 @@ def mult_k(x: torch.Tensor, L: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# the routes of `gs_incr_k` and `gauss_sweeps_k`, as the C side names them
+PER_COLOUR, CASCADE = 0, 1
+
+
+def _colors(name: str, colors: Sequence[int]) -> list[int]:
+    cols = [int(c) for c in colors]
+    if any(c not in (0, 1) for c in cols):
+        raise ValueError(f"{name}: colours must be 0 or 1, got {cols}")
+    return cols
+
+
 def gs_incr_k(x, r, L, D, iD, colors: Sequence[int], omega: float,
               mp: bool = False):
     """K15: red-black sweeps + increment (`gs_incr_plain`); ``colors=[]``
     is the Jacobi smoother.  ``mp`` launches the mixed-precision
     instantiation (K4/K5 with ``mp=True``) on bf16 ``L``, ``D``, ``iD`` with
-    a bf16 scratch.  Returns new ``(x, r)``."""
+    a bf16 scratch.  Float32 with 1–4 colours on a large level is one launch
+    of the tiled cascade, the rest a launch per colour: the C side picks the
+    route from the shape and the arguments (`wlt_gs_incr_route`).  Returns
+    new ``(x, r)``."""
     if not x.is_cuda:
         return gs_incr_plain(x, r, L, D, iD, colors, omega, mp)
+    return _gs_incr_launch(x, r, L, D, iD, colors, omega, mp)
+
+
+def _gs_incr_launch(x, r, L, D, iD, colors, omega, mp, route=None):
+    """`gs_incr_k` on the card, on the route the shape gives (``route`` None)
+    or on the one named (`PER_COLOUR`, `CASCADE`), which the kernel tests
+    use to hold both routes at any shape."""
     shape = tuple(x.shape)
     name = "gs_incr_mp_k" if mp else "gs_incr_k"
     cdt = BF16 if mp else torch.float32
@@ -536,17 +565,18 @@ def gs_incr_k(x, r, L, D, iD, colors: Sequence[int], omega: float,
     for arg, t in (("x", x), ("r", r), ("D", D), ("iD", iD)):
         _lead(name, arg, t, ())
     _lead(name, "L", L, (3,))
-    cols = [int(c) for c in colors]
-    if any(c not in (0, 1) for c in cols):
-        raise ValueError(f"{name}: colours must be 0 or 1, got {cols}")
-    carr = (ctypes.c_int * max(1, len(cols)))(*cols)
-    eps = torch.empty_like(x, dtype=cdt) if cols else x   # no scratch for Jacobi
-    x_out, r_out = torch.empty_like(x), torch.empty_like(r)
+    cols = _colors(name, colors)
     lib = _lib()
+    if route is None:
+        route = lib.wlt_gs_incr_route(*shape, len(cols), int(mp))
+    carr = (ctypes.c_int * max(1, len(cols)))(*cols)
+    # the per-colour sweeps need a scratch field (none for Jacobi)
+    eps = torch.empty_like(x, dtype=cdt) if cols and route == PER_COLOUR else x
+    x_out, r_out = torch.empty_like(x), torch.empty_like(r)
     _launch(name, lib.wlt_gs_incr_mp if mp else lib.wlt_gs_incr, _ptr(x),
             _ptr(r), _ptr(L), _ptr(D), _ptr(iD), _ptr(eps), _ptr(x_out),
-            _ptr(r_out), carr, len(cols), ctypes.c_float(float(omega)), *shape,
-            _stream(x.device))
+            _ptr(r_out), carr, len(cols), ctypes.c_float(float(omega)), route,
+            *shape, _stream(x.device))
     return x_out, r_out
 
 
@@ -554,22 +584,35 @@ def gauss_sweeps_k(eps, r, L, iD, colors: Sequence[int],
                    perdir: tuple[int, ...] = ()) -> torch.Tensor:
     """K13: `gauss_sweeps_plain` (a periodic ghost refresh of ``eps`` and
     one colour sweep per colour) in one kernel entry; returns the new
-    ``eps``, the input is not modified."""
+    ``eps``, the input is not modified.  1–4 colours on a large level with
+    an even interior extent in every periodic direction are one launch of
+    the tiled cascade, the rest a launch per colour and direction
+    (`wlt_gauss_sweeps_route`).  In a periodic direction ``L``'s ghost
+    planes must hold their partners' values, as `bc.bc_vector` with
+    ``perdir`` leaves them."""
     if not eps.is_cuda:
         return gauss_sweeps_plain(eps, r, L, iD, colors, perdir)
+    return _gauss_sweeps_launch(eps, r, L, iD, colors, perdir)
+
+
+def _gauss_sweeps_launch(eps, r, L, iD, colors, perdir, route=None):
+    """`gauss_sweeps_k` on the card, on the route the shape gives
+    (``route`` None) or on the one named."""
     shape = tuple(eps.shape)
     _check("gauss_sweeps_k", shape, eps.device, eps=eps, r=r, L=L, iD=iD)
     for arg, t in (("eps", eps), ("r", r), ("iD", iD)):
         _lead("gauss_sweeps_k", arg, t, ())
     _lead("gauss_sweeps_k", "L", L, (3,))
-    cols = [int(c) for c in colors]
-    if any(c not in (0, 1) for c in cols):
-        raise ValueError(f"gauss_sweeps_k: colours must be 0 or 1, got {cols}")
+    cols = _colors("gauss_sweeps_k", colors)
     dirs = _dirs("gauss_sweeps_k", perdir)
+    lib = _lib()
+    if route is None:
+        route = lib.wlt_gauss_sweeps_route(*shape, len(cols),
+                                           sum(1 << j for j in dirs))
     carr = (ctypes.c_int * max(1, len(cols)))(*cols)
     parr = (ctypes.c_int * max(1, len(dirs)))(*dirs)
-    out = eps.clone()
-    _launch("gauss_sweeps_k", _lib().wlt_gauss_sweeps, _ptr(out), _ptr(r),
-            _ptr(L), _ptr(iD), carr, len(cols), parr, len(dirs), *shape,
-            _stream(eps.device))
+    out = torch.empty_like(eps)        # every cell is written on either route
+    _launch("gauss_sweeps_k", lib.wlt_gauss_sweeps, _ptr(eps), _ptr(out),
+            _ptr(r), _ptr(L), _ptr(iD), carr, len(cols), parr, len(dirs),
+            route, *shape, _stream(eps.device))
     return out
