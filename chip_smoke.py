@@ -8,23 +8,25 @@ Phases (each prints its own lines; any failure exits non-zero):
 1. the card (``nvidia-smi`` name and power limit) and the toolchain;
 2. build the CUDA kernels of ``waterlily_tpu_torch/csrc`` with ``nvcc``; the
    compiler's report (``-Xptxas -v``) must show all 27 conv–diff
-   instantiations (K12: 3 schemes × 8 periodic masks, K1: 3 schemes), the 8
-   of K7's tiled cascade (1–4 colours, with and without norms) and the 4
-   each of K15's and K13's (1–4 colours) with no stack frame and no spills;
+   instantiations (K12: 3 schemes × 8 periodic masks, K1: 3 schemes), the 16
+   of K7's tiled cascade (1–4 colours, with and without norms, float32 and
+   bf16), the 8 of K15's (1–4 colours, float32 and bf16) and the 4 of K13's
+   (1–4 colours) with no stack frame and no spills;
 3. each kernel (and each mode: K12 periodic, K9 keeping the exit plane, K2
    with its band in the middle, at row 1, at row Nx−1, empty and periodic,
    the bf16 smoothers with 0, 2 and 4 colours and with and without norms,
-   K7 with 4, 2 and 3 colours and K6, K15 and K13 with 4 colours on each
-   of their routes, the tiled cascade and the per-colour launches, where
-   the shape allows it)
+   K7 with 4, 2 and 3 colours and K6, K15, K13 and the bf16 K5 and K7 with
+   4 colours on each of their routes, the tiled cascade and the per-colour
+   launches, where the shape allows it)
    against its plain PyTorch version in float32 on random inputs at the
    shapes the main paths give it (258³ fine level, 130³, 66³ and 18³ MG
    levels, a non-cubic (50, 34, 34) and an odd-interior (51, 34, 35)), and
    the median time of each case at 258³ beside its plain version's; K12,
-   K1, K7, K15 and K13 are also timed at the drag grid (322, 130, 130), K15
-   and K13 at 130³ too, and each of their times is printed beside the
-   kernels they replaced (``BEFORE_MS``: K12 and K1 one thread per (cell,
-   component), K7, K15 and K13 a launch per colour);
+   K1, K7, K15, K13 and the bf16 K5 and K7 are also timed at the drag grid
+   (322, 130, 130), K15, K13 and the bf16 K5 and K7 at 130³ too, and each
+   of their times is printed beside the kernels they replaced
+   (``BEFORE_MS``: K12 and K1 one thread per (cell, component), K7, K15,
+   K13 and the bf16 K5 and K7 a launch per colour);
 4. the main paths at full width, each built with ``Simulation`` and stepped
    10 times with ``sim_step(remeasure=False)``, first with ``engine="flat"``
    (the fused engine, what ``"auto"`` picks on CUDA), then with
@@ -43,7 +45,9 @@ Phases (each prints its own lines; any failure exits non-zero):
       transverse body force ``g``;
    f. ``sphere-mp``: the sphere of (a) with ``smooth_it=2, mp_smooth=True``
       (bf16 smoothing) and, as ``sphere-s2``, with ``smooth_it=2`` alone,
-      flat engine: ms/step, ``pois_n`` and peak memory side by side;
+      flat engine: ms/step, ``pois_n`` and peak memory side by side, and
+      the route each bf16 smoother call took on each level (the bf16 K7
+      on 258³ and K5 on 130³ and 66³ must take their cascades);
    g. ``probe``: ``tools/bandwidth_probe.py``'s copy and launch-cost probes;
 5. at small size, 5 steps compared after each (every step's figures are
    printed; held after step 5 to 1e-4·max|u|, 1e-3·max|p| and iteration
@@ -78,6 +82,7 @@ no JAX and no network.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import importlib.util
 import json
@@ -121,9 +126,10 @@ KERNELS = {
     "div_k": (1e-6, _FUSED, "waterlily_tpu/ops/pallas_flat.py:1279", 16, 6),
     "bdim_band_k": (2e-5, _STENCIL, "waterlily_tpu/ops/pallas_flat.py:665",
                     None, 60),
-    # x, r in and out (16 B) and five bf16 coefficients (10 B)
+    # 4 colours: x, r in and out (16 B) and five bf16 coefficients (10 B);
+    # the operations of `gs_incr_k`
     "gs_incr_mp_k": (_MP_TOL, _STENCIL, "waterlily_tpu/ops/pallas_flat.py:759",
-                     26, 17),
+                     26, 44),
     # x, r, eps in, x, r out (20 B) and five bf16 coefficients (10 B)
     "incr_gs_mp_k": (_MP_TOL, _FUSED, "waterlily_tpu/ops/pallas_flat.py:896",
                      30, 60),
@@ -133,10 +139,12 @@ KERNELS = {
 DRAG_GRID = (322, 130, 130)      # `drag_sim(128)` with its ghost cells
 # the redesigned kernels: timed at the drag grid too, beside `BEFORE_MS`
 REDESIGNED = ("conv_diff_k", "conv_diff_bdim_k", "incr_gs_k", "gs_incr_k",
-              "gauss_sweeps_k")
+              "gauss_sweeps_k", "gs_incr_mp_k", "incr_gs_mp_k")
 # the shapes at which a redesigned kernel is timed besides 258^3: the
 # smoothers whose routes change with the level also at 130^3
-TIMED_AT = {DRAG_GRID: REDESIGNED, (130,) * 3: ("gs_incr_k", "gauss_sweeps_k")}
+TIMED_AT = {DRAG_GRID: REDESIGNED,
+            (130,) * 3: ("gs_incr_k", "gauss_sweeps_k", "gs_incr_mp_k",
+                         "incr_gs_mp_k")}
 # ms per call of the kernels that the redesigns replaced, on an NVIDIA H100
 # 80GB HBM3 at 700 W.  K12 and K1 (one thread per (cell, component), every
 # flux evaluated twice, cached global reads): at 258^3 from this script's
@@ -146,7 +154,9 @@ TIMED_AT = {DRAG_GRID: REDESIGNED, (130,) * 3: ("gs_incr_k", "gauss_sweeps_k")}
 # from `tools/incr_gs_bench.py` run in the parent commit's checkout in one
 # call with the cascade.  K15 and K13 (a launch per colour, and per colour
 # and periodic direction): from `tools/smoother_bench.py --smoke` run in the
-# parent commit's checkout (Jacobi, K15 with no colours, is unchanged)
+# parent commit's checkout (Jacobi, K15 with no colours, is unchanged).  The
+# bf16 K5 and K7 (a launch per colour): from `tools/smoother_bench.py
+# --smoke --mp` run in the parent commit's checkout
 BEFORE_MS = {
     ((258,) * 3, "conv_diff_k", "quick"): 2.524,
     ((258,) * 3, "conv_diff_k", "vanleer"): 2.594,
@@ -194,6 +204,24 @@ BEFORE_MS = {
     (DRAG_GRID, "gauss_sweeps_k", "[1, 0] per=012"): 0.1619,
     (DRAG_GRID, "gauss_sweeps_k", "[0, 1, 0, 1] per=2"): 0.2768,
     (DRAG_GRID, "gauss_sweeps_k", "[1, 0] per=2"): 0.1512,
+    ((258,) * 3, "gs_incr_mp_k", "[]"): 0.2076,
+    ((258,) * 3, "gs_incr_mp_k", "[0, 1, 0, 1]"): 0.8286,
+    ((258,) * 3, "gs_incr_mp_k", "[1, 0]"): 0.5529,
+    ((258,) * 3, "incr_gs_mp_k", "[0, 1, 0, 1] norms=True"): 0.9565,
+    ((258,) * 3, "incr_gs_mp_k", "[1, 0] norms=True"): 0.6860,
+    ((258,) * 3, "incr_gs_mp_k", "[0, 1, 0, 1] norms=False"): 0.9436,
+    ((130,) * 3, "gs_incr_mp_k", "[]"): 0.0590,
+    ((130,) * 3, "gs_incr_mp_k", "[0, 1, 0, 1]"): 0.1095,
+    ((130,) * 3, "gs_incr_mp_k", "[1, 0]"): 0.0764,
+    ((130,) * 3, "incr_gs_mp_k", "[0, 1, 0, 1] norms=True"): 0.1356,
+    ((130,) * 3, "incr_gs_mp_k", "[1, 0] norms=True"): 0.1098,
+    ((130,) * 3, "incr_gs_mp_k", "[0, 1, 0, 1] norms=False"): 0.1294,
+    (DRAG_GRID, "gs_incr_mp_k", "[]"): 0.0754,
+    (DRAG_GRID, "gs_incr_mp_k", "[0, 1, 0, 1]"): 0.2721,
+    (DRAG_GRID, "gs_incr_mp_k", "[1, 0]"): 0.1895,
+    (DRAG_GRID, "incr_gs_mp_k", "[0, 1, 0, 1] norms=True"): 0.3239,
+    (DRAG_GRID, "incr_gs_mp_k", "[1, 0] norms=True"): 0.2410,
+    (DRAG_GRID, "incr_gs_mp_k", "[0, 1, 0, 1] norms=False"): 0.3067,
 }
 # the kernels each main path launches (engine x configuration)
 PATH_KERNELS = {
@@ -256,8 +284,8 @@ def nvcc_version(nvcc: str) -> str:
 # the tiled kernels held to no stack frame and no spills: the kernel's name
 # in the compiler's report and the number of its instantiations
 TILED = {"conv-diff": ("conv_diff_tile_kernel", 27),
-         "K7 cascade": ("incr_gs_tile_kernel", 8),
-         "K15 cascade": ("gs_incr_tile_kernel", 4),
+         "K7 cascade": ("incr_gs_tile_kernel", 16),
+         "K15 cascade": ("gs_incr_tile_kernel", 8),
          "K13 cascade": ("gauss_sweeps_tile_kernel", 4)}
 
 
@@ -403,21 +431,36 @@ def kernel_cases(torch, st, fz, ps, shape, rng, dev, band):
                       lambda b=b, per=per: st.bdim_band_k(u, u0, f, V, mu0, mu1, 0.3, b, per),
                       lambda b=b, per=per: st.bdim_band_plain(u, u0, f, V, mu0, mu1, 0.3,
                                                             b, per)))
-    # the bf16 instantiations of K15 and K7 on the level's bf16 coefficients
+    # the bf16 instantiations of K15 and K7 on the level's bf16 coefficients:
+    # the route the level takes, then 4 colours on each route
     bf = ps.with_bf16(lev).bf
-    for cols in ([], [0, 1, 0, 1], [1, 0]):
+    for cols in ([0, 1, 0, 1], [1, 0], []):
         cases.append(("gs_incr_mp_k", str(cols),
                       lambda cols=cols: st.gs_incr_k(x, r, *bf, cols, 0.9, mp=True),
                       lambda cols=cols: st.gs_incr_plain(x, r, *bf, cols, 0.9, mp=True)))
-    for cols, nrm in (([0, 1, 0, 1], True), ([1, 0], True), ([0, 1, 0, 1], False)):
-        def k7m(cols=cols, nrm=nrm):
-            out = fz.incr_gs_k(x, r, eps, *bf, cols, 0.9, nrm, mp=True)
+    for route, rname in ((st.CASCADE, "cascade"), (st.PER_COLOUR, "per-colour")):
+        cases.append(("gs_incr_mp_k", f"[0, 1, 0, 1] {rname}",
+                      lambda route=route: st._gs_incr_launch(
+                          x, r, *bf, [0, 1, 0, 1], 0.9, True, route),
+                      lambda: st.gs_incr_plain(x, r, *bf, [0, 1, 0, 1], 0.9,
+                                               mp=True)))
+    for cols, nrm, route in (([0, 1, 0, 1], True, None), ([1, 0], True, None),
+                             ([0, 1, 0, 1], False, None),
+                             ([0, 1, 0, 1], True, st.CASCADE),
+                             ([0, 1, 0, 1], True, st.PER_COLOUR)):
+        def k7m(cols=cols, nrm=nrm, route=route):
+            out = (fz.incr_gs_k(x, r, eps, *bf, cols, 0.9, nrm, mp=True)
+                   if route is None else
+                   fz._incr_gs_launch(x, r, eps, *bf, cols, 0.9, nrm, mp=True,
+                                      route=route))
             return (*out[:2], out[2][0:1], out[2][1:2]) if nrm else out
 
         def p7m(cols=cols, nrm=nrm):
             out = fz.incr_gs_plain(x, r, eps, *bf, cols, 0.9, nrm, mp=True)
             return (*out[:2], out[2][0:1], out[2][1:2]) if nrm else out
-        cases.append(("incr_gs_mp_k", f"{cols} norms={nrm}", k7m, p7m))
+        rname = {None: "", st.CASCADE: " cascade", st.PER_COLOUR: " per-colour"}
+        cases.append(("incr_gs_mp_k", f"{cols} norms={nrm}{rname[route]}", k7m,
+                      p7m))
     # the copy probes, at both block sizes
     six = [x, r, eps] + [c.clone() for c in u]      # clones: 16-byte aligned
     for block in (256, 1024):
@@ -552,7 +595,7 @@ def phase_kernels(torch, np, wt, dev):
                     # quick, walls; gs_incr: 4 colours; K13: 4 colours, xyz
                     # periodic; K1: predictor; K7: 4 colours, norms; K9: no CFL, no
                     # exit; K10: no exit; K2: the sphere's band; the bf16
-                    # K15: Jacobi; the bf16 K7: 4 colours with norms; the
+                    # K5: 4 colours; the bf16 K7: 4 colours with norms; the
                     # probes: 256 threads per block)
                     stats[name]["ms"], stats[name]["plain_ms"] = ms, pms
                     stats[name]["bound_ms"], stats[name]["bound_by"] = bound_ms(
@@ -672,6 +715,36 @@ def make_sim(torch, wt, config: str, n: int, dev, **kw):
 
 
 # ------------------------------------------------------------ phase 4
+@contextlib.contextmanager
+def bf16_routes(st, fz, tally):
+    """Count each call of the bf16 smoothers by (kernel, level shape,
+    colours, route taken) while it runs: K4 (no colours) and K5 share the
+    wrapper `gs_incr_mp_k`, and the route follows the level."""
+    lib = st._lib()
+    gs, ig = st._gs_incr_launch, fz._incr_gs_launch
+
+    def gs_tally(x, r, L, D, iD, colors, omega, mp, route=None):
+        if mp:
+            rt = (lib.wlt_gs_incr_route(*x.shape, len(colors), 1)
+                  if route is None else route)
+            tally[("gs_incr_mp_k", tuple(x.shape), len(colors), rt)] += 1
+        return gs(x, r, L, D, iD, colors, omega, mp, route)
+
+    def ig_tally(x, r, eps, L, D, iD, colors, omega, want_norms=False,
+                 mp=False, route=None):
+        if mp:
+            rt = (lib.wlt_incr_gs_route(*x.shape, len(colors), 1)
+                  if route is None else route)
+            tally[("incr_gs_mp_k", tuple(x.shape), len(colors), rt)] += 1
+        return ig(x, r, eps, L, D, iD, colors, omega, want_norms, mp, route)
+
+    st._gs_incr_launch, fz._incr_gs_launch = gs_tally, ig_tally
+    try:
+        yield tally
+    finally:
+        st._gs_incr_launch, fz._incr_gs_launch = gs, ig
+
+
 def tgv_energies(torch, mt, u):
     """(KE, enstrophy) of the interior, summed in float64, per cell."""
     n = math.prod(s - 2 for s in u.shape[1:])
@@ -692,6 +765,7 @@ def drag_cd(sim, mt) -> float:
 def phase_main(torch, wt, st, dev, config: str, engine: str):
     """One engine's run of one configuration at full width, with its own
     launch counts."""
+    from waterlily_tpu_torch.ops import fused3d as fz
     from waterlily_tpu_torch.utils import metrics as mt
 
     tag = f"phase4 {config} [{engine}]"
@@ -715,12 +789,15 @@ def phase_main(torch, wt, st, dev, config: str, engine: str):
     if config == "tgv":
         diags.append((0,) + tgv_energies(torch, mt, sim.flow.u))
     events = []
+    routes = collections.Counter()
     st.reset_launch_counts()
     for k in range(1, STEPS + 1):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        sim.sim_step(remeasure=False, udf=udf)
+        with (bf16_routes(st, fz, routes) if config == "sphere-mp"
+              else contextlib.nullcontext()):
+            sim.sim_step(remeasure=False, udf=udf)
         b.record()
         events.append((a, b))
         if config == "tgv" or (config == "drag" and k in (1, 5, STEPS)):
@@ -789,6 +866,18 @@ def phase_main(torch, wt, st, dev, config: str, engine: str):
     if config == "sphere-mp":
         check(sum(l.bf is not None for l in sim.levels) == 3,
               f"{tag}: bf16 copies are not on the levels 258^3, 130^3, 66^3")
+        for (name, lev, ncol, rt), calls in sorted(routes.items()):
+            print(f"{tag} {name} on {lev} with {ncol} colours: {calls} calls "
+                  f"on the {'cascade' if rt == st.CASCADE else 'per-colour route'}",
+                  flush=True)
+        # the redesigned bf16 smoothers took their cascades: K7 on 258^3,
+        # K5 (2 colours) on 130^3 and 66^3
+        want = {("incr_gs_mp_k", (FINE + 2,) * 3), ("gs_incr_mp_k", (130,) * 3),
+                ("gs_incr_mp_k", (66,) * 3)}
+        got = {(name, lev) for (name, lev, ncol, rt) in routes
+               if ncol > 0 and rt == st.CASCADE}
+        check(want <= got, f"{tag}: a bf16 smoother missed its cascade: "
+              f"{sorted(want - got)}")
     for k, n in counts.items():
         if k in PATH_KERNELS[(config, engine)]:
             check(n > 0, f"{tag}: kernel {k} was not launched")

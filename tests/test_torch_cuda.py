@@ -199,12 +199,14 @@ INCR_IDS = ["K6", "1", "10", "010", "11", "0101", "01010"]
 @pytest.mark.parametrize("shape", SHAPES + TILE_SHAPES)
 @pytest.mark.parametrize("colors", INCR_COLORS, ids=INCR_IDS)
 @pytest.mark.parametrize("want_norms", [True, False], ids=["norms", "plain"])
-def test_incr_gs_k(dev, shape, colors, want_norms):
+@pytest.mark.parametrize("route", [None, st.PER_COLOUR],
+                         ids=["auto", "per-colour"])
+def test_incr_gs_k(dev, shape, colors, want_norms, route):
     d = inputs(shape, 6, dev)
     lev = d["lev"]
     args = (d["x"], d["r"], d["eps"], lev.L, lev.D, lev.iD, colors, 0.9)
     st.reset_launch_counts()
-    got = fz.incr_gs_k(*args, want_norms=want_norms)
+    got = fz._incr_gs_launch(*args, want_norms=want_norms, route=route)
     want = fz.incr_gs_plain(*args, want_norms=want_norms)
     assert st.launch_counts()["incr_gs_k"] == 1
     for a, b in zip(got[:2], want[:2]):
@@ -213,43 +215,52 @@ def test_incr_gs_k(dev, shape, colors, want_norms):
         for k in range(2):
             assert rel_err(got[2][k], want[2][k]) <= 1e-5
         # the norms reduce in a fixed order: equal from call to call
-        assert torch.equal(fz.incr_gs_k(*args, want_norms=True)[2], got[2])
+        assert torch.equal(fz._incr_gs_launch(*args, want_norms=True,
+                                              route=route)[2], got[2])
 
 
 @pytest.mark.parametrize("shape", SHAPES + TILE_SHAPES + [(258, 258, 258),
                                                           (322, 130, 130)])
 @pytest.mark.parametrize("colors", INCR_COLORS, ids=INCR_IDS)
-def test_incr_gs_partials_match_the_grid(dev, shape, colors):
+@pytest.mark.parametrize("mp", [False, True], ids=["f32", "bf16"])
+def test_incr_gs_partials_match_the_grid(dev, shape, colors, mp):
     """`wlt_incr_gs_partials` gives the block count of the grid the route
-    launches: the entry writes exactly that many sums and maxima into a
-    NaN-filled buffer that is longer than they need, and the norms come
-    out right."""
+    and form launch, on the route the shape gives and on each route forced:
+    the entry writes exactly that many sums and maxima into a NaN-filled
+    buffer that is longer than they need, and the norms come out right."""
+    if mp and not colors:
+        pytest.skip("the increment alone (K6) has no bf16 form")
     d = inputs(shape, 19, dev) if max(shape) < 100 else dict(
         x=torch.zeros(shape, device=dev), r=torch.ones(shape, device=dev),
         eps=torch.zeros(shape, device=dev),
         lev=ps.make_level(bc_vector(torch.ones((3,) + shape, device=dev),
                                     (0.0,) * 3)))
-    lev, lib = d["lev"], fz._lib()
-    nb = lib.wlt_incr_gs_partials(*shape, len(colors), 0)
-    assert nb > 0
-    partials = torch.full((2 * nb + 64,), float("nan"), device=dev)
-    nv = torch.empty(2, device=dev)
-    x_out, r_out = torch.empty_like(d["x"]), torch.empty_like(d["r"])
-    e = torch.empty_like(d["x"])
-    carr = (fz.ctypes.c_int * max(1, len(colors)))(*colors)
-    err = lib.wlt_incr_gs(
-        fz._ptr(d["x"]), fz._ptr(d["r"]), fz._ptr(d["eps"]), fz._ptr(lev.L),
-        fz._ptr(lev.D), fz._ptr(lev.iD), fz._ptr(e), fz._ptr(x_out),
-        fz._ptr(r_out), carr, len(colors), fz.ctypes.c_float(0.9),
-        fz._ptr(partials), fz._ptr(nv), *shape, fz._stream(dev))
-    torch.cuda.synchronize()
-    assert err == 0
-    assert torch.isfinite(partials[:2 * nb]).all()
-    assert torch.isnan(partials[2 * nb:]).all()
-    want = fz.incr_gs_plain(d["x"], d["r"], d["eps"], lev.L, lev.D, lev.iD,
-                            colors, 0.9, want_norms=True)[2]
-    for k in range(2):
-        assert rel_err(nv[k], want[k]) <= 1e-5
+    lev, lib = ps.with_bf16(d["lev"]), fz._lib()
+    coef = lev.bf if mp else (lev.L, lev.D, lev.iD)
+    auto = lib.wlt_incr_gs_route(*shape, len(colors), int(mp))
+    routes = {auto, st.PER_COLOUR} | ({st.CASCADE} if 1 <= len(colors) <= 4
+                                      else set())
+    want = fz.incr_gs_plain(d["x"], d["r"], d["eps"], *coef, colors, 0.9,
+                            want_norms=True, mp=mp)[2]
+    for route in sorted(routes):
+        nb = lib.wlt_incr_gs_partials(*shape, len(colors), int(mp), route)
+        assert nb > 0
+        partials = torch.full((2 * nb + 64,), float("nan"), device=dev)
+        nv = torch.empty(2, device=dev)
+        x_out, r_out = torch.empty_like(d["x"]), torch.empty_like(d["r"])
+        e = torch.empty_like(d["x"], dtype=coef[0].dtype)
+        carr = (fz.ctypes.c_int * max(1, len(colors)))(*colors)
+        err = (lib.wlt_incr_gs_mp if mp else lib.wlt_incr_gs)(
+            fz._ptr(d["x"]), fz._ptr(d["r"]), fz._ptr(d["eps"]),
+            *(fz._ptr(t) for t in coef), fz._ptr(e), fz._ptr(x_out),
+            fz._ptr(r_out), carr, len(colors), fz.ctypes.c_float(0.9),
+            fz._ptr(partials), fz._ptr(nv), route, *shape, fz._stream(dev))
+        torch.cuda.synchronize()
+        assert err == 0
+        assert torch.isfinite(partials[:2 * nb]).all()
+        assert torch.isnan(partials[2 * nb:]).all()
+        for k in range(2):
+            assert rel_err(nv[k], want[k]) <= 1e-5
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -375,6 +386,12 @@ LEVEL_ROUTES = {
     (322, 130, 130): st.CASCADE, (162, 66, 66): st.CASCADE,
     (82, 34, 34): st.PER_COLOUR,
 }
+# the bf16 K5 and K7 with 2 and 4 colours, from both routes' device times
+# (PERF.md section 6): K5 takes the cascade at every size, K7 from 1,000,000
+# cells
+MP_LEVEL_ROUTES = dict.fromkeys(LEVEL_ROUTES, st.CASCADE)
+MP_INCR_ROUTES = {s: st.CASCADE if np.prod(s) >= 1_000_000 else st.PER_COLOUR
+                  for s in LEVEL_ROUTES}
 
 
 @pytest.mark.parametrize("shape", list(LEVEL_ROUTES),
@@ -384,9 +401,14 @@ def test_smoother_routes_by_level(dev, shape):
     assert lib.wlt_gs_incr_route(*shape, 4, 0) == LEVEL_ROUTES[shape]
     for per in (0b111, 0b100):
         assert lib.wlt_gauss_sweeps_route(*shape, 4, per) == st.CASCADE
-    # Jacobi, five colours and bf16 always take the per-colour launches
-    for n, mp in ((0, 0), (5, 0), (4, 1)):
+    for n in (2, 4):
+        assert lib.wlt_gs_incr_route(*shape, n, 1) == MP_LEVEL_ROUTES[shape]
+        assert lib.wlt_incr_gs_route(*shape, n, 0) == st.CASCADE
+        assert lib.wlt_incr_gs_route(*shape, n, 1) == MP_INCR_ROUTES[shape]
+    # Jacobi and five colours take the per-colour launches (K6 for K7)
+    for n, mp in ((0, 0), (5, 0), (0, 1), (5, 1)):
         assert lib.wlt_gs_incr_route(*shape, n, mp) == st.PER_COLOUR
+        assert lib.wlt_incr_gs_route(*shape, n, mp) == st.PER_COLOUR
     for n in (0, 5):
         assert lib.wlt_gauss_sweeps_route(*shape, n, 0b111) == st.PER_COLOUR
 
@@ -480,41 +502,97 @@ def test_bdim_band_k(dev, shape, band, perdir):
         st.bdim_band_k(*args, 0.3, (0, 3))
 
 
-@pytest.mark.parametrize("shape", PER_SHAPES)
-@pytest.mark.parametrize("colors", [[], [0, 1], [0, 1, 0, 1]],
-                         ids=["jacobi", "rb2", "rb4"])
-def test_gs_incr_mp_k(dev, shape, colors):
-    d = inputs(shape, 15, dev)
-    lev = ps.with_bf16(d["lev"])
-    st.reset_launch_counts()
-    got = st.gs_incr_k(d["x"], d["r"], *lev.bf, colors, 0.9, mp=True)
-    want = st.gs_incr_plain(d["x"], d["r"], *lev.bf, colors, 0.9, mp=True)
+def mp_check(got, want, norms=False):
+    """The bf16 smoothers' limits (`chip_smoke._MP_TOL`): x to 1e-5 of
+    max|plain|, r to 2⁻⁸ (one flipped bf16 rounding), the norms to 1e-5;
+    all met bit for bit."""
     assert rel_err(got[0], want[0]) <= 1e-5
     assert rel_err(got[1], want[1]) <= 2.0 ** -8
+    if norms:
+        for k in range(2):
+            assert rel_err(got[2][k], want[2][k]) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", PER_SHAPES + TILE_SHAPES)
+@pytest.mark.parametrize("colors,route", GS_CASES,
+                         ids=[f"{''.join(map(str, c)) or 'jacobi'}-{ROUTE_IDS[r]}"
+                              for c, r in GS_CASES])
+def test_gs_incr_mp_k(dev, shape, colors, route):
+    """K4/K5 with ``mp``: Jacobi, 1-4 colours (also lists that do not
+    alternate) and five, on the route the shape gives and on each route
+    forced."""
+    d = inputs(shape, 15, dev)
+    lev = ps.with_bf16(d["lev"])
+    args = (d["x"], d["r"], *lev.bf, colors, 0.9)
+    st.reset_launch_counts()
+    got = st._gs_incr_launch(*args, mp=True, route=route)
+    mp_check(got, st.gs_incr_plain(*args, mp=True))
     n = st.launch_counts()
     assert n["gs_incr_mp_k"] == 1 and n["gs_incr_k"] == 0
     with pytest.raises(TypeError):
         st.gs_incr_k(d["x"], d["r"], lev.L, lev.D, lev.iD, colors, 0.9, mp=True)
 
 
-@pytest.mark.parametrize("shape", PER_SHAPES)
+MP_INCR_CASES = [(c, route) for c in INCR_COLORS[1:]
+                 for route in (None, st.PER_COLOUR, st.CASCADE)
+                 if route != st.CASCADE or len(c) <= 4]
+
+
+@pytest.mark.parametrize("shape", PER_SHAPES + TILE_SHAPES)
+@pytest.mark.parametrize("colors,route", MP_INCR_CASES,
+                         ids=[f"{''.join(map(str, c))}-{ROUTE_IDS[r]}"
+                              for c, r in MP_INCR_CASES])
 @pytest.mark.parametrize("want_norms", [False, True], ids=["plain", "norms"])
-def test_incr_gs_mp_k(dev, shape, want_norms):
+def test_incr_gs_mp_k(dev, shape, colors, route, want_norms):
+    """K7 with ``mp``: 1-4 colours (also lists that do not alternate) and
+    five, with and without norms, on the route the shape gives and on each
+    route forced."""
     d = inputs(shape, 16, dev)
     lev = ps.with_bf16(d["lev"])
-    args = (d["x"], d["r"], d["eps"], *lev.bf, [0, 1, 0], 0.9, want_norms)
+    args = (d["x"], d["r"], d["eps"], *lev.bf, colors, 0.9, want_norms)
     st.reset_launch_counts()
-    got = fz.incr_gs_k(*args, mp=True)
-    want = fz.incr_gs_plain(*args, mp=True)
-    assert rel_err(got[0], want[0]) <= 1e-5
-    assert rel_err(got[1], want[1]) <= 2.0 ** -8
-    if want_norms:
-        for k in range(2):
-            assert rel_err(got[2][k], want[2][k]) <= 1e-5
+    got = fz._incr_gs_launch(*args, mp=True, route=route)
+    mp_check(got, fz.incr_gs_plain(*args, mp=True), want_norms)
     n = st.launch_counts()
     assert n["incr_gs_mp_k"] == 1 and n["incr_gs_k"] == 0
     with pytest.raises(ValueError):
         fz.incr_gs_k(d["x"], d["r"], d["eps"], *lev.bf, [], 0.9, mp=True)
+
+
+def level_inputs(shape, seed, dev):
+    """x, r, eps (zero ghosts) and a level with its bf16 copies, made on the
+    card (a level-sized field from numpy would take seconds)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = lambda *s: torch.randn(s + shape, generator=gen, device=dev)
+    inner = (slice(1, -1),) * 3
+    r, eps = torch.zeros(shape, device=dev), torch.zeros(shape, device=dev)
+    r[inner], eps[inner] = g()[inner], 0.3 * g()[inner]
+    L = bc_vector(0.2 + torch.rand((3,) + shape, generator=gen, device=dev),
+                  (0.0,) * 3)
+    return g(), r, eps, ps.with_bf16(ps.make_level(L))
+
+
+# the levels the bf16 smoothers run on (the 258^3 sphere's 258^3, 130^3 and
+# 66^3, the drag sphere's 322 x 130 x 130 and 162 x 66 x 66) and ragged
+# tiles at the size of a level (z not a multiple of the tile, nz odd)
+MP_LEVELS = [(258, 258, 258), (130, 130, 130), (66, 66, 66), (322, 130, 130),
+             (162, 66, 66), (67, 45, 71)]
+
+
+@pytest.mark.parametrize("shape", MP_LEVELS, ids=lambda s: "x".join(map(str, s)))
+def test_mp_smoothers_at_level_sizes(dev, shape):
+    """Both routes of the bf16 K5 and K7 (with norms) with 2 and 4 colours
+    at the sizes the solvers run them."""
+    x, r, eps, lev = level_inputs(shape, 21, dev)
+    for colors in ([1, 0], [1, 0, 1, 0], [0, 1, 0]):
+        want = st.gs_incr_plain(x, r, *lev.bf, colors, 0.9, mp=True)
+        for route in (st.PER_COLOUR, st.CASCADE):
+            mp_check(st._gs_incr_launch(x, r, *lev.bf, colors, 0.9, True, route),
+                     want)
+        args = (x, r, eps, *lev.bf, colors, 0.9, True)
+        want = fz.incr_gs_plain(*args, mp=True)
+        for route in (st.PER_COLOUR, st.CASCADE):
+            mp_check(fz._incr_gs_launch(*args, mp=True, route=route), want, True)
 
 
 @pytest.mark.parametrize("shape", [(18, 18, 18), (7, 5, 3), (8, 8, 8)])
@@ -580,15 +658,20 @@ def test_forced_and_mp_routing(dev):
     assert n["incr_gs_mp_k"] == n["gs_incr_mp_k"] == 0 and n["gs_incr_k"] > 0
 
 
-def test_mp_run_equals_the_run_with_only_its_smoothers_plain(dev):
+@pytest.mark.parametrize("size", [32, 128])
+def test_mp_run_equals_the_run_with_only_its_smoothers_plain(dev, size):
     """`plain_ops(only=...)` routes the bf16 smoothers alone to their plain
     versions: every float32 kernel still launches, and the run equals the
     kernels' run bit for bit, since the bf16 kernels round where their plain
-    versions round."""
+    versions round.  At 32³ the bf16 K7 launches per colour; at 128³ it is
+    the cascade (130³ fine level) and so is the bf16 K5 (on 66³)."""
     mp = ("gs_incr_mp_k", "incr_gs_mp_k")
-    a, b = (sphere(32, dev, smooth_it=2, mp_smooth=True) for _ in range(2))
+    a, b = (sphere(size, dev, smooth_it=2, mp_smooth=True) for _ in range(2))
+    st.reset_launch_counts()
     for _ in range(3):
         a.sim_step(remeasure=False)
+    n = st.launch_counts()
+    assert n["incr_gs_mp_k"] > 0 and n["gs_incr_mp_k"] > 0
     st.reset_launch_counts()
     with st.plain_ops(only=mp):
         for _ in range(3):

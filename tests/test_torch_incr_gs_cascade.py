@@ -3,8 +3,10 @@ emulated in plain PyTorch on the CPU and held bit for bit against the plain
 versions of its three forms: K7 (`incr_gs_tile_kernel`,
 `fused3d.incr_gs_plain`), K15 (`gs_incr_tile_kernel`,
 `stencil3d.gs_incr_plain`) and K13 (`gauss_sweeps_tile_kernel`,
-`stencil3d.gauss_sweeps_plain`), with one case each of K15 and K13 against
-the Pallas kernels in interpret mode.
+`stencil3d.gauss_sweeps_plain`), and the bf16 forms of K7 and K15 (K5 with
+``mp``) against ``incr_gs_plain(mp=True)`` and ``gs_incr_plain(mp=True)``,
+with one case each of K15, K13 and the two bf16 forms against the Pallas
+kernels in interpret mode.
 
 K7 computes, on interior cells, ``r₁ = r − ω·A·eps``, ``e₀ = r₁·iD``, one
 red-black sweep of ``e`` per colour, ``x′ = x + ω(eps + e)`` and
@@ -81,8 +83,17 @@ def cascade(form, x, r, eps, L, D, iD, colors, omega, ty=4, tz=8, xc=5,
     """One form of the tiled cascade by its schedule: ``"incr_gs"`` (K7 with
     norms), ``"gs_incr"`` (K15) or ``"sweeps"`` (K13, periodic in the
     directions of ``perdir``).  Returns ``(x′, r′, [Σ|r′|, max|r′|], number
-    of blocks)``; K13 returns eps′ as x′ and leaves r′ and the norms out."""
+    of blocks)``; K13 returns eps′ as x′ and leaves r′ and the norms out.
+
+    bf16 ``L``, ``D``, ``iD`` (float32 x, r, eps) give the MP forms: the e,
+    L and iD rings hold bf16, the r ring (K7: r₁) float32, and each operation
+    on bf16 tensors is torch's bf16 operation, the float32 operation rounded
+    once to bf16, as the kernel's `fmulb`, `faddb`, `fsubb`: the sweeps read
+    a bf16 rounding of r₁, A·e is accumulated in bf16, K7's r₁ is float32
+    from the float32 eps and the bf16 coefficients, and the updates and the
+    norms are float32."""
     it = len(colors)
+    cdt = L.dtype                           # the coefficients' and e's dtype
     h = it + 1
     ne, nr = it + 3, it + 2                 # e and r₁ ring planes
     nx, ny, nz = x.shape
@@ -145,12 +156,12 @@ def cascade(form, x, r, eps, L, D, iD, colors, omega, ty=4, tz=8, xc=5,
         return a[:, 1 + dy:a.shape[1] - 1 + dy, 1 + dz:a.shape[2] - 1 + dz]
 
     nan = float("nan")
-    E = torch.full((nb, ne, hr + 2, wr + 2), nan, dtype=x.dtype)
+    E = torch.full((nb, ne, hr + 2, wr + 2), nan, dtype=cdt)
     R1 = torch.full((nb, nr, hr + 2, wr + 2), nan, dtype=x.dtype)
     EPS = torch.full((nb, 4, hr + 2, wr + 2), nan, dtype=x.dtype)
-    A0, A1, A2 = (torch.full((nb, ne, hr + 2, wr + 2), nan, dtype=x.dtype)
+    A0, A1, A2 = (torch.full((nb, ne, hr + 2, wr + 2), nan, dtype=cdt)
                   for _ in range(3))
-    AI = torch.full((nb, nr, hr + 2, wr + 2), nan, dtype=x.dtype)
+    AI = torch.full((nb, nr, hr + 2, wr + 2), nan, dtype=cdt)
     if form == "incr_gs":
         for k in range(3):                  # planes t0, t0 + 1, t0 + 2
             EPS[:, k] = at("eps", t0 + k)
@@ -181,7 +192,7 @@ def cascade(form, x, r, eps, L, D, iD, colors, omega, ty=4, tz=8, xc=5,
                 continue
             es = Es[:, (s - k) % ne]
             a1, a2 = A1[:, (s - k) % ne], A2[:, (s - k) % ne]
-            g = inner(R1[:, (s - k) % nr])
+            g = inner(R1[:, (s - k) % nr]).to(cdt)
             g = g - (inner(E[:, (s - k - 1) % ne]) * inner(A0[:, (s - k) % ne])
                      + inner(E[:, (s - k + 1) % ne])
                      * inner(A0[:, (s - k + 1) % ne]))
@@ -216,9 +227,12 @@ def cascade(form, x, r, eps, L, D, iD, colors, omega, ty=4, tz=8, xc=5,
                 a = a + nbr(es, 0, 1) * nbr(a2, 0, 1)
                 m = inner(interior(q))
                 xv, rv = inner(at("x", q)), inner(at("r", q))
-                e_x = ec + inner(at("eps", q)) if form == "incr_gs" else ec
+                e_x = ec.to(x.dtype)
+                if form == "incr_gs":
+                    e_x = inner(at("eps", q)) + e_x
                 xn = torch.where(m, xv + omega * e_x, xv)
-                rn = torch.where(m, inner(R1[:, (s - it - 1) % nr]) - omega * a, rv)
+                rn = torch.where(m, inner(R1[:, (s - it - 1) % nr])
+                                 - omega * a.to(x.dtype), rv)
                 part_s += torch.where(ok, rn.abs(), 0.0).sum((1, 2))
                 part_m = torch.maximum(part_m,
                                        torch.where(ok, rn.abs(), 0.0).amax((1, 2)))
@@ -237,11 +251,11 @@ def cascade(form, x, r, eps, L, D, iD, colors, omega, ty=4, tz=8, xc=5,
             a = a + nbr(pc, 0, -1) * inner(at("L2", p0))
             a = a + nbr(pc, 0, 1) * inner(at("L2", p0, 0, 0, 1))
             r1 = torch.where(m, inner(at("r", p0)) - omega * a, 0.0)
-            e0 = torch.where(m, r1 * inner(at("iD", p0)), 0.0)
+            e0 = torch.where(m, r1.to(cdt) * inner(at("iD", p0)), 0.0)
         else:
             r1 = torch.where(m, inner(at("r", p0)), 0.0)
             e0 = (inner(at("eps", p0)) if form == "sweeps"
-                  else torch.where(m, r1 * inner(at("iD", p0)), 0.0))
+                  else torch.where(m, r1.to(cdt) * inner(at("iD", p0)), 0.0))
         sel = act[:, None, None].expand(e0.shape)
         inner(E[:, (s + 1) % ne])[sel] = e0[sel]
         inner(R1[:, (s + 1) % nr])[sel] = r1[sel]
@@ -374,6 +388,64 @@ def test_gs_incr_schedule_tiny_tiles():
     assert torch.equal(xg, xw) and torch.equal(rg, rw)
 
 
+# ------------------------------------------------------------ bf16 forms
+# K7's callers run 2 and 4 colours; one list that does not alternate
+MP_INCR_COLORS = [[1, 0], [0, 1, 0, 1], [0, 0, 1, 1]]
+# K5 with 1-4 colours and one list that does not alternate
+MP_GS_COLORS = [[1], [0, 1], [0, 1, 0], [1, 0, 1, 0], [1, 1]]
+
+
+def mp_inputs(shape, seed):
+    """float32 x, r, eps and the bf16 coefficients of their level."""
+    x, r, eps, lev = inputs(shape, seed, torch.float32)
+    return x, r, eps, ps.with_bf16(lev).bf
+
+
+@pytest.mark.parametrize("colors", MP_INCR_COLORS,
+                         ids=lambda c: "".join(map(str, c)))
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_mp_cascade_schedule_equals_incr_gs_plain(shape, colors):
+    """K7's bf16 form (`incr_gs_tile_kernel<IT, NORMS, true>`) by its
+    schedule against `incr_gs_plain(mp=True)`: x′ and r′ bit for bit, the
+    norms to float32 summation order."""
+    x, r, eps, bf = mp_inputs(shape, 100 + len(colors))
+    args = (x, r, eps, *bf, colors, OMEGA)
+    xg, rg, ng, _ = cascade("incr_gs", *args)
+    xw, rw, nw = fz.incr_gs_plain(*args, want_norms=True, mp=True)
+    assert torch.equal(xg, xw) and torch.equal(rg, rw)
+    torch.testing.assert_close(ng, nw, rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.parametrize("colors", MP_GS_COLORS,
+                         ids=lambda c: "".join(map(str, c)))
+@pytest.mark.parametrize("shape", [(12, 10, 7), (19, 13, 22)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_mp_gs_incr_schedule_equals_gs_incr_plain(shape, colors):
+    """K5's bf16 form (`gs_incr_tile_kernel<IT, true>`) by its schedule
+    against `gs_incr_plain(mp=True)`, bit for bit."""
+    x, r, _, bf = mp_inputs(shape, 110 + len(colors))
+    xg, rg, _, _ = cascade("gs_incr", x, r, torch.zeros_like(x), *bf, colors,
+                           OMEGA)
+    xw, rw = st.gs_incr_plain(x, r, *bf, colors, OMEGA, mp=True)
+    assert torch.equal(xg, xw) and torch.equal(rg, rw)
+
+
+@pytest.mark.parametrize("form", ["incr_gs", "gs_incr"])
+@pytest.mark.parametrize("tiles", [(2, 4, 3), (16, 32, 64)],
+                         ids=["tiny", "wider-than-field"])
+def test_mp_schedule_other_tilings(form, tiles):
+    x, r, eps, bf = mp_inputs((19, 13, 22), 120)
+    colors = [1, 0, 1, 0]
+    if form == "incr_gs":
+        got = cascade(form, x, r, eps, *bf, colors, OMEGA, *tiles)[:2]
+        want = fz.incr_gs_plain(x, r, eps, *bf, colors, OMEGA, mp=True)
+    else:
+        got = cascade(form, x, r, torch.zeros_like(x), *bf, colors, OMEGA,
+                      *tiles)[:2]
+        want = st.gs_incr_plain(x, r, *bf, colors, OMEGA, mp=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 # ------------------------------------------------------------ vs Pallas
 @pytest.fixture
 def interpret(monkeypatch):
@@ -428,3 +500,34 @@ def test_periodic_levels_hold_the_sweeps_precondition(body):
     assert len(sim.levels) > 1
     for lev in sim.levels:
         assert torch.equal(per_bc(lev.L, perdir, lead=1), lev.L)
+
+
+@pytest.mark.parametrize("form", ["incr_gs", "gs_incr"])
+def test_mp_schedule_vs_pallas(monkeypatch, form):
+    """The bf16 forms' schedules against `pallas_flat.incr_gs(mp=True)` and
+    `gs_incr(mp=True)` in interpret mode, under the limits
+    `tests/test_torch_mp.py` gives the plain versions: x to 1e-6 of max,
+    r to 0.02 (XLA on the CPU keeps the chain of bf16 sums of A·e in float32
+    between operations; the port rounds each)."""
+    from waterlily_tpu.ops import flat as fo
+    from waterlily_tpu.ops import pallas_flat as plf
+
+    monkeypatch.setattr(plf, "_INTERPRET", True)
+    shape = (12, 10, 7)
+    geom = fo.geom_of(shape)
+    x, r, eps, bf = mp_inputs(shape, 130)
+    colors = [0, 1, 0, 1]
+    J = lambda t: fo.to_flat(jnp.asarray(t.float().numpy()), geom)
+    coef = [J(t) for t in bf]
+    if form == "incr_gs":
+        got = cascade(form, x, r, eps, *bf, colors, 0.8)[:2]
+        want = plf.incr_gs(J(x), J(r), J(eps), *coef, colors, jnp.float32(0.8),
+                           geom, mp=True)
+    else:
+        got = cascade(form, x, r, torch.zeros_like(x), *bf, colors, 0.8)[:2]
+        want = plf.gs_incr(J(x), J(r), *coef, colors, jnp.float32(0.8), geom,
+                           mp=True)
+    for a, b, tol in zip(got, want, (1e-6, 0.02)):
+        b = np.asarray(fo.from_flat(b, geom))
+        np.testing.assert_allclose(a.numpy(), b,
+                                   atol=tol * max(1.0, np.abs(b).max()))

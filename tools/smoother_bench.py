@@ -4,8 +4,8 @@
 colours (``--it N``: the first N of 1, 0, 1, 0) on both routes, level by
 level, against their plain versions.
 
-    PYTHONPATH=. python3 tools/smoother_bench.py [--quick] [--it N] [nx ny nz ...]
-    PYTHONPATH=. python3 tools/smoother_bench.py --smoke
+    PYTHONPATH=. python3 tools/smoother_bench.py [--quick] [--mp] [--it N] [nx ny nz ...]
+    PYTHONPATH=. python3 tools/smoother_bench.py --smoke [--mp]
 
 Prints the card, the registers / stack frame / spills of every cascade
 instantiation of K15 and K13 from the `-Xptxas -v` log, then per shape
@@ -22,10 +22,14 @@ time the plain versions.  The package and ``chip_smoke`` are imported from
 the working directory, so run from the root of another checkout (with this
 file's path) it times that checkout's kernels (the wrapper alone where that
 checkout has one route): two versions can be compared in turns on one card.
-Exits non-zero if an error exceeds 1e-5.  ``--smoke`` times instead the
-K15 and K13 cases of that checkout's ``chip_smoke.py`` phase 3 at 258^3,
-130^3 and the drag grid, on the route each takes there (its `BEFORE_MS`
-keys).  Needs a CUDA device; imports no JAX.
+Exits non-zero if an error exceeds 1e-5.  ``--mp`` times the bf16 K5
+(``gs_incr_k(mp=True)`` on the level's bf16 coefficients; K13 has no bf16
+form) instead, its r error taken relative to 2^-8 (one flipped bf16
+rounding; met bit for bit).  ``--smoke`` times instead the K15 and K13
+cases (``--mp``: the bf16 K5 and K7 cases) of that checkout's
+``chip_smoke.py`` phase 3 at 258^3, 130^3 and the drag grid, on the route
+each takes there (its `BEFORE_MS` keys).  Needs a CUDA device; imports no
+JAX.
 """
 from __future__ import annotations
 
@@ -78,9 +82,9 @@ def device_ms(torch, fn, launches: int = 20, runs: int = 5) -> float:
     return statistics.median(times)
 
 
-def smoke_times(torch, np, cs, st, dev) -> None:
-    """The K15 and K13 cases of ``chip_smoke.kernel_cases``, timed as its
-    phase 3 times them."""
+def smoke_times(torch, np, cs, st, dev, names) -> None:
+    """The cases of the kernels ``names`` of ``chip_smoke.kernel_cases``,
+    timed as its phase 3 times them."""
     from waterlily_tpu_torch.ops import fused3d as fz
     from waterlily_tpu_torch.ops import poisson as ps
 
@@ -89,7 +93,7 @@ def smoke_times(torch, np, cs, st, dev) -> None:
         band = (shape[0] // 3, 2 * shape[0] // 3)
         for name, label, kern, _ in cs.kernel_cases(torch, st, fz, ps, shape,
                                                     rng, dev, band):
-            if (name in ("gs_incr_k", "gauss_sweeps_k")
+            if (name in names
                     and not label.endswith(("cascade", "per-colour"))):
                 ms = cs.median_ms(torch, kern, 20)
                 print(f"smoke ({shape}, {name!r}, {label!r}): {ms:.4f},",
@@ -112,6 +116,7 @@ def main(argv) -> int:
     from waterlily_tpu_torch.ops.bc import bc_vector, per_bc
 
     quick = "--quick" in argv
+    mp = "--mp" in argv
     colors = COLORS
     if "--it" in argv:
         k = argv.index("--it")
@@ -130,7 +135,9 @@ def main(argv) -> int:
     routed = hasattr(st, "_gs_incr_launch")          # both routes to force
     dev = torch.device("cuda")
     if "--smoke" in argv:
-        smoke_times(torch, np, cs, st, dev)
+        smoke_times(torch, np, cs, st, dev,
+                    ("gs_incr_mp_k", "incr_gs_mp_k") if mp
+                    else ("gs_incr_k", "gauss_sweeps_k"))
         return 0
     slots = torch.cuda.get_device_properties(dev).multi_processor_count
     rng = np.random.default_rng(0)
@@ -144,14 +151,17 @@ def main(argv) -> int:
                                 device=dev)
         cases = []
         lev = ps.make_level(bc_vector(L_raw, (0.0,) * 3))
-        gs = (x, r, lev.L, lev.D, lev.iD, colors, 0.9)
+        coef = ps.with_bf16(lev).bf if mp else (lev.L, lev.D, lev.iD)
+        gs = (x, r, *coef, colors, 0.9)
         tag = "".join(map(str, colors))
-        cases.append(("K15", f"gs_incr_k {tag}", lambda: st.gs_incr_k(*gs),
-                      lambda: st.gs_incr_plain(*gs),
-                      (lambda route: st._gs_incr_launch(*gs, False, route))
+        cases.append(("K5 bf16" if mp else "K15", f"gs_incr_k {tag}",
+                      lambda: st.gs_incr_k(*gs, mp=mp),
+                      lambda: st.gs_incr_plain(*gs, mp=mp),
+                      (lambda route: st._gs_incr_launch(*gs, mp, route))
                       if routed else None,
-                      st._lib().wlt_gs_incr_route(*shape, it, 0) if routed else 0))
-        for per in ((0, 1, 2), (2,)):
+                      st._lib().wlt_gs_incr_route(*shape, it, int(mp))
+                      if routed else 0))
+        for per in (() if mp else ((0, 1, 2), (2,))):
             Lp = bc_vector(L_raw, (0.0,) * 3, perdir=per)
             sw = (per_bc(x, per), r, Lp, ps.make_level(Lp).iD, colors, per)
             mask = sum(1 << j for j in per)
@@ -173,11 +183,18 @@ def main(argv) -> int:
             line = [f"{kernel} {str(shape):16s} {label:24s} picks "
                     f"{'cascade' if route == 1 else 'per-colour'}"]
             for name, fn in runs.items():
-                got = fn()
+                try:
+                    got = fn()
+                except RuntimeError:        # a checkout without this route
+                    line.append(f"{name} refused")
+                    continue
                 got = got if isinstance(got, tuple) else (got,)
                 torch.cuda.synchronize()
-                rel = max(((a - b).abs().max() / b.abs().max()).item()
-                          for a, b in zip(got, want))
+                errs = [((a - b).abs().max() / b.abs().max()).item()
+                        for a, b in zip(got, want)]
+                if mp:                   # r to one flipped bf16 rounding
+                    errs[1] *= 1e-5 / 2.0 ** -8
+                rel = max(errs)
                 worst = max(worst, rel)
                 del got
                 ms = cs.median_ms(torch, fn, 20)
@@ -188,7 +205,7 @@ def main(argv) -> int:
             line.append(f"plain {pms:.4f} ms; march {blocks} blocks, {steps} "
                         f"steps, {waves} chunks a slot")
             print("  ".join(line), flush=True)
-        del x, r, L_raw, lev, cases
+        del x, r, L_raw, lev, coef, cases
         torch.cuda.empty_cache()
     print(f"worst relative error {worst:.3e} (limit 1e-5)", flush=True)
     return 0 if worst <= 1e-5 else 1

@@ -322,30 +322,32 @@ __global__ void div_kernel(const float* __restrict__ u,
 //   x' = x + w (eps + e);  r' = r1 - w A e          (interior cells)
 // with no colours: x' = x + w eps, r' = r - w A eps.  Ghosts keep x and r.
 // With norms it also reduces (sum |r'|, max |r'|) over every cell.
-// Routes, chosen by the arguments: float32 with 1 to RB_MAX_IT colours is
-// one launch of the tiled cascade below (incr_gs_tile_kernel) and the fold
-// of its norm partials; no colours (K6) is one pass of incr_tail_kernel,
-// 32 B/cell, 0.16 ms at 258^3; more than RB_MAX_IT colours, and the bf16
-// instantiation, take a head pass (r1 into r_out, e), K15's colour sweep per
-// colour, a tail pass (x', r', the norm partials) and the fold: ~180 B/cell
-// with 4 colours, which is what the cascade replaces.
+// Routes, chosen from the arguments and the shape (incr_gs_route): 1 to
+// RB_MAX_IT colours are one launch of the tiled cascade below
+// (incr_gs_tile_kernel, float32 or bf16) and the fold of its norm
+// partials; no colours (K6) is one pass of incr_tail_kernel, 32 B/cell,
+// 0.16 ms at 258^3; more than RB_MAX_IT colours take a head pass (r1 into
+// r_out, e), K15's colour sweep per colour, a tail pass (x', r', the norm
+// partials) and the fold: ~180 B/cell with 4 colours, which is what the
+// cascade replaces.  The bf16 form keeps the per-colour launches on levels
+// below INCR_GS_MP_TILE_MIN_CELLS cells (measured: see below).
 //
-// The cascade (rb_cascade.cuh, form RB_INCR_GS; what bounds it and what
-// the design does are written there) with its norms reduced in the block's
-// fixed tree into per-block partials.
-template <int IT, bool NORMS>
+// The cascade (rb_cascade.cuh, form RB_INCR_GS, MP for bf16; what bounds it
+// and what the design does are written there) with its norms reduced in
+// the block's fixed tree into per-block partials.
+template <int IT, bool NORMS, bool MP>
 __global__ void __launch_bounds__(RbShape<IT>::NT, 1)
     incr_gs_tile_kernel(const float* __restrict__ x,
                         const float* __restrict__ r,
                         const float* __restrict__ eps,
-                        const float* __restrict__ L,
-                        const float* __restrict__ D,
-                        const float* __restrict__ iD, float omega,
+                        const coef_t<MP>* __restrict__ L,
+                        const coef_t<MP>* __restrict__ D,
+                        const coef_t<MP>* __restrict__ iD, float omega,
                         unsigned cmask, int xc, float* __restrict__ x_out,
                         float* __restrict__ r_out,
                         float* __restrict__ partials, Grid3 g) {
   float acc_s = 0.f, acc_m = 0.f;
-  rb_cascade<IT, NORMS ? RB_INCR_GS_NORMS : RB_INCR_GS>(
+  rb_cascade<IT, NORMS ? RB_INCR_GS_NORMS : RB_INCR_GS, MP>(
       x, r, eps, L, D, iD, omega, cmask, 0u, xc, x_out, r_out, acc_s, acc_m,
       g);
   if (NORMS) {
@@ -359,29 +361,31 @@ __global__ void __launch_bounds__(RbShape<IT>::NT, 1)
   }
 }
 
-template <int IT, bool NORMS>
+// each instantiation finds its own resident block slots: a bf16 form with
+// other registers or shared memory gets the grid of its own occupancy
+template <int IT, bool NORMS, bool MP>
 cudaError_t incr_gs_tile_grid(const Grid3& g, dim3& grid, int& xc) {
   static int slots = 0;
   return rb_cascade_grid<IT>(
-      incr_gs_tile_kernel<IT, NORMS>,
-      rb_smem<IT, NORMS ? RB_INCR_GS_NORMS : RB_INCR_GS>(), slots, g, grid,
+      incr_gs_tile_kernel<IT, NORMS, MP>,
+      rb_smem<IT, NORMS ? RB_INCR_GS_NORMS : RB_INCR_GS, MP>(), slots, g, grid,
       xc);
 }
 
-template <int IT, bool NORMS>
+template <int IT, bool NORMS, bool MP>
 cudaError_t launch_incr_gs_it(const float* x, const float* r,
-                              const float* eps, const float* L,
-                              const float* D, const float* iD, float omega,
-                              unsigned cmask, float* x_out, float* r_out,
-                              float* partials, float* norms, const Grid3& g,
-                              cudaStream_t s) {
+                              const float* eps, const coef_t<MP>* L,
+                              const coef_t<MP>* D, const coef_t<MP>* iD,
+                              float omega, unsigned cmask, float* x_out,
+                              float* r_out, float* partials, float* norms,
+                              const Grid3& g, cudaStream_t s) {
   dim3 grid;
   int xc;
-  cudaError_t err = incr_gs_tile_grid<IT, NORMS>(g, grid, xc);
+  cudaError_t err = incr_gs_tile_grid<IT, NORMS, MP>(g, grid, xc);
   if (err != cudaSuccess) return err;
-  incr_gs_tile_kernel<IT, NORMS>
+  incr_gs_tile_kernel<IT, NORMS, MP>
       <<<grid, RbShape<IT>::NT,
-         rb_smem<IT, NORMS ? RB_INCR_GS_NORMS : RB_INCR_GS>(), s>>>(
+         rb_smem<IT, NORMS ? RB_INCR_GS_NORMS : RB_INCR_GS, MP>(), s>>>(
           x, r, eps, L, D, iD, omega, cmask, xc, x_out, r_out, partials, g);
   if ((err = cudaGetLastError()) != cudaSuccess || !NORMS) return err;
   int64_t nb = (int64_t)grid.x * grid.y * grid.z;
@@ -389,19 +393,21 @@ cudaError_t launch_incr_gs_it(const float* x, const float* r,
   return cudaGetLastError();
 }
 
-template <bool NORMS>
+template <bool NORMS, bool MP>
 cudaError_t launch_incr_gs_tile(const float* x, const float* r,
-                                const float* eps, const float* L,
-                                const float* D, const float* iD, float omega,
-                                const int* colors, int ncolors, float* x_out,
-                                float* r_out, float* partials, float* norms,
-                                const Grid3& g, cudaStream_t s) {
+                                const float* eps, const coef_t<MP>* L,
+                                const coef_t<MP>* D, const coef_t<MP>* iD,
+                                float omega, const int* colors, int ncolors,
+                                float* x_out, float* r_out, float* partials,
+                                float* norms, const Grid3& g,
+                                cudaStream_t s) {
   unsigned cmask = 0;
   for (int k = 0; k < ncolors; ++k) cmask |= (unsigned)(colors[k] & 1) << k;
-#define WLT_IG_CASE(IT)                                                     \
-  case IT:                                                                  \
-    return launch_incr_gs_it<IT, NORMS>(x, r, eps, L, D, iD, omega, cmask, \
-                                        x_out, r_out, partials, norms, g, s)
+#define WLT_IG_CASE(IT)                                                    \
+  case IT:                                                                 \
+    return launch_incr_gs_it<IT, NORMS, MP>(x, r, eps, L, D, iD, omega,    \
+                                            cmask, x_out, r_out, partials, \
+                                            norms, g, s)
   switch (ncolors) {
     WLT_IG_CASE(1);
     WLT_IG_CASE(2);
@@ -412,23 +418,25 @@ cudaError_t launch_incr_gs_tile(const float* x, const float* r,
 #undef WLT_IG_CASE
 }
 
-// the blocks of the cascade's grid with norms, or -1 on an error
+// the blocks of the grid of the cascade with norms, or -1 on an error
+template <bool MP>
 int64_t incr_gs_tile_blocks(const Grid3& g, int ncolors) {
   dim3 grid;
   int xc;
   cudaError_t err;
   switch (ncolors) {
-    case 1: err = incr_gs_tile_grid<1, true>(g, grid, xc); break;
-    case 2: err = incr_gs_tile_grid<2, true>(g, grid, xc); break;
-    case 3: err = incr_gs_tile_grid<3, true>(g, grid, xc); break;
-    case 4: err = incr_gs_tile_grid<4, true>(g, grid, xc); break;
+    case 1: err = incr_gs_tile_grid<1, true, MP>(g, grid, xc); break;
+    case 2: err = incr_gs_tile_grid<2, true, MP>(g, grid, xc); break;
+    case 3: err = incr_gs_tile_grid<3, true, MP>(g, grid, xc); break;
+    case 4: err = incr_gs_tile_grid<4, true, MP>(g, grid, xc); break;
     default: return -1;
   }
   return err == cudaSuccess ? (int64_t)grid.x * grid.y * grid.z : -1;
 }
 
 // ------------------------------------------------------------ K6, K7 per colour
-// The per-colour route (bf16, or more than RB_MAX_IT colours) and K6.
+// The per-colour route (more than RB_MAX_IT colours, bf16 on small levels)
+// and K6.
 // MP instantiation (pallas_flat.py:896 incr_gs with mp=True; the arithmetic
 // is in stencil_common.cuh): L, D, iD and the e scratch are bf16.  r1 is
 // formed in float32 from the float32 eps and the bf16 coefficients and kept
@@ -437,6 +445,18 @@ int64_t incr_gs_tile_blocks(const Grid3& g, int ncolors) {
 // x', r' out (20 B) and five bf16 coefficients (10 B): 30 B/cell against 40,
 // 0.15 ms at 258^3.  It needs at least one colour: the increment alone (K6)
 // has no mixed-precision form.
+//
+// The size rule of the bf16 cascade: its march's fixed cost per step loses
+// to the per-colour launches on small levels.  Device time per call with
+// norms, 4 / 2 colours, cascade against per-colour, both routes in one call
+// on an H100 (PERF.md section 6): 258^3 0.704 / 0.532 against 0.942 /
+// 0.665 ms, 322x130x130 0.239 / 0.178 against 0.314 / 0.227, 130^3 0.113 /
+// 0.081 against 0.131 / 0.098; 98^3 (941K cells) 0.061 / 0.042 against
+// 0.059 / 0.043, 162x66x66 (706K) 0.051 / 0.034 against 0.049 / 0.036;
+// 82^3 (551K), 66^3, 50^3, 82x34x34 and 34^3 lost by 4-46 %.  The threshold
+// sits between the largest level that lost with 4 colours and the smallest
+// that won with both.
+constexpr int64_t INCR_GS_MP_TILE_MIN_CELLS = 1000000;
 template <bool MP>
 __global__ void incr_head_kernel(const float* __restrict__ r,
                                  const float* __restrict__ eps,
@@ -516,32 +536,36 @@ __global__ void incr_tail_kernel(const float* __restrict__ x,
   }
 }
 
-// the tiled cascade takes float32 with 1 to RB_MAX_IT colours
-__host__ bool incr_gs_tiled(int ncolors, bool mp) {
-  return !mp && ncolors >= 1 && ncolors <= RB_MAX_IT;
+// 1: the tiled cascade (1 to RB_MAX_IT colours; bf16 from
+// INCR_GS_MP_TILE_MIN_CELLS cells), 0: K6 or the per-colour launches
+__host__ int incr_gs_route(const Grid3& g, int ncolors, bool mp) {
+  return ncolors >= 1 && ncolors <= RB_MAX_IT &&
+         (!mp || g.n >= INCR_GS_MP_TILE_MIN_CELLS);
 }
 
 // e: scratch field (used by the per-colour route only); partials: 2 x
 // wlt_incr_gs_partials floats and norms: 2 floats, both nullptr without
-// norms.  r must not alias r_out: the cascade reads r at other blocks' cells.
+// norms; route: as incr_gs_route gives it (1 needs 1 to RB_MAX_IT
+// colours).  r must not alias r_out: the cascade reads r at other blocks'
+// cells.
 template <bool MP>
 cudaError_t launch_incr_gs(const float* x, const float* r, const float* eps,
                            const coef_t<MP>* L, const coef_t<MP>* D,
                            const coef_t<MP>* iD, coef_t<MP>* e, float* x_out,
                            float* r_out, const int* colors, int ncolors,
                            float omega, float* partials, float* norms,
-                           const Grid3& g, cudaStream_t s) {
-  if constexpr (!MP) {
-    if (incr_gs_tiled(ncolors, MP)) {
-      return norms == nullptr
-                 ? launch_incr_gs_tile<false>(x, r, eps, L, D, iD, omega,
-                                              colors, ncolors, x_out, r_out,
-                                              nullptr, nullptr, g, s)
-                 : launch_incr_gs_tile<true>(x, r, eps, L, D, iD, omega,
-                                             colors, ncolors, x_out, r_out,
-                                             partials, norms, g, s);
-    }
+                           int route, const Grid3& g, cudaStream_t s) {
+  if (route == 1) {
+    if (ncolors < 1 || ncolors > RB_MAX_IT) return cudaErrorInvalidValue;
+    return norms == nullptr
+               ? launch_incr_gs_tile<false, MP>(x, r, eps, L, D, iD, omega,
+                                                colors, ncolors, x_out, r_out,
+                                                nullptr, nullptr, g, s)
+               : launch_incr_gs_tile<true, MP>(x, r, eps, L, D, iD, omega,
+                                               colors, ncolors, x_out, r_out,
+                                               partials, norms, g, s);
   }
+  if (route != 0) return cudaErrorInvalidValue;
   dim3 block(BZ, BY);
   dim3 grid = grid_of(g, 1);
   cudaError_t err;
@@ -576,21 +600,25 @@ cudaError_t launch_incr_gs(const float* x, const float* r, const float* eps,
 
 extern "C" {
 
-// the length of each half of the norm partials buffer of wlt_incr_gs (mp
-// = 0) or wlt_incr_gs_mp (mp = 1) with ncolors colours: the blocks of the
-// grid that the call's route launches, or -1 on an error
-int64_t wlt_incr_gs_partials(int64_t nx, int64_t ny, int64_t nz, int ncolors,
-                             int mp) {
-  Grid3 g = make_grid(nx, ny, nz);
-  if (incr_gs_tiled(ncolors, mp != 0)) return incr_gs_tile_blocks(g, ncolors);
-  dim3 gr = grid_of(g, 1);
-  return (int64_t)gr.x * gr.y * gr.z;
+// 1 if wlt_incr_gs (mp = 0) or wlt_incr_gs_mp (mp = 1) with ncolors
+// colours on this shape takes the cascade, 0 if it takes K6 or the
+// per-colour launches (which need the e scratch field)
+int wlt_incr_gs_route(int64_t nx, int64_t ny, int64_t nz, int ncolors,
+                      int mp) {
+  return incr_gs_route(make_grid(nx, ny, nz), ncolors, mp != 0);
 }
 
-// 1 if wlt_incr_gs (mp = 0) or wlt_incr_gs_mp (mp = 1) with ncolors
-// colours takes the per-colour route, which needs the e scratch field
-int wlt_incr_gs_scratch(int ncolors, int mp) {
-  return ncolors > 0 && !incr_gs_tiled(ncolors, mp != 0);
+// the length of each half of the norm partials buffer of wlt_incr_gs (mp
+// = 0) or wlt_incr_gs_mp (mp = 1) with ncolors colours on `route`: the
+// blocks of the grid that the route and form launch, or -1 on an error
+int64_t wlt_incr_gs_partials(int64_t nx, int64_t ny, int64_t nz, int ncolors,
+                             int mp, int route) {
+  Grid3 g = make_grid(nx, ny, nz);
+  if (route == 1)
+    return mp ? incr_gs_tile_blocks<true>(g, ncolors)
+              : incr_gs_tile_blocks<false>(g, ncolors);
+  dim3 gr = grid_of(g, 1);
+  return (int64_t)gr.x * gr.y * gr.z;
 }
 
 int wlt_conv_diff_bdim(const float* u, const float* u0, const float* nu,
@@ -654,14 +682,15 @@ int wlt_div(const float* u, float* div, int64_t nx, int64_t ny, int64_t nz,
   return (int)cudaGetLastError();
 }
 
+// route: as wlt_incr_gs_route gives it
 int wlt_incr_gs(const float* x, const float* r, const float* eps,
                 const float* L, const float* D, const float* iD, float* e,
                 float* x_out, float* r_out, const int* colors, int ncolors,
-                float omega, float* partials, float* norms, int64_t nx,
-                int64_t ny, int64_t nz, void* stream) {
+                float omega, float* partials, float* norms, int route,
+                int64_t nx, int64_t ny, int64_t nz, void* stream) {
   return (int)launch_incr_gs<false>(x, r, eps, L, D, iD, e, x_out, r_out,
                                     colors, ncolors, omega, partials, norms,
-                                    make_grid(nx, ny, nz),
+                                    route, make_grid(nx, ny, nz),
                                     (cudaStream_t)stream);
 }
 
@@ -670,11 +699,11 @@ int wlt_incr_gs(const float* x, const float* r, const float* eps,
 int wlt_incr_gs_mp(const float* x, const float* r, const float* eps,
                    const bf16* L, const bf16* D, const bf16* iD, bf16* e,
                    float* x_out, float* r_out, const int* colors, int ncolors,
-                   float omega, float* partials, float* norms, int64_t nx,
-                   int64_t ny, int64_t nz, void* stream) {
+                   float omega, float* partials, float* norms, int route,
+                   int64_t nx, int64_t ny, int64_t nz, void* stream) {
   return (int)launch_incr_gs<true>(x, r, eps, L, D, iD, e, x_out, r_out,
                                    colors, ncolors, omega, partials, norms,
-                                   make_grid(nx, ny, nz),
+                                   route, make_grid(nx, ny, nz),
                                    (cudaStream_t)stream);
 }
 

@@ -16,6 +16,26 @@
 // periodic images (below).  The colour sweeps, the schedule and the rings
 // are the same for every form.
 //
+// MP (a template parameter; K7 and K15 only, the smoothers' bf16 forms,
+// pallas_flat.py:805-860, 935-1005): L, D and iD are bf16 and every
+// operation of e is a bf16 operation, rounded where the plain versions
+// (stencil3d._mp_sweeps, _mp_mult) round.  They round a float32 result to
+// bf16; the card's bf16 instructions round the exact result once, which is
+// the same number for bf16 operands: a product of two bf16 values is exact
+// in float32, and for a sum float32 carries more than 2 x 8 + 1 bits, so
+// its rounding before the one to bf16 changes nothing (double rounding is
+// innocuous).  So the sweeps and A e use the bf16 instructions (the _rn
+// forms, never contracted into a fused multiply-add), one instruction an
+// operation.  K7's r1 = r - w A eps is float32 from the float32 eps and the
+// bf16 coefficients, each operation rounded on its own; the sweeps read a
+// bf16 rounding of r1 (K15: of r); x', r' and the norms are float32.  The
+// e, L and iD rings are bf16 (133 KB a block for K7 at IT = 4, 113 for K15,
+// against 212 and 193), r (K7: r1) and eps stay float32.  The loads are the
+// float32 form's, one a cell (PERF.md section 6: a float32 operation and a
+// conversion for each bf16 one made the form 1.7x slower; loading each pair
+// of cells as one float2 / bf16x2 made it slower too).  The float32
+// instantiations keep their code.
+//
 // What bounds it on an H100: K7 must move 40 B/cell (x, r, eps, L (3), D, iD
 // in, x', r' out; 0.205 ms at 258^3 at 3.35 TB/s), K15 36 B (0.185 ms), K13
 // 28 B (eps, r, L (3), iD in, eps' out; 0.144 ms), for ~13 flops a cell and
@@ -125,20 +145,34 @@ struct RbShape {
                        O_L2 = 3 * NE * PP, O_R1 = 4 * NE * PP,
                        O_ID = O_R1 + NR * PP, O_EPS = O_ID + NR * PP;
   static constexpr int NLD = (PP + NT - 1) / NT;     // eps loads a thread
+  // MP: r1 (float, NR planes at float 0), the bf16 rings from float M_B (e,
+  // L0, L1, L2 as above, iD at bf16 M_ID), K7's eps (float, from M_EPS)
+  static constexpr int M_B = NR * PP, M_ID = 4 * NE * PP;
+  static constexpr int M_EPS = M_B + (M_ID + NR * PP) / 2;
+  static_assert(PP % 2 == 0, "a bf16 ring plane fills whole words");
 };
 static_assert(RbShape<RB_MAX_IT>::NT <= 1024, "a block holds every pair");
 
 // dynamic shared memory of a form: the rings, and K7's eps ring
-template <int IT, int FORM>
+template <int IT, int FORM, bool MP = false>
 constexpr int rb_smem() {
   using S = RbShape<IT>;
-  return (S::O_EPS + (FORM == RB_INCR_GS || FORM == RB_INCR_GS_NORMS
-                          ? 4 * S::PP
-                          : 0)) *
+  return ((MP ? S::M_EPS : S::O_EPS) +
+          (FORM == RB_INCR_GS || FORM == RB_INCR_GS_NORMS ? 4 * S::PP : 0)) *
          4;
 }
 static_assert(rb_smem<RB_MAX_IT, RB_INCR_GS>() <= 227 * 1024,
               "the cascade's rings exceed a block's shared memory");
+
+// zero of a ring element
+template <bool MP>
+__device__ __forceinline__ coef_t<MP> rzero() {
+  if constexpr (MP) {
+    return __ushort_as_bfloat16((unsigned short)0);
+  } else {
+    return 0.f;
+  }
+}
 
 __device__ __forceinline__ void cp_async4_zfill(unsigned dst, const float* src,
                                                 int bytes) {
@@ -158,30 +192,34 @@ __device__ __forceinline__ int rb_wrap(int p, int n) {
 // The cascade's body, run by every thread of a block of RbShape<IT>::NT.
 // Colour k of the list is bit k-1 of cmask; per: the periodic directions
 // (RB_SWEEPS only).  K13 writes eps' into x_out.  acc_s, acc_m: this
-// thread's sum and max of |r'| (RB_INCR_GS_NORMS).
-template <int IT, int FORM>
+// thread's sum and max of |r'| (RB_INCR_GS_NORMS).  MP: the bf16 form.
+template <int IT, int FORM, bool MP = false>
 __device__ __forceinline__ void rb_cascade(
     const float* __restrict__ x, const float* __restrict__ r,
-    const float* __restrict__ eps, const float* __restrict__ L,
-    const float* __restrict__ D, const float* __restrict__ iD, float omega,
-    unsigned cmask, unsigned per, int xc, float* __restrict__ x_out,
-    float* __restrict__ r_out, float& acc_s, float& acc_m, const Grid3& g) {
+    const float* __restrict__ eps, const coef_t<MP>* __restrict__ L,
+    const coef_t<MP>* __restrict__ D, const coef_t<MP>* __restrict__ iD,
+    float omega, unsigned cmask, unsigned per, int xc,
+    float* __restrict__ x_out, float* __restrict__ r_out, float& acc_s,
+    float& acc_m, const Grid3& g) {
   using S = RbShape<IT>;
   constexpr bool K7 = FORM == RB_INCR_GS || FORM == RB_INCR_GS_NORMS;
   constexpr bool SW = FORM == RB_SWEEPS;
+  static_assert(!(MP && SW), "K13 has no bf16 form");
   constexpr int H = S::H, W2 = S::W2, PP = S::PP, NE = S::NE, NR = S::NR;
   constexpr int NT = S::NT, NLD = S::NLD;
+  using RT = coef_t<MP>;          // e, L and iD in the rings
   extern __shared__ __align__(16) float rb_smem_[];
-  float* const E = rb_smem_;
-  float* const A0 = rb_smem_ + S::O_L0;
-  float* const A1 = rb_smem_ + S::O_L1;
-  float* const A2 = rb_smem_ + S::O_L2;
-  float* const R1 = rb_smem_ + S::O_R1;
-  float* const AI = rb_smem_ + S::O_ID;
-  const float* const EP = rb_smem_ + S::O_EPS;
-  const float* const L0 = L;
-  const float* const L1 = L + g.n;
-  const float* const L2 = L + 2 * g.n;
+  RT* const E = reinterpret_cast<RT*>(rb_smem_ + (MP ? S::M_B : 0));
+  RT* const A0 = E + S::O_L0;
+  RT* const A1 = E + S::O_L1;
+  RT* const A2 = E + S::O_L2;
+  float* const R1 = rb_smem_ + (MP ? 0 : S::O_R1);
+  RT* const AI =
+      MP ? E + S::M_ID : reinterpret_cast<RT*>(rb_smem_ + S::O_ID);
+  const float* const EP = rb_smem_ + (MP ? S::M_EPS : S::O_EPS);
+  const coef_t<MP>* const L0 = L;
+  const coef_t<MP>* const L1 = L + g.n;
+  const coef_t<MP>* const L2 = L + 2 * g.n;
   const int64_t sx = g.sx, sy = g.sy;
   const int tid = threadIdx.x;
   const int y0 = 1 + blockIdx.y * RB_TY, z0 = 1 + blockIdx.x * RB_TZ;
@@ -245,8 +283,7 @@ __device__ __forceinline__ void rb_cascade(
                            ? yy * g.nz + zz
                            : -1);
   }
-  const unsigned eps_s =
-      (unsigned)__cvta_generic_to_shared(rb_smem_ + S::O_EPS);
+  const unsigned eps_s = (unsigned)__cvta_generic_to_shared(EP);
   const auto load_eps = [&](int p, int slot) {
     const bool pin = p >= 0 && p < g.nx;
     const float* base = eps + (int64_t)(pin ? p : 0) * sx;
@@ -269,7 +306,8 @@ __device__ __forceinline__ void rb_cascade(
   for (int j = 0; j < NE; ++j) eb[j] = ((NE + 1 - j) % NE) * PP;
 #pragma unroll
   for (int j = 0; j < NR; ++j) rb[j] = ((NR + 1 - j) % NR) * PP;
-  for (int i = tid; i < S::O_EPS; i += NT) rb_smem_[i] = 0.f;
+  for (int i = tid; i < (MP ? S::M_EPS : S::O_EPS); i += NT)
+    rb_smem_[i] = 0.f;
   if (K7) {
     load_eps(t0, 0);
     load_eps(t0 + 1, 1);
@@ -290,9 +328,10 @@ __device__ __forceinline__ void rb_cascade(
     const int x0 = px ? rb_wrap(p0, g.nx) : p0;
     const bool s0 = x0 >= 0 && x0 < g.nx && p0 <= xb + IT;
     const bool s0in = x0 >= 1 && x0 <= g.nx - 2;
-    float q_r[2], q_d[2], q_id[2], q_l0[2], q_l0p[2], q_l1[2], q_l1p[2],
-        q_l2[3], q_e[2];
+    float q_r[2], q_e[2];
+    RT q_d[2], q_id[2], q_l0[2], q_l0p[2], q_l1[2], q_l1p[2], q_l2[3];
     {
+      const RT z = rzero<MP>();
       const int64_t c = (int64_t)(s0 ? x0 : 0) * sx;
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
@@ -300,33 +339,34 @@ __device__ __forceinline__ void rb_cascade(
         const bool f = s0 && (fl >> (5 + j) & 1u);
         const int64_t cj = c + so[j];
         q_r[j] = in ? r[cj] : 0.f;
-        if (K7) q_d[j] = in ? D[cj] : 0.f;
-        q_id[j] = in ? iD[cj] : 0.f;
-        q_l0[j] = f ? L0[cj] : 0.f;
-        if (K7) q_l0p[j] = in ? L0[cj + sx] : 0.f;
-        q_l1[j] = f ? L1[cj] : 0.f;
-        if (K7) q_l1p[j] = in ? L1[cj + sy] : 0.f;
-        q_l2[j] = f ? L2[cj] : 0.f;
+        if (K7) q_d[j] = in ? D[cj] : z;
+        q_id[j] = in ? iD[cj] : z;
+        q_l0[j] = f ? L0[cj] : z;
+        if (K7) q_l0p[j] = in ? L0[cj + sx] : z;
+        q_l1[j] = f ? L1[cj] : z;
+        if (K7) q_l1p[j] = in ? L1[cj + sy] : z;
+        q_l2[j] = f ? L2[cj] : z;
         if (SW) q_e[j] = f ? eps[cj] : 0.f;
       }
-      if (K7) q_l2[2] = s0in && (fl & 2u) ? L2[c + so[1] + 1] : 0.f;
+      if (K7) q_l2[2] = s0in && (fl & 2u) ? L2[c + so[1] + 1] : z;
     }
     // ---- the tail's global reads (plane q)
     const int q = t - IT - 1;
     const bool tail = q >= xa && q < xb;
     const bool qin = q >= 1 && q <= g.nx - 2;
     const int64_t cq = (int64_t)(tail ? q : 0) * sx + goff;
-    float t_x[2], t_r[2], t_e[2], t_d[2];
+    float t_x[2], t_r[2], t_e[2];
+    RT t_d[2];
     if (!SW) {
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const bool w = tail && (fl >> (2 + j) & 1u);
         const bool in = w && qin && (fl >> j & 1u);
         t_x[j] = w ? x[cq + j] : 0.f;
-        // K15 reads r at the interior from its ring
-        t_r[j] = (K7 ? w : w && !in) ? r[cq + j] : 0.f;
+        // K15 and the bf16 K7 read r at the interior from its ring
+        t_r[j] = (K7 && !MP ? w : w && !in) ? r[cq + j] : 0.f;
         if (K7) t_e[j] = in ? eps[cq + j] : 0.f;
-        t_d[j] = in ? D[cq + j] : 0.f;
+        t_d[j] = in ? D[cq + j] : rzero<MP>();
       }
     }
     // ---- stages 1..IT: the k-th colour on plane t-k, in place (K13 with x
@@ -347,11 +387,22 @@ __device__ __forceinline__ void rb_cascade(
           const int sn = eb[k] + o;
           const int sr = rb[(k + 1) % NR] + o;
           const int zm = b + (off ? o0 : o1 - 1), zp = b + (off ? o0 + 1 : o1);
-          float v = R1[sr];
-          v = v - (E[sm] * A0[sc] + E[sn] * A0[sn]);
-          v = v - (E[sc - W2] * A1[sc] + E[sc + W2] * A1[sc + W2]);
-          v = v - (E[zm] * A2[sc] + E[zp] * A2[zp]);
-          E[sc] = v * AI[sr];
+          if constexpr (MP) {
+            bf16 v = __float2bfloat16_rn(R1[sr]);
+            v = __hsub_rn(v, __hadd_rn(__hmul_rn(E[sm], A0[sc]),
+                                       __hmul_rn(E[sn], A0[sn])));
+            v = __hsub_rn(v, __hadd_rn(__hmul_rn(E[sc - W2], A1[sc]),
+                                       __hmul_rn(E[sc + W2], A1[sc + W2])));
+            v = __hsub_rn(v, __hadd_rn(__hmul_rn(E[zm], A2[sc]),
+                                       __hmul_rn(E[zp], A2[zp])));
+            E[sc] = __hmul_rn(v, AI[sr]);
+          } else {
+            float v = R1[sr];
+            v = v - (E[sm] * A0[sc] + E[sn] * A0[sn]);
+            v = v - (E[sc - W2] * A1[sc] + E[sc + W2] * A1[sc + W2]);
+            v = v - (E[zm] * A2[sc] + E[zp] * A2[zp]);
+            E[sc] = v * AI[sr];
+          }
         }
       }
     }
@@ -363,22 +414,39 @@ __device__ __forceinline__ void rb_cascade(
       for (int j = 0; j < 2; ++j) {
         if (fl >> (2 + j) & 1u) {
           const int sc = bc + oc[j];
-          if (SW) {
+          if constexpr (SW) {
             x_out[cq + j] = E[sc];
             continue;
           }
           float xv = t_x[j], rq = t_r[j];
           if (qin && (fl >> j & 1u)) {
-            const float e = E[sc];
-            float a = e * t_d[j];
-            a = a + E[bm + oc[j]] * A0[sc];
-            a = a + E[bn + oc[j]] * A0[bn + oc[j]];
-            a = a + E[sc - W2] * A1[sc];
-            a = a + E[sc + W2] * A1[sc + W2];
-            a = a + E[bc + om[j]] * A2[sc];
-            a = a + E[bc + op[j]] * A2[bc + op[j]];
-            xv = xv + omega * (K7 ? t_e[j] + e : e);
-            rq = R1[br + oc[j]] - omega * a;
+            if constexpr (MP) {
+              const bf16 e = E[sc];
+              const int sm = bm + oc[j], sn = bn + oc[j];
+              const int zm = bc + om[j], zp = bc + op[j];
+              bf16 a = __hmul_rn(e, t_d[j]);
+              a = __hadd_rn(__hadd_rn(a, __hmul_rn(E[sm], A0[sc])),
+                            __hmul_rn(E[sn], A0[sn]));
+              a = __hadd_rn(__hadd_rn(a, __hmul_rn(E[sc - W2], A1[sc])),
+                            __hmul_rn(E[sc + W2], A1[sc + W2]));
+              a = __hadd_rn(__hadd_rn(a, __hmul_rn(E[zm], A2[sc])),
+                            __hmul_rn(E[zp], A2[zp]));
+              const float ef = fb(e);
+              const float ex = K7 ? __fadd_rn(t_e[j], ef) : ef;
+              xv = __fadd_rn(xv, __fmul_rn(omega, ex));
+              rq = __fsub_rn(R1[br + oc[j]], __fmul_rn(omega, fb(a)));
+            } else {
+              const float e = E[sc];
+              float a = e * t_d[j];
+              a = a + E[bm + oc[j]] * A0[sc];
+              a = a + E[bn + oc[j]] * A0[bn + oc[j]];
+              a = a + E[sc - W2] * A1[sc];
+              a = a + E[sc + W2] * A1[sc + W2];
+              a = a + E[bc + om[j]] * A2[sc];
+              a = a + E[bc + op[j]] * A2[bc + op[j]];
+              xv = xv + omega * (K7 ? t_e[j] + e : e);
+              rq = R1[br + oc[j]] - omega * a;
+            }
           }
           x_out[cq + j] = xv;
           r_out[cq + j] = rq;
@@ -397,21 +465,39 @@ __device__ __forceinline__ void rb_cascade(
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int o = oc[j];
-        float rv = q_r[j], v = 0.f;
-        if (SW) {
+        float rv = q_r[j];
+        RT v = rzero<MP>();
+        if constexpr (SW) {
           v = q_e[j];
-        } else if (!K7) {
-          v = rv * q_id[j];                       // 0 off the interior
+        } else if constexpr (!K7) {
+          // 0 off the interior
+          if constexpr (MP) {
+            v = __hmul_rn(__float2bfloat16_rn(rv), q_id[j]);
+          } else {
+            v = rv * q_id[j];
+          }
         } else if (s0in && (fl >> j & 1u)) {
-          float a = pc[o] * q_d[j];
-          a = a + pm[o] * q_l0[j];
-          a = a + pp[o] * q_l0p[j];
-          a = a + pc[o - W2] * q_l1[j];
-          a = a + pc[o + W2] * q_l1p[j];
-          a = a + pc[om[j]] * q_l2[j];
-          a = a + pc[op[j]] * q_l2[j + 1];
-          rv = rv - omega * a;
-          v = rv * q_id[j];
+          if constexpr (MP) {
+            float a = __fmul_rn(pc[o], fb(q_d[j]));
+            a = __fadd_rn(a, __fmul_rn(pm[o], fb(q_l0[j])));
+            a = __fadd_rn(a, __fmul_rn(pp[o], fb(q_l0p[j])));
+            a = __fadd_rn(a, __fmul_rn(pc[o - W2], fb(q_l1[j])));
+            a = __fadd_rn(a, __fmul_rn(pc[o + W2], fb(q_l1p[j])));
+            a = __fadd_rn(a, __fmul_rn(pc[om[j]], fb(q_l2[j])));
+            a = __fadd_rn(a, __fmul_rn(pc[op[j]], fb(q_l2[j + 1])));
+            rv = __fsub_rn(rv, __fmul_rn(omega, a));
+            v = __hmul_rn(__float2bfloat16_rn(rv), q_id[j]);
+          } else {
+            float a = pc[o] * q_d[j];
+            a = a + pm[o] * q_l0[j];
+            a = a + pp[o] * q_l0p[j];
+            a = a + pc[o - W2] * q_l1[j];
+            a = a + pc[o + W2] * q_l1p[j];
+            a = a + pc[om[j]] * q_l2[j];
+            a = a + pc[op[j]] * q_l2[j + 1];
+            rv = rv - omega * a;
+            v = rv * q_id[j];
+          }
         }
         E[bc + o] = v;
         A0[bc + o] = q_l0[j];

@@ -192,13 +192,14 @@ __global__ void mult_kernel(const float* __restrict__ x,
 //   eps = r iD (zero ghosts); per colour: eps[colour cells] = gauss(eps);
 //   x += w eps; r -= w A eps.
 // Routes, chosen from the arguments and the shape (gs_incr_route):
-// * float32 with 1 to RB_MAX_IT colours on a level of at least
-//   GS_INCR_TILE_MIN_CELLS cells: one launch of the tiled cascade
-//   (rb_cascade.cuh, form RB_GS_INCR: stage 0 forms e0 = r iD, the tail x',
-//   r'), which must move x, r, L (3), D, iD in and x', r' out: 36 B/cell,
-//   0.185 ms at 258^3 at the roofline.
-// * Jacobi (no colours), more colours, bf16 and smaller levels: one launch
-//   per colour plus one increment launch.  The colour sweep updates eps in
+// * 1 to RB_MAX_IT colours on a level of at least GS_INCR_TILE_MIN_CELLS
+//   cells (bf16: any level): one launch of the tiled cascade
+//   (rb_cascade.cuh, form RB_GS_INCR, MP for bf16: stage 0 forms e0 = r
+//   iD, the tail x', r'), which must move x, r, L (3), D, iD in and x', r'
+//   out: 36 B/cell, 0.185 ms at 258^3 at the roofline (bf16: 26 B/cell,
+//   0.133 ms).
+// * Jacobi (no colours), more colours and smaller float32 levels: one
+//   launch per colour plus one increment launch.  The colour sweep updates eps in
 //   place: a cell's 6 neighbours all have the other colour, so no thread
 //   reads a value another thread of the same launch writes.  Bytes: init
 //   12 B/cell; a sweep reads r, iD, L (3), eps and writes half of eps:
@@ -221,35 +222,43 @@ __global__ void mult_kernel(const float* __restrict__ x,
 // reads it, A eps is accumulated in bf16, and x += w eps, r -= w A eps are
 // float32.  Jacobi must move x, r in and out (16 B) and the five bf16
 // coefficients (10 B): 26 B/cell against 36 in float32, 0.13 ms at 258^3.
+// The bf16 cascade has no size rule: with half the per-colour bytes to beat
+// it still won at every level of the 258^3 and drag stacks down to 34^3
+// (device time, 2 colours, cascade against per-colour, one call on an
+// H100, PERF.md section 6: 258^3 0.320 / 0.535 ms, 130^3 0.051 / 0.073,
+// 66^3 0.0160 / 0.0174, 162x66x66 0.0227 / 0.0277, 34^3 0.0086 / 0.0113);
+// it lost only where the z extent fills half of its last tile (82^3 0.0233
+// / 0.0215, 50^3 0.0150 / 0.0130), sizes no level of those stacks has.
 constexpr int64_t GS_INCR_TILE_MIN_CELLS = 500000;
 
-template <int IT>
+template <int IT, bool MP>
 __global__ void __launch_bounds__(RbShape<IT>::NT, 1)
     gs_incr_tile_kernel(const float* __restrict__ x,
                         const float* __restrict__ r,
-                        const float* __restrict__ L,
-                        const float* __restrict__ D,
-                        const float* __restrict__ iD, float omega,
+                        const coef_t<MP>* __restrict__ L,
+                        const coef_t<MP>* __restrict__ D,
+                        const coef_t<MP>* __restrict__ iD, float omega,
                         unsigned cmask, int xc, float* __restrict__ x_out,
                         float* __restrict__ r_out, Grid3 g) {
   float acc_s = 0.f, acc_m = 0.f;
-  rb_cascade<IT, RB_GS_INCR>(x, r, nullptr, L, D, iD, omega, cmask, 0u, xc,
-                             x_out, r_out, acc_s, acc_m, g);
+  rb_cascade<IT, RB_GS_INCR, MP>(x, r, nullptr, L, D, iD, omega, cmask, 0u,
+                                 xc, x_out, r_out, acc_s, acc_m, g);
 }
 
-template <int IT>
-cudaError_t launch_gs_incr_it(const float* x, const float* r, const float* L,
-                              const float* D, const float* iD, float omega,
+template <int IT, bool MP>
+cudaError_t launch_gs_incr_it(const float* x, const float* r,
+                              const coef_t<MP>* L, const coef_t<MP>* D,
+                              const coef_t<MP>* iD, float omega,
                               unsigned cmask, float* x_out, float* r_out,
                               const Grid3& g, cudaStream_t s) {
   static int slots = 0;
-  constexpr int smem = rb_smem<IT, RB_GS_INCR>();
+  constexpr int smem = rb_smem<IT, RB_GS_INCR, MP>();
   dim3 grid;
   int xc;
-  cudaError_t err =
-      rb_cascade_grid<IT>(gs_incr_tile_kernel<IT>, smem, slots, g, grid, xc);
+  cudaError_t err = rb_cascade_grid<IT>(gs_incr_tile_kernel<IT, MP>, smem,
+                                        slots, g, grid, xc);
   if (err != cudaSuccess) return err;
-  gs_incr_tile_kernel<IT><<<grid, RbShape<IT>::NT, smem, s>>>(
+  gs_incr_tile_kernel<IT, MP><<<grid, RbShape<IT>::NT, smem, s>>>(
       x, r, L, D, iD, omega, cmask, xc, x_out, r_out, g);
   return cudaGetLastError();
 }
@@ -261,13 +270,13 @@ __host__ unsigned color_mask(const int* colors, int ncolors) {
   return cmask;
 }
 
-__host__ bool gs_incr_tile_ok(int ncolors, bool mp) {
-  return !mp && ncolors >= 1 && ncolors <= RB_MAX_IT;
+__host__ bool gs_incr_tile_ok(int ncolors) {
+  return ncolors >= 1 && ncolors <= RB_MAX_IT;
 }
 
 // 1: the cascade, 0: the per-colour launches
 __host__ int gs_incr_route(const Grid3& g, int ncolors, bool mp) {
-  return gs_incr_tile_ok(ncolors, mp) && g.n >= GS_INCR_TILE_MIN_CELLS;
+  return gs_incr_tile_ok(ncolors) && (mp || g.n >= GS_INCR_TILE_MIN_CELLS);
 }
 
 template <bool MP>
@@ -362,7 +371,7 @@ __global__ void increment_kernel(const float* __restrict__ x,
   }
 }
 
-// route: 1 the cascade (float32, 1 to RB_MAX_IT colours), 0 the per-colour
+// route: 1 the cascade (1 to RB_MAX_IT colours), 0 the per-colour
 // launches, which need the eps scratch
 template <bool MP>
 cudaError_t launch_gs_incr(const float* x, const float* r, const coef_t<MP>* L,
@@ -371,22 +380,19 @@ cudaError_t launch_gs_incr(const float* x, const float* r, const coef_t<MP>* L,
                            const int* colors, int ncolors, float omega,
                            int route, const Grid3& g, cudaStream_t s) {
   if (route == 1) {
-    if constexpr (!MP) {
-      const unsigned cm = color_mask(colors, ncolors);
-#define WLT_GS_CASE(IT)                                                   \
-  case IT:                                                                \
-    return launch_gs_incr_it<IT>(x, r, L, D, iD, omega, cm, x_out, r_out, \
-                                 g, s)
-      switch (ncolors) {
-        WLT_GS_CASE(1);
-        WLT_GS_CASE(2);
-        WLT_GS_CASE(3);
-        WLT_GS_CASE(4);
-        default: break;
-      }
-#undef WLT_GS_CASE
+    const unsigned cm = color_mask(colors, ncolors);
+#define WLT_GS_CASE(IT)                                                    \
+  case IT:                                                                 \
+    return launch_gs_incr_it<IT, MP>(x, r, L, D, iD, omega, cm, x_out,     \
+                                     r_out, g, s)
+    switch (ncolors) {
+      WLT_GS_CASE(1);
+      WLT_GS_CASE(2);
+      WLT_GS_CASE(3);
+      WLT_GS_CASE(4);
+      default: return cudaErrorInvalidValue;
     }
-    return cudaErrorInvalidValue;
+#undef WLT_GS_CASE
   }
   if (route != 0) return cudaErrorInvalidValue;
   dim3 block(BZ, BY);
@@ -558,8 +564,7 @@ int wlt_gs_incr_route(int64_t nx, int64_t ny, int64_t nz, int ncolors,
 }
 
 // eps: scratch field of the per-colour route (unused with no colours);
-// route: as wlt_gs_incr_route gives it (1 needs float32 and 1 to
-// RB_MAX_IT colours)
+// route: as wlt_gs_incr_route gives it (1 needs 1 to RB_MAX_IT colours)
 int wlt_gs_incr(const float* x, const float* r, const float* L,
                 const float* D, const float* iD, float* eps, float* x_out,
                 float* r_out, const int* colors, int ncolors, float omega,
@@ -571,7 +576,7 @@ int wlt_gs_incr(const float* x, const float* r, const float* L,
 }
 
 // the mixed-precision instantiation: L, D, iD and the eps scratch are
-// bf16; route 0
+// bf16; route as wlt_gs_incr_route gives it
 int wlt_gs_incr_mp(const float* x, const float* r, const bf16* L,
                    const bf16* D, const bf16* iD, bf16* eps, float* x_out,
                    float* r_out, const int* colors, int ncolors, float omega,

@@ -56,7 +56,7 @@ _SIGNATURES = {
                    _I64, _I64, _I64, _P],
     "wlt_incr_gs": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                     ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-                    _F, _P, _P, _I64, _I64, _I64, _P],
+                    _F, _P, _P, ctypes.c_int, _I64, _I64, _I64, _P],
     "wlt_gauss_sweeps": [_P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_int),
                          ctypes.c_int, ctypes.POINTER(ctypes.c_int),
                          ctypes.c_int, ctypes.c_int, _I64, _I64, _I64, _P],
@@ -158,11 +158,10 @@ def load() -> ctypes.CDLL:
     lib.wlt_error_string.argtypes = [ctypes.c_int]
     lib.wlt_error_string.restype = ctypes.c_char_p
     lib.wlt_incr_gs_partials.argtypes = [_I64, _I64, _I64, ctypes.c_int,
-                                         ctypes.c_int]
+                                         ctypes.c_int, ctypes.c_int]
     lib.wlt_incr_gs_partials.restype = _I64
-    lib.wlt_incr_gs_scratch.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.wlt_incr_gs_scratch.restype = ctypes.c_int
-    for name in ("wlt_gs_incr_route", "wlt_gauss_sweeps_route"):
+    for name in ("wlt_incr_gs_route", "wlt_gs_incr_route",
+                 "wlt_gauss_sweeps_route"):
         fn = getattr(lib, name)
         fn.argtypes = [_I64, _I64, _I64, ctypes.c_int, ctypes.c_int]
         fn.restype = ctypes.c_int

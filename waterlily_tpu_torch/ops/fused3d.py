@@ -45,9 +45,9 @@ import torch
 from .bc import bc_vector
 from .grid import inside_mask, interior, shift, zero_ghost
 from .poisson import norms
-from .stencil3d import (BF16, SCHEMES, _bf16, _check, _launch, _lead,
-                        _lib, _mp_mult, _mp_sweeps, _ptr, _rb_sweeps, _stream,
-                        conv_diff_plain, mult_plain, plain_route)
+from .stencil3d import (BF16, PER_COLOUR, SCHEMES, _bf16, _check, _launch,
+                        _lead, _lib, _mp_mult, _mp_sweeps, _ptr, _rb_sweeps,
+                        _stream, conv_diff_plain, mult_plain, plain_route)
 
 __all__ = [
     "conv_diff_bdim_plain", "incr_gs_plain", "bc_div_plain", "projbc_plain",
@@ -215,17 +215,25 @@ def conv_diff_bdim_k(u, u0, nu, dt: float, keep_base: float, scale: float,
 
 def incr_gs_k(x, r, eps, L, D, iD, colors: Sequence[int], omega: float,
               want_norms: bool = False, mp: bool = False):
-    """K7 (K6 with no colours): `incr_gs_plain` as one kernel entry.  In
-    float32 with 1 to 4 colours it is one launch of the tiled cascade (and
-    with ``want_norms`` the fold of its per-block norm partials); with no
-    colours one pass; with more than 4 colours, and with ``mp``, a head
-    pass, a sweep per colour, a tail pass and the fold (the route is chosen
-    by ``len(colors)`` and ``mp``, see `csrc/fused3d.cu`).  ``mp`` launches
-    the mixed-precision instantiation on bf16 ``L``, ``D``, ``iD`` with a
-    bf16 scratch.  Returns ``(x′, r′)`` or ``(x′, r′, norms)`` with
-    ``norms = [Σ|r′|, max|r′|]`` on the card."""
+    """K7 (K6 with no colours): `incr_gs_plain` as one kernel entry.  With
+    1 to 4 colours it is one launch of the tiled cascade (and with
+    ``want_norms`` the fold of its per-block norm partials); with no colours
+    one pass; with more than 4 colours, and with ``mp`` on a level below
+    the bf16 cascade's size rule, a head pass, a sweep per colour, a tail
+    pass and the fold (the C side picks the route from the shape and the
+    arguments, `wlt_incr_gs_route`).  ``mp`` launches the mixed-precision
+    instantiation on bf16 ``L``, ``D``, ``iD``.  Returns ``(x′, r′)`` or
+    ``(x′, r′, norms)`` with ``norms = [Σ|r′|, max|r′|]`` on the card."""
     if not x.is_cuda or plain_route("incr_gs_mp_k" if mp else "incr_gs_k"):
         return incr_gs_plain(x, r, eps, L, D, iD, colors, omega, want_norms, mp)
+    return _incr_gs_launch(x, r, eps, L, D, iD, colors, omega, want_norms, mp)
+
+
+def _incr_gs_launch(x, r, eps, L, D, iD, colors, omega, want_norms=False,
+                    mp=False, route=None):
+    """`incr_gs_k` on the card, on the route the shape gives (``route``
+    None) or on the one named (`PER_COLOUR`, `CASCADE`), which the kernel
+    tests and the bench tool use to hold and time both routes."""
     shape = tuple(x.shape)
     name = "incr_gs_mp_k" if mp else "incr_gs_k"
     cdt = BF16 if mp else torch.float32
@@ -242,14 +250,15 @@ def incr_gs_k(x, r, eps, L, D, iD, colors: Sequence[int], omega: float,
                          "increment alone is float32)")
     carr = (ctypes.c_int * max(1, len(cols)))(*cols)
     lib = _lib()
+    if route is None:
+        route = lib.wlt_incr_gs_route(*shape, len(cols), int(mp))
     # the per-colour route's scratch; the cascade and K6 take none
-    scratch = lib.wlt_incr_gs_scratch(len(cols), int(mp))
-    e = torch.empty_like(x, dtype=cdt) if scratch else x
+    e = torch.empty_like(x, dtype=cdt) if cols and route == PER_COLOUR else x
     x_out, r_out = torch.empty_like(x), torch.empty_like(r)
     partials = nv = None
     if want_norms:
         # one sum and one max per block of the grid this route launches
-        nb = lib.wlt_incr_gs_partials(*shape, len(cols), int(mp))
+        nb = lib.wlt_incr_gs_partials(*shape, len(cols), int(mp), route)
         if nb <= 0:
             raise RuntimeError(f"{name}: the cascade's grid could not be "
                                "sized on this device")
@@ -260,7 +269,7 @@ def incr_gs_k(x, r, eps, L, D, iD, colors: Sequence[int], omega: float,
             _ptr(D), _ptr(iD), _ptr(e), _ptr(x_out), _ptr(r_out), carr, len(cols),
             ctypes.c_float(float(omega)),
             None if partials is None else _ptr(partials),
-            None if nv is None else _ptr(nv), *shape, _stream(x.device))
+            None if nv is None else _ptr(nv), route, *shape, _stream(x.device))
     return (x_out, r_out, nv) if want_norms else (x_out, r_out)
 
 

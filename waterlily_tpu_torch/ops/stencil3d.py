@@ -528,7 +528,8 @@ def mult_k(x: torch.Tensor, L: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
     return out
 
 
-# the routes of `gs_incr_k` and `gauss_sweeps_k`, as the C side names them
+# the routes of `gs_incr_k`, `gauss_sweeps_k` and `fused3d.incr_gs_k`, as the
+# C side names them
 PER_COLOUR, CASCADE = 0, 1
 
 
@@ -544,10 +545,11 @@ def gs_incr_k(x, r, L, D, iD, colors: Sequence[int], omega: float,
     """K15: red-black sweeps + increment (`gs_incr_plain`); ``colors=[]``
     is the Jacobi smoother.  ``mp`` launches the mixed-precision
     instantiation (K4/K5 with ``mp=True``) on bf16 ``L``, ``D``, ``iD`` with
-    a bf16 scratch.  Float32 with 1–4 colours on a large level is one launch
-    of the tiled cascade, the rest a launch per colour: the C side picks the
-    route from the shape and the arguments (`wlt_gs_incr_route`).  Returns
-    new ``(x, r)``."""
+    a bf16 scratch on the per-colour route.  1–4 colours on a large level
+    (float32 or bf16, each with its own size rule) are one launch of the
+    tiled cascade, the rest a launch per colour: the C side picks the route
+    from the shape and the arguments (`wlt_gs_incr_route`).  Returns new
+    ``(x, r)``."""
     if not x.is_cuda:
         return gs_incr_plain(x, r, L, D, iD, colors, omega, mp)
     return _gs_incr_launch(x, r, L, D, iD, colors, omega, mp)
