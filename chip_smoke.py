@@ -49,6 +49,10 @@ Phases (each prints its own lines; any failure exits non-zero):
       the route each bf16 smoother call took on each level (the bf16 K7
       on 258³ and K5 on 130³ and 66³ must take their cascades);
    g. ``probe``: ``tools/bandwidth_probe.py``'s copy and launch-cost probes;
+   h. ``launch``: ``tools/launch_cost.py``'s table, the host µs per call of
+      every wrapper on an 18³ level (the copies on 8³ fields) beside
+      ``torch.mul``'s on the same tensors, the pieces of a launch and the
+      floor of a launch from a C loop;
 5. at small size, 5 steps compared after each (every step's figures are
    printed; held after step 5 to 1e-4·max|u|, 1e-3·max|p| and iteration
    counts within one unless said otherwise): the flat engine with the
@@ -76,9 +80,10 @@ Phases (each prints its own lines; any failure exits non-zero):
    c. against float32 smoothing (``sphere-s2``), for the record.
 
 Before its last line it prints one JSON object with each kernel's launches
-(summed over the phase-4 runs), error, times and bound, and the card's name
-and power limit; the last line is ``{"ok": true, "device": {...}}``.  Needs
-no JAX and no network.
+(summed over the phase-4 runs a-g), error, times, bound, host µs per call
+and the launches of the 4h table (``tool_launches``, kept out of
+``launches``), and the card's name and power limit; the last line is
+``{"ok": true, "device": {...}}``.  Needs no JAX and no network.
 """
 from __future__ import annotations
 
@@ -252,7 +257,20 @@ PATH_KERNELS = {
     ("sphere-s2", "flat"): {"conv_diff_bdim_k", "bdim_k", "mult_k", "gs_incr_k",
                             "incr_gs_k", "bc_div_k", "projbc_k"},
     ("probe", "tool"): {"copy_scale_k", "copy_scale6_k"},
+    # `tools/launch_cost.py` calls every wrapper
+    ("launch", "tool"): set(KERNELS),
 }
+# the row of `tools/launch_cost.py` whose host µs per call each kernel's
+# JSON entry carries: the mode phase 3 times first where the tool has it
+HOST_ROW = {"conv_diff_k": "conv_diff_k", "conv_diff_bdim_k": "conv_diff_bdim_k",
+            "bdim_k": "bdim_k", "bdim_band_k": "bdim_band_k", "mult_k": "mult_k",
+            "gs_incr_k": "gs_incr_k 4 colours",
+            "gauss_sweeps_k": "gauss_sweeps_k 4 colours xyz",
+            "incr_gs_k": "incr_gs_k 4 colours norms", "bc_div_k": "bc_div_k",
+            "projbc_k": "projbc_k cfl", "bc_k": "bc_k", "div_k": "div_k",
+            "gs_incr_mp_k": "gs_incr_k mp 4 colours",
+            "incr_gs_mp_k": "incr_gs_k mp 4 colours norms",
+            "copy_scale_k": "copy_scale_k", "copy_scale6_k": "copy_scale6_k"}
 # (configuration, engine) in the order phase 4 runs them
 MAIN_RUNS = [(c, e) for c in ("sphere", "tgv", "drag", "les", "ramp")
              for e in ("flat", "3d")] + [("sphere-mp", "flat"), ("sphere-s2", "flat")]
@@ -612,7 +630,8 @@ def phase_kernels(torch, np, wt, dev):
                 lib = library_mul_ms(torch, fields)
                 stats[name]["library_ms"] = lib
                 print(f"phase3 time {name} library torch.mul at {fine}: {lib:.4f} "
-                      f"ms per call", flush=True)
+                      f"ms per call; the kernel at 256 threads {stats[name]['ms']:.4f}"
+                      f" ms ({stats[name]['ms'] / lib:.3f} of torch.mul's)", flush=True)
             del u
         torch.cuda.empty_cache()
     check(seen == set(KERNELS), f"phase3: kernels without a case: {set(KERNELS) - seen}")
@@ -915,6 +934,34 @@ def phase_probe(torch, st):
     return dict(counts=counts, rows=rows)
 
 
+def phase_launch(torch, st):
+    """`tools/launch_cost.py`, run through its own entry point with its own
+    launch counts."""
+    path = pathlib.Path(__file__).resolve().parent / "tools" / "launch_cost.py"
+    spec = importlib.util.spec_from_file_location("launch_cost", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    st.reset_launch_counts()
+    res = tool.run()
+    torch.cuda.synchronize()
+    counts = st.launch_counts()
+    tool.report(res)
+    print(f"phase4 launch launch counts {counts}", flush=True)
+    rows = {r["name"]: r for r in res["rows"]}
+    check(set(HOST_ROW.values()) <= set(rows), "phase4 launch: a row is missing")
+    check(all(math.isfinite(v) and v > 0 for r in rows.values()
+              for k, v in r.items() if k.endswith("_us"))
+          and res["c_loop_us"] is not None and res["c_loop_us"] > 0,
+          "phase4 launch: a time is not positive")
+    for k, n in counts.items():
+        check((n > 0) == (k in PATH_KERNELS[("launch", "tool")]),
+              f"phase4 launch: launch count of {k} is {n}")
+    torch.cuda.empty_cache()
+    return dict(counts=counts, rows=rows, c_loop_us=res["c_loop_us"])
+
+
 # ------------------------------------------------------------ phase 5
 SMALL = {"sphere": 64, "tgv": 64, "drag": 64, "les": 64, "ramp": 64,
          "sphere-mp": 64}
@@ -1020,7 +1067,12 @@ def main() -> int:
           f"{b['pois_n']}; peak {a['peak'] / 2**30:.3f} vs {b['peak'] / 2**30:.3f} GiB",
           flush=True)
     runs[("probe", "tool")] = phase_probe(torch, st)
-    check(set(runs) == set(PATH_KERNELS), "phase4: a path was not run")
+    # the launch-cost table calls every wrapper as a microbenchmark: its
+    # counts are checked by its own phase and kept out of `launches`
+    cost = phase_launch(torch, st)
+    host = cost["rows"]
+    check(set(runs) | {("launch", "tool")} == set(PATH_KERNELS),
+          "phase4: a path was not run")
     launches = {k: sum(r["counts"][k] for r in runs.values()) for k in KERNELS}
     check(all(n > 0 for n in launches.values()),
           f"phase4: a kernel was launched by no path: {launches}")
@@ -1032,7 +1084,10 @@ def main() -> int:
                 "launches": launches[k], "max_abs_err": stats[k]["max_abs_err"],
                 "ms": stats[k]["ms"], "plain_ms": stats[k]["plain_ms"],
                 "bound_ms": stats[k]["bound_ms"], "bound_by": stats[k]["bound_by"],
-                "library_ms": stats[k]["library_ms"]}
+                "library_ms": stats[k]["library_ms"],
+                "host_us": host[HOST_ROW[k]]["host_us"],
+                "mul_host_us": host[HOST_ROW[k]]["mul_host_us"],
+                "tool_launches": cost["counts"][k]}
                for k, (_, src, rep, _, _) in KERNELS.items()]
     check(set(st.launch_counts()) == set(KERNELS),
           "the kernels table and the launch counts name different kernels")

@@ -25,7 +25,7 @@ from waterlily_tpu_torch.ops import fused3d as fz
 from waterlily_tpu_torch.ops import poisson as ps
 from waterlily_tpu_torch.ops import probe
 from waterlily_tpu_torch.ops import stencil3d as st
-from waterlily_tpu_torch.ops.bc import bc_vector
+from waterlily_tpu_torch.ops.bc import bc_vector, per_bc
 
 pytestmark = pytest.mark.cuda
 
@@ -172,8 +172,8 @@ def test_conv_diff_bdim_k(dev, shape, kb, scale, rows):
     u_new = torch.empty_like(d["u"])
     f = torch.full_like(d["u"], float("nan"))
     err = fz._lib().wlt_conv_diff_bdim(
-        fz._ptr(d["u"]), fz._ptr(d["u0"]), fz._ptr(nu), 0.3, kb, scale, lo, hi,
-        fz._ptr(u_new), fz._ptr(f), *shape, 0, fz._stream(dev))
+        d["u"].data_ptr(), d["u0"].data_ptr(), nu.data_ptr(), 0.3, kb, scale, lo,
+        hi, u_new.data_ptr(), f.data_ptr(), *shape, 0, st._stream(d["u"]))
     torch.cuda.synchronize()
     assert err == 0
     assert torch.isfinite(f[:, lo:hi]).all() and torch.equal(u_new, u_k)
@@ -249,12 +249,12 @@ def test_incr_gs_partials_match_the_grid(dev, shape, colors, mp):
         nv = torch.empty(2, device=dev)
         x_out, r_out = torch.empty_like(d["x"]), torch.empty_like(d["r"])
         e = torch.empty_like(d["x"], dtype=coef[0].dtype)
-        carr = (fz.ctypes.c_int * max(1, len(colors)))(*colors)
+        carr, ncol = st._colours("incr_gs_k", colors)
         err = (lib.wlt_incr_gs_mp if mp else lib.wlt_incr_gs)(
-            fz._ptr(d["x"]), fz._ptr(d["r"]), fz._ptr(d["eps"]),
-            *(fz._ptr(t) for t in coef), fz._ptr(e), fz._ptr(x_out),
-            fz._ptr(r_out), carr, len(colors), fz.ctypes.c_float(0.9),
-            fz._ptr(partials), fz._ptr(nv), route, *shape, fz._stream(dev))
+            *(t.data_ptr() for t in (d["x"], d["r"], d["eps"], *coef, e, x_out,
+                                     r_out)),
+            carr, ncol, 0.9, partials.data_ptr(), nv.data_ptr(), route, *shape,
+            st._stream(d["x"]))
         torch.cuda.synchronize()
         assert err == 0
         assert torch.isfinite(partials[:2 * nb]).all()
@@ -595,7 +595,10 @@ def test_mp_smoothers_at_level_sizes(dev, shape):
             mp_check(fz._incr_gs_launch(*args, mp=True, route=route), want, True)
 
 
-@pytest.mark.parametrize("shape", [(18, 18, 18), (7, 5, 3), (8, 8, 8)])
+# the solver's fine level, the tiny chain's field, n % 4 = 1, 2 and n < 4
+@pytest.mark.parametrize("shape", [(18, 18, 18), (7, 5, 3), (8, 8, 8),
+                                   (258, 258, 258), (2, 3, 5), (1, 1, 3),
+                                   (1, 1, 1)])
 @pytest.mark.parametrize("nf", [1, 6])
 @pytest.mark.parametrize("block", [256, 1024])
 def test_copy_scale_k(dev, shape, nf, block):
@@ -614,6 +617,115 @@ def test_copy_scale_k(dev, shape, nf, block):
         probe.copy_scale_k(a[:1] * 2)
     with pytest.raises(ValueError):
         probe.copy_scale_k(a, 100)
+
+
+def test_copy_scale_loop(dev):
+    """The C loop of the launch floor: ``count`` copies back and forth, the
+    last one into ``b`` for an odd count."""
+    a0 = torch.rand((8, 8, 8), device=dev)
+    a, b = a0.clone(), torch.empty_like(a0)
+    lib = st._lib()
+    assert lib.wlt_copy_scale_loop(a.data_ptr(), b.data_ptr(), a.numel(), 256,
+                                   3, st._stream(a)) == 0
+    torch.cuda.synchronize()
+    want = a0
+    for _ in range(3):
+        want = probe.copy_scale_plain([want])[0]
+    assert torch.equal(b, want)
+
+
+def wrapper_thunks(dev):
+    """Every wrapper, with its modes and both routes of the smoothers, as a
+    thunk on an 18^3 level that returns a tuple of tensors."""
+    d = inputs((18, 18, 18), 23, dev)
+    lev = ps.with_bf16(d["lev"])
+    u, x, r, eps, L, D, iD = d["u"], d["x"], d["r"], d["eps"], lev.L, lev.D, lev.iD
+    mom = [d[k] for k in ("u", "u0", "f", "V", "mu0", "mu1")]
+    nu = torch.tensor(0.03, device=dev)
+    Lp = bc_vector(L, (0.0,) * 3, perdir=(0, 1, 2))
+    iDp = ps.make_level(Lp).iD
+    eps_p = per_bc(eps, (0, 1, 2))
+    six = [x.clone() for _ in range(6)]
+    gs = (x, r, L, D, iD)
+    PC, CA = st.PER_COLOUR, st.CASCADE
+    return {
+        "conv_diff_k": lambda: (st.conv_diff_k(u, nu, 0),),
+        "conv_diff_k per=012": lambda: (st.conv_diff_k(u, nu, 1, (0, 1, 2)),),
+        # f is defined on its rows (6, 12) alone
+        "conv_diff_bdim_k": lambda: (lambda un, f: (un, f[:, 6:12]))(
+            *fz.conv_diff_bdim_k(u, d["u0"], nu, 0.3, 1.0, 0.5, 0, (6, 12))),
+        "bdim_k": lambda: (st.bdim_k(*mom, 0.3),),
+        "bdim_band_k": lambda: (st.bdim_band_k(*mom, 0.3, (6, 12), (2,)),),
+        "mult_k": lambda: (st.mult_k(x, L, D),),
+        "gs_incr_k jacobi": lambda: st.gs_incr_k(*gs, [], 0.9),
+        "gs_incr_k 0101 per-colour": lambda: st._gs_incr_launch(
+            *gs, [0, 1, 0, 1], 0.9, False, PC),
+        "gs_incr_k 10 cascade": lambda: st._gs_incr_launch(*gs, [1, 0], 0.9,
+                                                           False, CA),
+        "gs_incr_mp_k jacobi": lambda: st.gs_incr_k(x, r, *lev.bf, [], 0.9, True),
+        "gs_incr_mp_k 0101 per-colour": lambda: st._gs_incr_launch(
+            x, r, *lev.bf, [0, 1, 0, 1], 0.9, True, PC),
+        "gs_incr_mp_k 10 cascade": lambda: st._gs_incr_launch(
+            x, r, *lev.bf, [1, 0], 0.9, True, CA),
+        "incr_gs_k K6 norms": lambda: fz.incr_gs_k(x, r, eps, L, D, iD, [], 0.9,
+                                                   True),
+        "incr_gs_k 0101 norms cascade": lambda: fz._incr_gs_launch(
+            x, r, eps, L, D, iD, [0, 1, 0, 1], 0.9, True, route=CA),
+        "incr_gs_k 010 per-colour": lambda: fz._incr_gs_launch(
+            x, r, eps, L, D, iD, [0, 1, 0], 0.9, route=PC),
+        "incr_gs_mp_k 0101 norms per-colour": lambda: fz._incr_gs_launch(
+            x, r, eps, *lev.bf, [0, 1, 0, 1], 0.9, True, True, PC),
+        "incr_gs_mp_k 10 cascade": lambda: fz._incr_gs_launch(
+            x, r, eps, *lev.bf, [1, 0], 0.9, False, True, CA),
+        "gauss_sweeps_k xyz cascade": lambda: (st._gauss_sweeps_launch(
+            eps_p, r, Lp, iDp, [0, 1, 0, 1], (0, 1, 2), CA),),
+        "gauss_sweeps_k z per-colour": lambda: (st._gauss_sweeps_launch(
+            eps_p, r, Lp, iDp, [1, 0], (2,), PC),),
+        "bc_div_k": lambda: fz.bc_div_k(u, UBC),
+        "projbc_k cfl exit": lambda: fz.projbc_k(u, x, L, UBC, True, True),
+        "bc_k": lambda: (fz.bc_k(u, UBC),),
+        "div_k": lambda: (fz.div_k(u),),
+        "copy_scale_k": lambda: tuple(probe.copy_scale_k([x], 1024)),
+        "copy_scale6_k": lambda: tuple(probe.copy_scale_k(six)),
+    }
+
+
+WRAPPER_CASES = ["conv_diff_k", "conv_diff_k per=012", "conv_diff_bdim_k",
+                 "bdim_k", "bdim_band_k", "mult_k", "gs_incr_k jacobi",
+                 "gs_incr_k 0101 per-colour", "gs_incr_k 10 cascade",
+                 "gs_incr_mp_k jacobi", "gs_incr_mp_k 0101 per-colour",
+                 "gs_incr_mp_k 10 cascade", "incr_gs_k K6 norms",
+                 "incr_gs_k 0101 norms cascade", "incr_gs_k 010 per-colour",
+                 "incr_gs_mp_k 0101 norms per-colour", "incr_gs_mp_k 10 cascade",
+                 "gauss_sweeps_k xyz cascade", "gauss_sweeps_k z per-colour",
+                 "bc_div_k", "projbc_k cfl exit", "bc_k", "div_k", "copy_scale_k",
+                 "copy_scale6_k"]
+
+
+@pytest.mark.parametrize("case", WRAPPER_CASES)
+def test_wrapper_follows_the_current_stream(dev, case):
+    """Each wrapper launches on PyTorch's current stream: called inside
+    ``torch.cuda.stream(s)`` on a side stream, and captured inside
+    ``torch.cuda.graph(g)`` (whose capture stream a launch elsewhere would
+    break) and replayed, it gives the eager result bit for bit."""
+    fn = wrapper_thunks(dev)[case]
+    want = fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = fn()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        cap = fn()
+    for t in cap:
+        t.fill_(float("nan"))
+    g.replay()
+    torch.cuda.synchronize()
+    assert len(cap) == len(want)
+    assert all(torch.equal(a, b) for a, b in zip(cap, want))
 
 
 def test_forced_and_mp_routing(dev):

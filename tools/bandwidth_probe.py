@@ -22,17 +22,29 @@ Beside each, torch's own ``torch.mul(a, c, out=b)`` on the same tensors.
 Every case is checked against the plain version first.  Prints the card's
 name and power limit, one line per case and a JSON object of the rows; needs
 a CUDA device and imports no JAX.
+
+    PYTHONPATH=. python3 tools/bandwidth_probe.py --against ROOT [N]
+
+runs every case with this checkout's package and with the package of the
+checkout at ``ROOT`` (imported under another name, built into that
+checkout's ``build/``), both in this process, in turns: ``ROUNDS`` rounds,
+the order swapped every round.  Prints each case's median and every
+round's figure for both packages and ``torch.mul``.
 """
 from __future__ import annotations
 
+import collections
+import importlib.util
 import json
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
 TINY, CHAIN = (8, 8, 8), 20
+ROUNDS = 10
 
 
 def card_line() -> str:
@@ -130,12 +142,27 @@ def tiny_case(torch, probe, dev) -> dict:
                 library_device_us_per_launch=median_ms(torch, lib, 20) / CHAIN * 1e3)
 
 
-def run(n: int = 256, device="cuda") -> list[dict]:
-    """Run every case; returns one dict per case (times in ms or µs, rates
-    in GB/s, measured on ``device``)."""
+def load_checkout(root: str):
+    """The package ``waterlily_tpu_torch`` of the checkout at ``root``,
+    imported as ``waterlily_tpu_torch_against`` beside this checkout's."""
+    pkg = Path(root).resolve() / "waterlily_tpu_torch"
+    name = "waterlily_tpu_torch_against"
+    spec = importlib.util.spec_from_file_location(
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run(n: int = 256, device="cuda", probe=None) -> list[dict]:
+    """Run every case with ``probe`` (this checkout's `ops.probe` by
+    default); returns one dict per case (times in ms or µs, rates in GB/s,
+    measured on ``device``)."""
     import torch
 
-    from waterlily_tpu_torch.ops import probe
+    if probe is None:
+        from waterlily_tpu_torch.ops import probe
 
     if not torch.cuda.is_available():
         raise RuntimeError("bandwidth_probe: needs a CUDA device")
@@ -170,14 +197,49 @@ def report(rows: list[dict]) -> None:
                   f"{r['library_device_us_per_launch']:.2f}", flush=True)
 
 
+def against(n: int, probes: dict) -> dict:
+    """Every case of `run` with each package's `ops.probe` of ``probes``
+    (label -> module), in turns, ``ROUNDS`` rounds; returns label -> case
+    name -> its row of every round."""
+    res = {label: collections.defaultdict(list) for label in probes}
+    labels = list(probes)
+    for i in range(ROUNDS):
+        for label in labels if i % 2 == 0 else labels[::-1]:
+            for r in run(n, probe=probes[label]):
+                res[label][r["name"]].append(r)
+    return res
+
+
+def report_against(res: dict) -> None:
+    def fig(rows, key):
+        v = [r[key] for r in rows]
+        return f"{statistics.median(v):.5f} [" + " ".join(f"{t:.5f}" for t in v) + "]"
+
+    for name, rows in next(iter(res.values())).items():
+        keys = (("ms", "library_ms") if "ms" in rows[0] else
+                ("host_us_per_launch", "library_host_us_per_launch"))
+        print(f"against {name}: {keys[0]} " + "; ".join(
+            f"{label} {fig(res[label][name], keys[0])}" for label in res)
+            + "; torch.mul " + "; ".join(
+            f"{label}'s round {fig(res[label][name], keys[1])}" for label in res),
+            flush=True)
+
+
 def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("bandwidth_probe: needs a CUDA device", file=sys.stderr)
         return 2
+    other = None
+    if argv[:1] == ["--against"]:
+        other, argv = argv[1], argv[2:]
     n = int(argv[0]) if argv else 256
     print(card_line(), flush=True)
+    if other is not None:
+        from waterlily_tpu_torch.ops import probe
+        report_against(against(n, {"this": probe, "other": load_checkout(other).probe}))
+        return 0
     rows = run(n)
     report(rows)
     print(json.dumps({"device": torch.cuda.get_device_name(0), "probes": rows}))

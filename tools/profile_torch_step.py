@@ -18,14 +18,25 @@ wall ms/step unprofiled, device busy ms/step (the union of the kernel
 intervals of the profiled window), the idle share against the profiled
 wall, device operations per step, and the ten kernels with the most device
 time.  Needs a CUDA device; imports no JAX.
+
+    PYTHONPATH=. python3 tools/profile_torch_step.py --against ROOT [config ...]
+
+builds each config twice, with this checkout's package and with the package
+of the checkout at ``ROOT`` (imported under another name by
+`tools/bandwidth_probe.py`'s ``load_checkout``), steps both ``WARM`` times
+and then times ``STEPS`` unprofiled steps of each in turns, ``ROUNDS``
+rounds with the order swapped every round: both walls of every round, their
+medians and the median of the paired differences (this − other).  No
+profile is taken in this mode.
 """
 from __future__ import annotations
 
 import statistics
 import sys
 import time
+from pathlib import Path
 
-WARM, STEPS = 12, 3
+WARM, STEPS, ROUNDS = 12, 3, 10
 
 
 def busy_ms(events) -> float:
@@ -44,6 +55,44 @@ def busy_ms(events) -> float:
     return total / 1e3
 
 
+def walls_ms(torch, sim, udf) -> list[float]:
+    """The walls of ``STEPS`` steps, each timed on the host clock up to a
+    ``synchronize``."""
+    walls = []
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        sim.sim_step(remeasure=False, udf=udf)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def against(torch, cs, pkgs: dict, configs, dev) -> None:
+    """Each config built with each package of ``pkgs`` (label -> package)
+    and stepped in turns (module docstring)."""
+    for cfg in configs:
+        engine, case = cfg.split(":")
+        sims = {label: cs.make_sim(torch, wt, case, 128 if case == "drag" else 256,
+                                   dev, engine=engine) for label, wt in pkgs.items()}
+        for sim, udf in sims.values():
+            for _ in range(WARM):
+                sim.sim_step(remeasure=False, udf=udf)
+        torch.cuda.synchronize()
+        labels, walls = list(pkgs), {label: [] for label in pkgs}
+        for i in range(ROUNDS):
+            for label in labels if i % 2 == 0 else labels[::-1]:
+                walls[label].append(statistics.mean(walls_ms(torch, *sims[label])))
+        a, b = labels
+        diff = statistics.median(x - y for x, y in zip(walls[a], walls[b]))
+        print(f"{cfg}: wall ms/step in turns, " + "; ".join(
+            f"{label} {statistics.median(w):.3f} {[round(t, 3) for t in w]}"
+            for label, w in walls.items())
+            + f"; median of {a} − {b} {diff:.3f}; pois_n equal "
+            f"{list(sims[a][0].pois_n) == list(sims[b][0].pois_n)}", flush=True)
+        del sims
+        torch.cuda.empty_cache()
+
+
 def main(argv) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -57,8 +106,16 @@ def main(argv) -> int:
 
     dev = torch.device("cuda")
     print(cs.card_line(), flush=True)
+    other = None
+    if argv[:1] == ["--against"]:
+        other, argv = argv[1], argv[2:]
     configs = argv or [f"{e}:{c}" for c in ("sphere", "tgv", "drag")
                        for e in ("flat", "3d")]
+    if other is not None:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        from bandwidth_probe import load_checkout
+        against(torch, cs, {"this": wt, "other": load_checkout(other)}, configs, dev)
+        return 0
     for cfg in configs:
         engine, case = cfg.split(":")
         sim, udf = cs.make_sim(torch, wt, case, 128 if case == "drag" else 256,
@@ -66,12 +123,7 @@ def main(argv) -> int:
         for _ in range(WARM):
             sim.sim_step(remeasure=False, udf=udf)
         torch.cuda.synchronize()
-        walls = []
-        for _ in range(STEPS):
-            t0 = time.perf_counter()
-            sim.sim_step(remeasure=False, udf=udf)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
+        walls = walls_ms(torch, sim, udf)
         n0 = len(sim.pois_n)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()

@@ -38,34 +38,41 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
+_I = ctypes.c_int
 _F = ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
+_PP = ctypes.POINTER(ctypes.c_void_p)
+# every `extern "C"` entry of `csrc/*.cu`: name -> (restype, argtypes).  The
+# argtypes must be declared: without them ctypes passes a Python int as a
+# 32-bit int and cuts a pointer (`tests/test_torch_binding.py` holds this
+# table against the sources)
 _SIGNATURES = {
-    # name: argtypes (restype is int: a cudaError_t)
-    "wlt_conv_diff": [_P, _P, _P, _I64, _I64, _I64, ctypes.c_int,
-                      ctypes.c_int, _P],
-    "wlt_bdim": [_P, _P, _P, _P, _P, _P, ctypes.c_float, _P,
-                 _I64, _I64, _I64, _P],
-    "wlt_mult": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
-    "wlt_gs_incr": [_P, _P, _P, _P, _P, _P, _P, _P,
-                    ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-                    ctypes.c_float, ctypes.c_int, _I64, _I64, _I64, _P],
-    "wlt_conv_diff_bdim": [_P, _P, _P, _F, _F, _F, ctypes.c_int, ctypes.c_int,
-                           _P, _P, _I64, _I64, _I64, ctypes.c_int, _P],
-    "wlt_bc_div": [_P, _F, _F, _F, _P, _P, _I64, _I64, _I64, _P],
-    "wlt_projbc": [_P, _P, _P, _F, _F, _F, ctypes.c_int, _P, _P,
-                   _I64, _I64, _I64, _P],
-    "wlt_incr_gs": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                    ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-                    _F, _P, _P, ctypes.c_int, _I64, _I64, _I64, _P],
-    "wlt_gauss_sweeps": [_P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_int),
-                         ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                         ctypes.c_int, ctypes.c_int, _I64, _I64, _I64, _P],
-    "wlt_bc": [_P, _F, _F, _F, ctypes.c_int, _P, _I64, _I64, _I64, _P],
-    "wlt_div": [_P, _P, _I64, _I64, _I64, _P],
-    "wlt_bdim_band": [_P, _P, _P, _P, _P, _P, _F, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_int, _P, _I64, _I64, _I64, _P],
-    "wlt_copy_scale": [ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.c_int,
-                       _I64, ctypes.c_int, _P],
+    "wlt_error_string": (ctypes.c_char_p, [_I]),
+    "wlt_conv_diff": (_I, [_P, _P, _P, _I64, _I64, _I64, _I, _I, _P]),
+    "wlt_bdim": (_I, [_P, _P, _P, _P, _P, _P, _F, _P, _I64, _I64, _I64, _P]),
+    "wlt_mult": (_I, [_P, _P, _P, _P, _I64, _I64, _I64, _P]),
+    "wlt_bdim_band": (_I, [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _P,
+                           _I64, _I64, _I64, _P]),
+    "wlt_gs_incr_route": (_I, [_I64, _I64, _I64, _I, _I]),
+    "wlt_gs_incr": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _IP, _I, _F, _I,
+                         _I64, _I64, _I64, _P]),
+    "wlt_gauss_sweeps_route": (_I, [_I64, _I64, _I64, _I, _I]),
+    "wlt_gauss_sweeps": (_I, [_P, _P, _P, _P, _P, _IP, _I, _IP, _I, _I,
+                              _I64, _I64, _I64, _P]),
+    "wlt_incr_gs_route": (_I, [_I64, _I64, _I64, _I, _I]),
+    "wlt_incr_gs_partials": (_I64, [_I64, _I64, _I64, _I, _I, _I]),
+    "wlt_conv_diff_bdim": (_I, [_P, _P, _P, _F, _F, _F, _I, _I, _P, _P,
+                                _I64, _I64, _I64, _I, _P]),
+    "wlt_bc_div": (_I, [_P, _F, _F, _F, _P, _P, _I64, _I64, _I64, _P]),
+    "wlt_projbc": (_I, [_P, _P, _P, _F, _F, _F, _I, _P, _P, _I64, _I64, _I64,
+                        _P]),
+    "wlt_bc": (_I, [_P, _F, _F, _F, _I, _P, _I64, _I64, _I64, _P]),
+    "wlt_div": (_I, [_P, _P, _I64, _I64, _I64, _P]),
+    "wlt_incr_gs": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _IP, _I, _F, _P,
+                         _P, _I, _I64, _I64, _I64, _P]),
+    "wlt_copy_scale": (_I, [_P, _P, _I64, _I, _P]),
+    "wlt_copy_scale6": (_I, [_PP, _PP, _I64, _I, _P]),
+    "wlt_copy_scale_loop": (_I, [_P, _P, _I64, _I, _I, _P]),
 }
 # the mixed-precision instantiations take the arguments of the float32 ones
 _SIGNATURES["wlt_gs_incr_mp"] = _SIGNATURES["wlt_gs_incr"]
@@ -151,18 +158,8 @@ def load() -> ctypes.CDLL:
     wrapper call goes through here, and hashing the sources from disk on
     each call would cost the host more than a launch."""
     lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
+    for name, (restype, argtypes) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.wlt_error_string.argtypes = [ctypes.c_int]
-    lib.wlt_error_string.restype = ctypes.c_char_p
-    lib.wlt_incr_gs_partials.argtypes = [_I64, _I64, _I64, ctypes.c_int,
-                                         ctypes.c_int, ctypes.c_int]
-    lib.wlt_incr_gs_partials.restype = _I64
-    for name in ("wlt_incr_gs_route", "wlt_gs_incr_route",
-                 "wlt_gauss_sweeps_route"):
-        fn = getattr(lib, name)
-        fn.argtypes = [_I64, _I64, _I64, ctypes.c_int, ctypes.c_int]
-        fn.restype = ctypes.c_int
+        fn.restype = restype
     return lib

@@ -37,7 +37,6 @@ own difference, not a fault.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -45,9 +44,10 @@ import torch
 from .bc import bc_vector
 from .grid import inside_mask, interior, shift, zero_ghost
 from .poisson import norms
-from .stencil3d import (BF16, PER_COLOUR, SCHEMES, _bf16, _check, _launch,
-                        _lead, _lib, _mp_mult, _mp_sweeps, _ptr, _rb_sweeps,
-                        _stream, conv_diff_plain, mult_plain, plain_route)
+from .stencil3d import (BF16, F32, PER_COLOUR, SCHEMES, _bf16, _colours, _fits,
+                        _invalid, _launch, _lib, _mp_mult, _mp_sweeps,
+                        _rb_sweeps, _rule, _smoother_args, _stream,
+                        conv_diff_plain, mult_plain, plain_route)
 
 __all__ = [
     "conv_diff_bdim_plain", "incr_gs_plain", "bc_div_plain", "projbc_plain",
@@ -176,10 +176,26 @@ div_plain = div_field
 
 
 # ---------------------------------------------------------------- wrappers
-def _ubc3(ubc) -> list[ctypes.c_float]:
+def _ubc3(ubc) -> tuple[float, float, float]:
     if callable(ubc) or len(ubc) != 3:
         raise ValueError(f"the kernels take a constant 3-tuple ubc, got {ubc!r}")
-    return [ctypes.c_float(float(v)) for v in ubc]
+    return float(ubc[0]), float(ubc[1]), float(ubc[2])
+
+
+def _field_args(name: str, u, u0=None, x=None, L=None):
+    """The trailing shape of a velocity ``u`` ``(3, Nx, Ny, Nz)`` and of the
+    fields given with it (``u0`` and ``L`` ``(3, ...)``, ``x`` of the shape
+    alone), validated: K1 and the BC and projection kernels."""
+    shape, dev = u.shape[1:], u.device
+    vs = (3, *shape)
+    if not (len(shape) == 3 and _fits(dev, F32, vs, u)
+            and (u0 is None or _fits(dev, F32, vs, u0))
+            and (x is None or _fits(dev, F32, shape, x))
+            and (L is None or _fits(dev, F32, vs, L))):
+        _invalid(name, tuple(shape), dev, ("u", u, F32, (3,)), *(
+            (a, t, F32, lead) for a, t, lead in (("u0", u0, (3,)), ("x", x, ()),
+                                                 ("L", L, (3,))) if t is not None))
+    return shape
 
 
 def conv_diff_bdim_k(u, u0, nu, dt: float, keep_base: float, scale: float,
@@ -193,10 +209,7 @@ def conv_diff_bdim_k(u, u0, nu, dt: float, keep_base: float, scale: float,
     if not u.is_cuda or plain_route():
         return conv_diff_bdim_plain(u, u0, nu, dt, keep_base, scale,
                                     SCHEMES[scheme_id])
-    shape = tuple(u.shape[1:])
-    _check("conv_diff_bdim_k", shape, u.device, u=u, u0=u0)
-    _lead("conv_diff_bdim_k", "u", u, (3,))
-    _lead("conv_diff_bdim_k", "u0", u0, (3,))
+    shape = _field_args("conv_diff_bdim_k", u, u0=u0)
     if not 0 <= scheme_id < len(SCHEMES):
         raise ValueError(f"conv_diff_bdim_k: unknown scheme id {scheme_id}")
     lo, hi = (0, shape[0]) if f_rows is None else (int(f_rows[0]), int(f_rows[1]))
@@ -206,10 +219,10 @@ def conv_diff_bdim_k(u, u0, nu, dt: float, keep_base: float, scale: float,
     if nu.numel() != 1:
         raise ValueError("conv_diff_bdim_k: nu must be a scalar")
     u_new, f = torch.empty_like(u), torch.empty_like(u)
-    _launch("conv_diff_bdim_k", _lib().wlt_conv_diff_bdim, _ptr(u), _ptr(u0),
-            _ptr(nu), ctypes.c_float(float(dt)), ctypes.c_float(float(keep_base)),
-            ctypes.c_float(float(scale)), lo, hi, _ptr(u_new), _ptr(f), *shape,
-            scheme_id, _stream(u.device))
+    _launch("conv_diff_bdim_k", _lib().wlt_conv_diff_bdim(
+        u.data_ptr(), u0.data_ptr(), nu.data_ptr(), float(dt), float(keep_base),
+        float(scale), lo, hi, u_new.data_ptr(), f.data_ptr(), *shape, scheme_id,
+        _stream(u)))
     return u_new, f
 
 
@@ -234,56 +247,47 @@ def _incr_gs_launch(x, r, eps, L, D, iD, colors, omega, want_norms=False,
     """`incr_gs_k` on the card, on the route the shape gives (``route``
     None) or on the one named (`PER_COLOUR`, `CASCADE`), which the kernel
     tests and the bench tool use to hold and time both routes."""
-    shape = tuple(x.shape)
     name = "incr_gs_mp_k" if mp else "incr_gs_k"
-    cdt = BF16 if mp else torch.float32
-    _check(name, shape, x.device, x=x, r=r, eps=eps)
-    _check(name, shape, x.device, cdt, L=L, D=D, iD=iD)
-    for arg, t in (("x", x), ("r", r), ("eps", eps), ("D", D), ("iD", iD)):
-        _lead(name, arg, t, ())
-    _lead(name, "L", L, (3,))
-    cols = [int(c) for c in colors]
-    if any(c not in (0, 1) for c in cols):
-        raise ValueError(f"{name}: colours must be 0 or 1, got {cols}")
-    if mp and not cols:
+    cdt = BF16 if mp else F32
+    shape = _smoother_args(name, cdt, x, r, L, D, iD, eps)
+    carr, ncol = _colours(name, colors)
+    if mp and not ncol:
         raise ValueError("incr_gs_k: mp=True needs at least one colour (the "
                          "increment alone is float32)")
-    carr = (ctypes.c_int * max(1, len(cols)))(*cols)
-    lib = _lib()
     if route is None:
-        route = lib.wlt_incr_gs_route(*shape, len(cols), int(mp))
+        route = _rule("wlt_incr_gs_route", *shape, ncol, int(mp))
     # the per-colour route's scratch; the cascade and K6 take none
-    e = torch.empty_like(x, dtype=cdt) if cols and route == PER_COLOUR else x
+    e = torch.empty_like(x, dtype=cdt) if ncol and route == PER_COLOUR else x
     x_out, r_out = torch.empty_like(x), torch.empty_like(r)
     partials = nv = None
     if want_norms:
         # one sum and one max per block of the grid this route launches
-        nb = lib.wlt_incr_gs_partials(*shape, len(cols), int(mp), route)
+        nb = _rule("wlt_incr_gs_partials", *shape, ncol, int(mp), route)
         if nb <= 0:
             raise RuntimeError(f"{name}: the cascade's grid could not be "
                                "sized on this device")
-        partials = torch.empty(2 * nb, dtype=torch.float32, device=x.device)
-        nv = torch.empty(2, dtype=torch.float32, device=x.device)
-    _launch(name, lib.wlt_incr_gs_mp if mp else lib.wlt_incr_gs, _ptr(x),
-            _ptr(r), _ptr(eps), _ptr(L),
-            _ptr(D), _ptr(iD), _ptr(e), _ptr(x_out), _ptr(r_out), carr, len(cols),
-            ctypes.c_float(float(omega)),
-            None if partials is None else _ptr(partials),
-            None if nv is None else _ptr(nv), route, *shape, _stream(x.device))
-    return (x_out, r_out, nv) if want_norms else (x_out, r_out)
+        # and the fold's two results after them, in one allocation
+        buf = torch.empty(2 * nb + 2, dtype=torch.float32, device=x.device)
+        nv_t = buf[2 * nb:]
+        partials, nv = buf.data_ptr(), nv_t.data_ptr()
+    lib = _lib()
+    _launch(name, (lib.wlt_incr_gs_mp if mp else lib.wlt_incr_gs)(
+        x.data_ptr(), r.data_ptr(), eps.data_ptr(), L.data_ptr(), D.data_ptr(),
+        iD.data_ptr(), e.data_ptr(), x_out.data_ptr(), r_out.data_ptr(), carr,
+        ncol, float(omega), partials, nv, route, *shape,
+        _stream(x)))
+    return (x_out, r_out, nv_t) if want_norms else (x_out, r_out)
 
 
 def bc_div_k(u, ubc):
     """K8: `bc_div_plain` in one pass.  Returns ``(u_bc, div)``."""
     if not u.is_cuda or plain_route():
         return bc_div_plain(u, ubc)
-    shape = tuple(u.shape[1:])
-    _check("bc_div_k", shape, u.device, u=u)
-    _lead("bc_div_k", "u", u, (3,))
+    shape = _field_args("bc_div_k", u)
     ub = _ubc3(ubc)
     u_bc, div = torch.empty_like(u), torch.empty(shape, dtype=u.dtype, device=u.device)
-    _launch("bc_div_k", _lib().wlt_bc_div, _ptr(u), *ub, _ptr(u_bc), _ptr(div),
-            *shape, _stream(u.device))
+    _launch("bc_div_k", _lib().wlt_bc_div(u.data_ptr(), *ub, u_bc.data_ptr(),
+                                          div.data_ptr(), *shape, _stream(u)))
     return u_bc, div
 
 
@@ -293,17 +297,14 @@ def projbc_k(u, x, L, ubc, want_cfl: bool = False, save_exit: bool = False):
     ``(u_new, smax)``."""
     if not u.is_cuda or plain_route():
         return projbc_plain(u, x, L, ubc, want_cfl, save_exit)
-    shape = tuple(u.shape[1:])
-    _check("projbc_k", shape, u.device, u=u, x=x, L=L)
-    _lead("projbc_k", "u", u, (3,))
-    _lead("projbc_k", "x", x, ())
-    _lead("projbc_k", "L", L, (3,))
+    shape = _field_args("projbc_k", u, x=x, L=L)
     ub = _ubc3(ubc)
     u_out = torch.empty_like(u)
     smax = torch.empty((), dtype=torch.float32, device=u.device) if want_cfl else None
-    _launch("projbc_k", _lib().wlt_projbc, _ptr(u), _ptr(x), _ptr(L), *ub,
-            int(save_exit), _ptr(u_out), None if smax is None else _ptr(smax),
-            *shape, _stream(u.device))
+    _launch("projbc_k", _lib().wlt_projbc(
+        u.data_ptr(), x.data_ptr(), L.data_ptr(), *ub, int(save_exit),
+        u_out.data_ptr(), None if smax is None else smax.data_ptr(), *shape,
+        _stream(u)))
     return (u_out, smax) if want_cfl else u_out
 
 
@@ -311,13 +312,11 @@ def bc_k(u, ubc, save_exit: bool = False):
     """K10: `bc_plain` in one pass."""
     if not u.is_cuda or plain_route():
         return bc_plain(u, ubc, save_exit)
-    shape = tuple(u.shape[1:])
-    _check("bc_k", shape, u.device, u=u)
-    _lead("bc_k", "u", u, (3,))
+    shape = _field_args("bc_k", u)
     ub = _ubc3(ubc)
     u_bc = torch.empty_like(u)
-    _launch("bc_k", _lib().wlt_bc, _ptr(u), *ub, int(save_exit), _ptr(u_bc),
-            *shape, _stream(u.device))
+    _launch("bc_k", _lib().wlt_bc(u.data_ptr(), *ub, int(save_exit),
+                                  u_bc.data_ptr(), *shape, _stream(u)))
     return u_bc
 
 
@@ -325,10 +324,8 @@ def div_k(u):
     """K11: `div_plain` in one pass."""
     if not u.is_cuda or plain_route():
         return div_plain(u)
-    shape = tuple(u.shape[1:])
-    _check("div_k", shape, u.device, u=u)
-    _lead("div_k", "u", u, (3,))
+    shape = _field_args("div_k", u)
     div = torch.empty(shape, dtype=u.dtype, device=u.device)
-    _launch("div_k", _lib().wlt_div, _ptr(u), _ptr(div), *shape,
-            _stream(u.device))
+    _launch("div_k", _lib().wlt_div(u.data_ptr(), div.data_ptr(), *shape,
+                                    _stream(u)))
     return div

@@ -5,7 +5,9 @@ Counterpart of the probe kernels of `benchmarks/leanprobe.py` (`:99`,
 `:117`, `:149`) and `benchmarks/bwprobe.py` (`:115`, `:128`, `:157`), which
 gave the TPU kernels their roofline: ``out_k = a_k · 1.0000001`` on one or
 six float32 fields.  One CUDA kernel (`csrc/probe.cu`, `copy_scale_kernel<NF>`)
-serves all of them, launched at a chosen block size; `tools/bandwidth_probe.py`
+serves all of them, launched at a chosen block size (one field through
+`wlt_copy_scale`, two pointers; six through `wlt_copy_scale6`'s pointer
+arrays); `tools/bandwidth_probe.py`
 drives it at the shapes of the solver (one 258³ field, eight of them
 concatenated, six fields, an 8×8×8 field launched back to back).
 
@@ -21,11 +23,13 @@ from typing import Optional, Sequence
 
 import torch
 
-from .stencil3d import _launch, _lib, _stream
+from .stencil3d import F32, _fits, _launch, _lib, _raw_stream, _stream
 
 __all__ = ["SCALE", "copy_scale_plain", "copy_scale_k"]
 
 SCALE = 1.0000001      # rounds to 1 + 2⁻²³ in float32
+_PTRS6 = ctypes.c_void_p * 6
+_BLOCKS = frozenset(range(32, 1025, 32))
 
 
 def copy_scale_plain(fields: Sequence[torch.Tensor]) -> list[torch.Tensor]:
@@ -33,33 +37,47 @@ def copy_scale_plain(fields: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     return [a * SCALE for a in fields]
 
 
+def _refuse(dev) -> None:
+    raise ValueError("copy_scale_k: every field and output must be a "
+                     "contiguous, 16-byte aligned float32 tensor of one "
+                     f"shape on {dev}")
+
+
 def copy_scale_k(fields: Sequence[torch.Tensor], block: int = 256,
                  out: Optional[Sequence[torch.Tensor]] = None) -> list[torch.Tensor]:
     """`copy_scale_plain` of one or six float32 fields of one shape in one
     launch with ``block`` threads per block; writes into ``out`` when given
-    (a chain of launches then allocates nothing)."""
-    fields = list(fields)
-    if not fields[0].is_cuda:
+    (a chain of launches then allocates nothing).  One field, the tiny
+    chain's case, passes two pointers and no pointer arrays."""
+    a = fields[0]
+    if not a.is_cuda:
         return copy_scale_plain(fields)
-    name = {1: "copy_scale_k", 6: "copy_scale6_k"}.get(len(fields))
-    if name is None:
-        raise ValueError(f"copy_scale_k: takes 1 or 6 fields, got {len(fields)}")
-    out = [torch.empty_like(a) for a in fields] if out is None else list(out)
-    if len(out) != len(fields):
+    nf = len(fields)
+    if nf != 1 and nf != 6:
+        raise ValueError(f"copy_scale_k: takes 1 or 6 fields, got {nf}")
+    if out is not None and len(out) != nf:
         raise ValueError("copy_scale_k: out must hold one tensor per field")
-    ref = fields[0]
-    for t in (*fields, *out):
-        if (t.device != ref.device or t.dtype != torch.float32
-                or t.shape != ref.shape or not t.is_contiguous()
-                or t.data_ptr() % 16):
-            raise ValueError("copy_scale_k: every field and output must be a "
-                             "contiguous, 16-byte aligned float32 tensor of one "
-                             f"shape on {ref.device}")
-    if block % 32 or not 32 <= block <= 1024:
+    if block not in _BLOCKS:
         raise ValueError(f"copy_scale_k: block must be a multiple of 32 in "
                          f"[32, 1024], got {block}")
-    ptrs = ctypes.c_void_p * len(fields)
-    _launch(name, _lib().wlt_copy_scale, ptrs(*(a.data_ptr() for a in fields)),
-            ptrs(*(a.data_ptr() for a in out)), len(fields), ref.numel(),
-            int(block), _stream(ref.device))
+    if nf == 1:
+        # `_fits` and `_stream` written out: through them the tiny chain
+        # paid 1.6 µs a launch more, which put it above `torch.mul`'s
+        # (`tools/bandwidth_probe.py --against`, PERF.md section 6).  a is
+        # on the card, so b is on its device iff b has its index.
+        b = torch.empty_like(a) if out is None else out[0]
+        pa, pb, idx = a.data_ptr(), b.data_ptr(), a.get_device()
+        if ((pa | pb) % 16 or a.dtype is not F32 or b.dtype is not F32
+                or not (a.is_contiguous() and b.is_contiguous())
+                or b.get_device() != idx or b.shape != a.shape):
+            _refuse(a.device)
+        _launch("copy_scale_k", _lib().wlt_copy_scale(
+            pa, pb, a.numel(), int(block), _raw_stream(idx)))
+        return [b]
+    out = [torch.empty_like(t) for t in fields] if out is None else list(out)
+    ptrs = [t.data_ptr() for t in (*fields, *out)]
+    if any(p % 16 for p in ptrs) or not _fits(a.device, F32, a.shape, *fields, *out):
+        _refuse(a.device)
+    _launch("copy_scale6_k", _lib().wlt_copy_scale6(
+        _PTRS6(*ptrs[:6]), _PTRS6(*ptrs[6:]), a.numel(), int(block), _stream(a)))
     return out

@@ -73,6 +73,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from . import _build
 from .bc import per_bc
 from .grid import index_sum_parity, inside_mask, shift, zero_ghost
 
@@ -397,15 +398,38 @@ def gs_incr_plain(x, r, L, D, iD, colors: Sequence[int], omega,
 
 
 # ---------------------------------------------------------------- wrappers
-def _lib():
-    from . import _build
+# The launch path of every wrapper (here, in `ops/fused3d.py` and in
+# `ops/probe.py`), built for the host cost of a launch: `_fits` checks each
+# tensor in one comparison and `_invalid` builds the message only when that
+# fails; the pure functions of the shape and arguments (`_rule`'s routes and
+# norm-partial counts, `_colours`' and `_perdir`'s ctypes arrays) are asked
+# once and kept in dicts; pointers reach ctypes as `data_ptr()` ints (the
+# argtypes `_build` declares pass them as 64-bit pointers); PyTorch's current
+# stream is read at every call (`_stream`).
+F32 = torch.float32
 
+
+def _lib():
     return _build.load()
 
 
-def _check(name: str, shape: tuple[int, ...], device: torch.device,
-           dtype: torch.dtype = torch.float32, /, **tensors: torch.Tensor) -> None:
-    for arg, t in tensors.items():
+def _fits(dev: torch.device, dtype: torch.dtype, shape, *ts: torch.Tensor) -> bool:
+    """Whether every tensor of ``ts`` lies on ``dev``, has ``dtype`` and the
+    full shape ``shape`` and is contiguous: what `_invalid` checks, in one
+    comparison a tensor."""
+    for t in ts:
+        if not (t.shape == shape and t.dtype is dtype and t.is_contiguous()
+                and t.device == dev):
+            return False
+    return True
+
+
+def _invalid(name: str, shape: tuple[int, ...], device: torch.device, *specs):
+    """Raise for the arguments `_fits` refused.  ``specs`` are ``(arg,
+    tensor, dtype, lead)``, each tensor expected on ``device`` with the full
+    shape ``lead + shape``: device, dtype, contiguity and the trailing shape
+    of every argument are checked before the leading shapes."""
+    for arg, t, dtype, _ in specs:
         if t.device != device:
             raise ValueError(f"{name}: {arg} is on {t.device}, expected {device}")
         if t.dtype != dtype:
@@ -415,36 +439,88 @@ def _check(name: str, shape: tuple[int, ...], device: torch.device,
         if tuple(t.shape[-3:]) != shape or t.dim() < 3:
             raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
                              f"expected trailing {shape}")
+    for arg, t, _, lead in specs:
+        if tuple(t.shape[:-3]) != lead:
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
+                             f"expected leading {lead}")
+    # every condition of `_fits` is one above: never reached for its refusal
+    raise ValueError(f"{name}: invalid arguments")
 
 
-def _lead(name: str, arg: str, t: torch.Tensor, lead: tuple[int, ...]) -> None:
-    if tuple(t.shape[:-3]) != lead:
-        raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
-                         f"expected leading {lead}")
+# the handle of PyTorch's current stream on a device; absent from CPU builds
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def _stream(t: torch.Tensor) -> int:
+    """PyTorch's current stream on the device of ``t``, read at every call
+    (never cached), so that a launch follows `torch.cuda.stream` blocks and
+    CUDA graph capture."""
+    return _raw_stream(t.get_device())
 
 
-def _launch(name: str, fn, *args) -> None:
-    err = fn(*args)
-    if err != 0:
+def _launch(name: str, err: int) -> None:
+    """Count a launch of the wrapper ``name`` whose entry returned ``err``,
+    or raise."""
+    if err:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err} "
                            f"({_lib().wlt_error_string(err).decode()})")
     _LAUNCHES[name] += 1
 
 
-def _stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+# the C rules asked once per arguments: (entry, *its int arguments) -> value
+_RULES: dict[tuple, int] = {}
 
 
-def _dirs(name: str, perdir) -> list[int]:
-    dirs = [int(j) for j in perdir]
-    if any(j not in (0, 1, 2) for j in dirs) or len(set(dirs)) != len(dirs):
-        raise ValueError(f"{name}: perdir must hold distinct directions 0-2, "
-                         f"got {tuple(perdir)}")
-    return dirs
+def _rule(entry: str, *args: int) -> int:
+    """The value of the C rule ``entry`` of the library (a route or a norm
+    partials count: a pure function of its integer arguments, the shape
+    among them), asked once for each set of arguments.  A negative value
+    (an error) is not kept."""
+    key = (entry, *args)
+    v = _RULES.get(key)
+    if v is None:
+        v = getattr(_lib(), entry)(*args)
+        if v >= 0:
+            _RULES[key] = v
+    return v
+
+
+# colour lists and periodic-direction lists -> their ctypes arrays
+_COLOURS: dict[tuple, tuple] = {}
+_PERDIRS: dict[tuple, tuple] = {}
+
+
+def _colours(name: str, colors: Sequence[int]) -> tuple:
+    """``(ctypes int array, count)`` of a colour list (each 0 or 1), made
+    once per list.  The entries read the array on the host during the
+    call, so one array serves every call."""
+    key = tuple(colors)
+    got = _COLOURS.get(key)
+    if got is None:
+        cols = [int(c) for c in key]
+        if any(c not in (0, 1) for c in cols):
+            raise ValueError(f"{name}: colours must be 0 or 1, got {cols}")
+        got = ((ctypes.c_int * max(1, len(cols)))(*cols), len(cols))
+        if all(type(c) is int for c in key):
+            _COLOURS[key] = got
+    return got
+
+
+def _perdir(name: str, perdir: Sequence[int]) -> tuple:
+    """``(bit mask, ctypes int array, count)`` of the periodic directions
+    ``perdir`` (distinct, each 0-2), made once per list."""
+    key = tuple(perdir)
+    got = _PERDIRS.get(key)
+    if got is None:
+        dirs = [int(j) for j in key]
+        if any(j not in (0, 1, 2) for j in dirs) or len(set(dirs)) != len(dirs):
+            raise ValueError(f"{name}: perdir must hold distinct directions 0-2, "
+                             f"got {tuple(perdir)}")
+        got = (sum(1 << j for j in dirs),
+               (ctypes.c_int * max(1, len(dirs)))(*dirs), len(dirs))
+        if all(type(j) is int for j in key):
+            _PERDIRS[key] = got
+    return got
 
 
 def conv_diff_k(u: torch.Tensor, nu, scheme_id: int,
@@ -455,20 +531,32 @@ def conv_diff_k(u: torch.Tensor, nu, scheme_id: int,
     card (no host sync) or a float."""
     if not u.is_cuda:
         return conv_diff_plain(u, nu, SCHEMES[scheme_id], perdir)
-    shape = tuple(u.shape[1:])
-    _check("conv_diff_k", shape, u.device, u=u)
-    _lead("conv_diff_k", "u", u, (3,))
+    shape, dev = u.shape[1:], u.device
+    if not (len(shape) == 3 and _fits(dev, F32, (3, *shape), u)):
+        _invalid("conv_diff_k", tuple(shape), dev, ("u", u, F32, (3,)))
     if not 0 <= scheme_id < len(SCHEMES):
         raise ValueError(f"conv_diff_k: unknown scheme id {scheme_id}")
-    per = sum(1 << j for j in _dirs("conv_diff_k", perdir))
-    nu = torch.as_tensor(nu, dtype=torch.float32, device=u.device)
+    per = _perdir("conv_diff_k", perdir)[0]
+    nu = torch.as_tensor(nu, dtype=torch.float32, device=dev)
     if nu.numel() != 1:
         raise ValueError("conv_diff_k: nu must be a scalar")
     out = torch.empty_like(u)
-    lib = _lib()
-    _launch("conv_diff_k", lib.wlt_conv_diff, _ptr(u), _ptr(nu), _ptr(out),
-            *shape, scheme_id, per, _stream(u.device))
+    _launch("conv_diff_k", _lib().wlt_conv_diff(
+        u.data_ptr(), nu.data_ptr(), out.data_ptr(), *shape, scheme_id, per,
+        _stream(u)))
     return out
+
+
+def _bdim_args(name: str, u, u0, f, V, mu0, mu1):
+    """The trailing shape of the BDIM arguments, validated (K14, K2)."""
+    shape, dev = u.shape[1:], u.device
+    vs = (3, *shape)
+    if not (len(shape) == 3 and _fits(dev, F32, vs, u, u0, f, V, mu0)
+            and _fits(dev, F32, (3, *vs), mu1)):
+        _invalid(name, tuple(shape), dev, *((a, t, F32, (3,)) for a, t in (
+            ("u", u), ("u0", u0), ("f", f), ("V", V), ("mu0", mu0))),
+            ("mu1", mu1, F32, (3, 3)))
+    return shape
 
 
 def bdim_band_k(u, u0, f, V, mu0, mu1, dt: float, band: tuple[int, int],
@@ -478,19 +566,15 @@ def bdim_band_k(u, u0, f, V, mu0, mu1, dt: float, band: tuple[int, int],
     inside, which reads ``f*`` at neighbours in the rows next to it."""
     if not u.is_cuda:
         return bdim_band_plain(u, u0, f, V, mu0, mu1, dt, band, perdir)
-    shape = tuple(u.shape[1:])
-    _check("bdim_band_k", shape, u.device, u=u, u0=u0, f=f, V=V, mu0=mu0, mu1=mu1)
-    for arg, t in (("u", u), ("u0", u0), ("f", f), ("V", V), ("mu0", mu0)):
-        _lead("bdim_band_k", arg, t, (3,))
-    _lead("bdim_band_k", "mu1", mu1, (3, 3))
+    shape = _bdim_args("bdim_band_k", u, u0, f, V, mu0, mu1)
     lo, hi = int(band[0]), int(band[1])
     if hi > lo and not 1 <= lo < hi <= shape[0] - 1:
         raise ValueError(f"bdim_band_k: band {band} outside [1, {shape[0] - 1}]")
-    per = sum(1 << j for j in _dirs("bdim_band_k", perdir))
+    per = _perdir("bdim_band_k", perdir)[0]
     out = torch.empty_like(u)
-    _launch("bdim_band_k", _lib().wlt_bdim_band, _ptr(u), _ptr(u0), _ptr(f),
-            _ptr(V), _ptr(mu0), _ptr(mu1), ctypes.c_float(float(dt)), lo, hi,
-            per, _ptr(out), *shape, _stream(u.device))
+    _launch("bdim_band_k", _lib().wlt_bdim_band(
+        u.data_ptr(), u0.data_ptr(), f.data_ptr(), V.data_ptr(), mu0.data_ptr(),
+        mu1.data_ptr(), float(dt), lo, hi, per, out.data_ptr(), *shape, _stream(u)))
     return out
 
 
@@ -499,16 +583,11 @@ def bdim_k(u, u0, f, V, mu0, mu1, dt: float) -> torch.Tensor:
     ghosts keep ``u``."""
     if not u.is_cuda:
         return bdim_plain(u, u0, f, V, mu0, mu1, dt)
-    shape = tuple(u.shape[1:])
-    _check("bdim_k", shape, u.device, u=u, u0=u0, f=f, V=V, mu0=mu0, mu1=mu1)
-    for arg, t in (("u", u), ("u0", u0), ("f", f), ("V", V), ("mu0", mu0)):
-        _lead("bdim_k", arg, t, (3,))
-    _lead("bdim_k", "mu1", mu1, (3, 3))
+    shape = _bdim_args("bdim_k", u, u0, f, V, mu0, mu1)
     out = torch.empty_like(u)
-    lib = _lib()
-    _launch("bdim_k", lib.wlt_bdim, _ptr(u), _ptr(u0), _ptr(f), _ptr(V),
-            _ptr(mu0), _ptr(mu1), ctypes.c_float(float(dt)), _ptr(out),
-            *shape, _stream(u.device))
+    _launch("bdim_k", _lib().wlt_bdim(
+        u.data_ptr(), u0.data_ptr(), f.data_ptr(), V.data_ptr(), mu0.data_ptr(),
+        mu1.data_ptr(), float(dt), out.data_ptr(), *shape, _stream(u)))
     return out
 
 
@@ -516,15 +595,14 @@ def mult_k(x: torch.Tensor, L: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
     """K16: A·x with zero ghosts (`mult_plain`)."""
     if not x.is_cuda:
         return mult_plain(x, L, D)
-    shape = tuple(x.shape)
-    _check("mult_k", shape, x.device, x=x, L=L, D=D)
-    _lead("mult_k", "x", x, ())
-    _lead("mult_k", "L", L, (3,))
-    _lead("mult_k", "D", D, ())
+    shape, dev = x.shape, x.device
+    if not (len(shape) == 3 and _fits(dev, F32, shape, x, D)
+            and _fits(dev, F32, (3, *shape), L)):
+        _invalid("mult_k", tuple(shape), dev, ("x", x, F32, ()),
+                 ("L", L, F32, (3,)), ("D", D, F32, ()))
     out = torch.empty_like(x)
-    lib = _lib()
-    _launch("mult_k", lib.wlt_mult, _ptr(x), _ptr(L), _ptr(D), _ptr(out),
-            *shape, _stream(x.device))
+    _launch("mult_k", _lib().wlt_mult(x.data_ptr(), L.data_ptr(), D.data_ptr(),
+                                      out.data_ptr(), *shape, _stream(x)))
     return out
 
 
@@ -533,11 +611,18 @@ def mult_k(x: torch.Tensor, L: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
 PER_COLOUR, CASCADE = 0, 1
 
 
-def _colors(name: str, colors: Sequence[int]) -> list[int]:
-    cols = [int(c) for c in colors]
-    if any(c not in (0, 1) for c in cols):
-        raise ValueError(f"{name}: colours must be 0 or 1, got {cols}")
-    return cols
+def _smoother_args(name: str, cdt: torch.dtype, x, r, L, D, iD, eps=None):
+    """The shape of the smoother arguments, validated: ``x``, ``r`` (and
+    ``eps``) float32, ``L``, ``D``, ``iD`` of the coefficient type ``cdt``
+    (K15, K7)."""
+    shape, dev = x.shape, x.device
+    fields = (x, r) if eps is None else (x, r, eps)
+    if not (len(shape) == 3 and _fits(dev, F32, shape, *fields)
+            and _fits(dev, cdt, shape, D, iD) and _fits(dev, cdt, (3, *shape), L)):
+        named = (("x", x), ("r", r)) + (() if eps is None else (("eps", eps),))
+        _invalid(name, tuple(shape), dev, *((a, t, F32, ()) for a, t in named),
+                 ("L", L, cdt, (3,)), ("D", D, cdt, ()), ("iD", iD, cdt, ()))
+    return shape
 
 
 def gs_incr_k(x, r, L, D, iD, colors: Sequence[int], omega: float,
@@ -559,26 +644,20 @@ def _gs_incr_launch(x, r, L, D, iD, colors, omega, mp, route=None):
     """`gs_incr_k` on the card, on the route the shape gives (``route`` None)
     or on the one named (`PER_COLOUR`, `CASCADE`), which the kernel tests
     use to hold both routes at any shape."""
-    shape = tuple(x.shape)
     name = "gs_incr_mp_k" if mp else "gs_incr_k"
-    cdt = BF16 if mp else torch.float32
-    _check(name, shape, x.device, x=x, r=r)
-    _check(name, shape, x.device, cdt, L=L, D=D, iD=iD)
-    for arg, t in (("x", x), ("r", r), ("D", D), ("iD", iD)):
-        _lead(name, arg, t, ())
-    _lead(name, "L", L, (3,))
-    cols = _colors(name, colors)
-    lib = _lib()
+    cdt = BF16 if mp else F32
+    shape = _smoother_args(name, cdt, x, r, L, D, iD)
+    carr, ncol = _colours(name, colors)
     if route is None:
-        route = lib.wlt_gs_incr_route(*shape, len(cols), int(mp))
-    carr = (ctypes.c_int * max(1, len(cols)))(*cols)
+        route = _rule("wlt_gs_incr_route", *shape, ncol, int(mp))
     # the per-colour sweeps need a scratch field (none for Jacobi)
-    eps = torch.empty_like(x, dtype=cdt) if cols and route == PER_COLOUR else x
+    eps = torch.empty_like(x, dtype=cdt) if ncol and route == PER_COLOUR else x
     x_out, r_out = torch.empty_like(x), torch.empty_like(r)
-    _launch(name, lib.wlt_gs_incr_mp if mp else lib.wlt_gs_incr, _ptr(x),
-            _ptr(r), _ptr(L), _ptr(D), _ptr(iD), _ptr(eps), _ptr(x_out),
-            _ptr(r_out), carr, len(cols), ctypes.c_float(float(omega)), route,
-            *shape, _stream(x.device))
+    lib = _lib()
+    _launch(name, (lib.wlt_gs_incr_mp if mp else lib.wlt_gs_incr)(
+        x.data_ptr(), r.data_ptr(), L.data_ptr(), D.data_ptr(), iD.data_ptr(),
+        eps.data_ptr(), x_out.data_ptr(), r_out.data_ptr(), carr, ncol,
+        float(omega), route, *shape, _stream(x)))
     return x_out, r_out
 
 
@@ -600,21 +679,17 @@ def gauss_sweeps_k(eps, r, L, iD, colors: Sequence[int],
 def _gauss_sweeps_launch(eps, r, L, iD, colors, perdir, route=None):
     """`gauss_sweeps_k` on the card, on the route the shape gives
     (``route`` None) or on the one named."""
-    shape = tuple(eps.shape)
-    _check("gauss_sweeps_k", shape, eps.device, eps=eps, r=r, L=L, iD=iD)
-    for arg, t in (("eps", eps), ("r", r), ("iD", iD)):
-        _lead("gauss_sweeps_k", arg, t, ())
-    _lead("gauss_sweeps_k", "L", L, (3,))
-    cols = _colors("gauss_sweeps_k", colors)
-    dirs = _dirs("gauss_sweeps_k", perdir)
-    lib = _lib()
+    shape, dev = eps.shape, eps.device
+    if not (len(shape) == 3 and _fits(dev, F32, shape, eps, r, iD)
+            and _fits(dev, F32, (3, *shape), L)):
+        _invalid("gauss_sweeps_k", tuple(shape), dev, ("eps", eps, F32, ()),
+                 ("r", r, F32, ()), ("L", L, F32, (3,)), ("iD", iD, F32, ()))
+    carr, ncol = _colours("gauss_sweeps_k", colors)
+    per, parr, nper = _perdir("gauss_sweeps_k", perdir)
     if route is None:
-        route = lib.wlt_gauss_sweeps_route(*shape, len(cols),
-                                           sum(1 << j for j in dirs))
-    carr = (ctypes.c_int * max(1, len(cols)))(*cols)
-    parr = (ctypes.c_int * max(1, len(dirs)))(*dirs)
+        route = _rule("wlt_gauss_sweeps_route", *shape, ncol, per)
     out = torch.empty_like(eps)        # every cell is written on either route
-    _launch("gauss_sweeps_k", lib.wlt_gauss_sweeps, _ptr(eps), _ptr(out),
-            _ptr(r), _ptr(L), _ptr(iD), carr, len(cols), parr, len(dirs),
-            route, *shape, _stream(eps.device))
+    _launch("gauss_sweeps_k", _lib().wlt_gauss_sweeps(
+        eps.data_ptr(), out.data_ptr(), r.data_ptr(), L.data_ptr(), iD.data_ptr(),
+        carr, ncol, parr, nper, route, *shape, _stream(eps)))
     return out
