@@ -53,6 +53,15 @@ Phases (each prints its own lines; any failure exits non-zero):
       every wrapper on an 18³ level (the copies on 8³ fields) beside
       ``torch.mul``'s on the same tensors, the pieces of a launch and the
       floor of a launch from a C loop;
+   i. ``moving``: ``bench.py``'s oscillating sphere (radius N/8 at (N/3,
+      N/2, N/2), ν = radius/1e3, the map x − (A sin ωt, 0, 0) with A =
+      radius/2, ω = 1/radius) at 128³ and 192³ on the flat engine and at
+      128³ on the 3d engine, 10 steps of ``sim_step(remeasure=True)`` and,
+      on the flat engine, one ``sim_step_n(5, remeasure=True)``: the
+      build, the measure's and the whole step's ms per step (CUDA events
+      around each, steps 3–10), the measure box's cells against the
+      grid's, the measure rounds (more than one: the body escaped its box),
+      ``band_x`` after steps 1, 5 and 10, ``pois_n`` and peak memory;
 5. at small size, 5 steps compared after each (every step's figures are
    printed; held after step 5 to 1e-4·max|u|, 1e-3·max|p| and iteration
    counts within one unless said otherwise): the flat engine with the
@@ -60,6 +69,19 @@ Phases (each prints its own lines; any failure exits non-zero):
    ``plain_ops()``, and against the 3d engine with the kernels, on a 64³
    sphere, a 64³ Taylor–Green vortex, ``examples/sphere_drag.py``'s sphere
    at N = 64 (160×64×64, R = 8) and the 64³ ``les`` and ``ramp`` spheres.
+   The oscillating sphere (``moving``) is compared the same way at 64³,
+   each step after a re-measure, its pressure difference at each cell
+   weighted by the cell's largest face coefficient L (by at most which the
+   pressure moves the flow): a cell that re-enters the fluid with a
+   diagonal D near −2e-6 takes a pressure that the float32 rounding of its
+   residual, times 1/D, sets (0.106·max|p| apart between the kernels and
+   the plain versions after step 5, u within 4e-6·max|u|), and its faces'
+   L near 2e-6 keep that out of the flow; the unweighted difference and
+   its cell are printed too.  At 128³, 3 steps of it re-measured on the
+   box (the flat engine's default) against 3 re-measured densely
+   (``band_measure = False``): μ0, μ1, V and u after each step, printed as
+   equal bit for bit or with the largest difference, held to
+   1e-6·max|·|.
    At N = 32 (R = 4) the drag flow moves u by up to 2e-4·max|u| between two
    float32 rounding orders; at N = 64 by less than 2e-5.  The ``ramp`` is
    held to 1e-4·max|u| after step 1 and to 5e-4 after step 5: from rest its
@@ -80,7 +102,7 @@ Phases (each prints its own lines; any failure exits non-zero):
    c. against float32 smoothing (``sphere-s2``), for the record.
 
 Before its last line it prints one JSON object with each kernel's launches
-(summed over the phase-4 runs a-g), error, times, bound, host µs per call
+(summed over the phase-4 runs a-g and i), error, times, bound, host µs per call
 and the launches of the 4h table (``tool_launches``, kept out of
 ``launches``), and the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Needs no JAX and no network.
@@ -256,6 +278,11 @@ PATH_KERNELS = {
                             "incr_gs_mp_k"},
     ("sphere-s2", "flat"): {"conv_diff_bdim_k", "bdim_k", "mult_k", "gs_incr_k",
                             "incr_gs_k", "bc_div_k", "projbc_k"},
+    # the oscillating sphere re-measured every step: the kernels of the
+    # static sphere (the measure itself runs plain PyTorch)
+    ("moving", "flat"): {"conv_diff_bdim_k", "bdim_k", "mult_k", "gs_incr_k",
+                         "incr_gs_k", "bc_div_k", "projbc_k"},
+    ("moving", "3d"): {"conv_diff_k", "bdim_k", "mult_k", "gs_incr_k"},
     ("probe", "tool"): {"copy_scale_k", "copy_scale6_k"},
     # `tools/launch_cost.py` calls every wrapper
     ("launch", "tool"): set(KERNELS),
@@ -273,7 +300,10 @@ HOST_ROW = {"conv_diff_k": "conv_diff_k", "conv_diff_bdim_k": "conv_diff_bdim_k"
             "copy_scale_k": "copy_scale_k", "copy_scale6_k": "copy_scale6_k"}
 # (configuration, engine) in the order phase 4 runs them
 MAIN_RUNS = [(c, e) for c in ("sphere", "tgv", "drag", "les", "ramp")
-             for e in ("flat", "3d")] + [("sphere-mp", "flat"), ("sphere-s2", "flat")]
+             for e in ("flat", "3d")] + [("sphere-mp", "flat"), ("sphere-s2", "flat"),
+                                         ("moving", "flat"), ("moving", "3d")]
+# the grids of the moving runs, per engine
+MOVING_SIZES = {"flat": (128, 192), "3d": (128,)}
 
 
 class SmokeError(RuntimeError):
@@ -717,6 +747,23 @@ def ramp_sim(torch, wt, n: int, dev, **kw):
                          body=body, dtype=torch.float32, device=dev, **kw)
 
 
+def moving_sim(torch, wt, n: int, dev, **kw):
+    """`bench.py`'s moving rung: the sphere of `sphere_sim` oscillating in x
+    under the map x − (A sin ωt, 0, 0), A = radius/2, ω = 1/radius."""
+    radius = n // 8
+    ctr = torch.tensor([n / 3, n / 2, n / 2], dtype=torch.float32, device=dev)
+    amp, om = radius / 2.0, 1.0 / radius
+
+    def sdf(x, t):
+        return torch.sqrt(torch.sum((x - ctr) ** 2)) - radius
+
+    def map_fn(x, t):
+        return x - torch.stack([amp * torch.sin(om * t), 0 * t, 0 * t])
+    return wt.Simulation((n, n, n), (1.0, 0.0, 0.0), radius, nu=radius / 1e3,
+                         body=wt.AutoBody(sdf, map_fn), dtype=torch.float32,
+                         device=dev, **kw)
+
+
 def make_sim(torch, wt, config: str, n: int, dev, **kw):
     """The `Simulation` of a configuration at size ``n`` and the ``udf`` its
     steps take."""
@@ -728,6 +775,8 @@ def make_sim(torch, wt, config: str, n: int, dev, **kw):
         return les_sim(torch, wt, n, dev, **kw), les_udf()
     if config == "ramp":
         return ramp_sim(torch, wt, n, dev, **kw), None
+    if config == "moving":
+        return moving_sim(torch, wt, n, dev, **kw), None
     if config in ("sphere-mp", "sphere-s2"):
         kw = dict(kw, smooth_it=2, mp_smooth=config == "sphere-mp")
     return sphere_sim(torch, wt, n, dev, **kw), None
@@ -908,6 +957,121 @@ def phase_main(torch, wt, st, dev, config: str, engine: str):
                 build_s=build_s, pois_n=pois)
 
 
+def time_measure(torch, sim, events: list) -> None:
+    """Record CUDA events around every ``sim.measure()`` from now on, with
+    the rounds it took, into ``events`` (an instance attribute in front of
+    the method, which `step_once` calls)."""
+    measure = sim.measure
+
+    def timed(t=None):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        measure(t)
+        b.record()
+        events.append((a, b, sim.measure_rounds))
+    sim.measure = timed
+
+
+def box_cells(cfg) -> tuple[int, int]:
+    """Cells of the measure box ``cfg.band_box`` (the grid's interior when
+    there is none) and of the grid's interior."""
+    grid = math.prod(n - 2 for n in cfg.shape)
+    if cfg.band_box is None:
+        return grid, grid
+    return math.prod(hi - lo for lo, hi in cfg.band_box), grid
+
+
+def phase_moving(torch, st, wt, dev, engine: str):
+    """The oscillating sphere at each size of ``MOVING_SIZES[engine]``:
+    ``STEPS`` re-measured steps (and on the flat engine one
+    ``sim_step_n(5, remeasure=True)``), the measure and the step timed
+    apart; the launch counts of all its steps."""
+    total = collections.Counter()
+    out = {}
+    for n in MOVING_SIZES[engine]:
+        tag = f"phase4 moving [{engine}] {n}^3"
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sim, _ = make_sim(torch, wt, "moving", n, dev, engine=engine)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        check(sim.engine == engine, f"{tag}: Simulation runs engine {sim.engine}")
+        cfg = sim.flow.cfg
+        cells, grid = box_cells(cfg)
+        print(f"{tag} build {cfg.shape}: {build_s:.2f} s, band_x {cfg.band_x}, "
+              f"band_box {cfg.band_box}, box cells {cells} of {grid}", flush=True)
+        meas, steps, bands, boxes = [], [], {}, []
+        time_measure(torch, sim, meas)
+        st.reset_launch_counts()
+        for k in range(1, STEPS + 1):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            sim.sim_step(remeasure=True)
+            b.record()
+            steps.append((a, b))
+            boxes.append(box_cells(sim.flow.cfg)[0])
+            if k in (1, 5, STEPS):
+                bands[k] = sim.flow.cfg.band_x
+        n_loop = len(sim.pois_n)
+        if engine == "flat":
+            sim.sim_step_n(5, remeasure=True)
+        torch.cuda.synchronize()
+        counts = st.launch_counts()
+        total.update(counts)
+        peak = torch.cuda.max_memory_allocated()
+        meas_ms = [a.elapsed_time(b) for a, b, _ in meas]
+        step_ms = [a.elapsed_time(b) for a, b in steps]
+        rounds = [r for _, _, r in meas]
+        m_mean, s_mean = statistics.mean(meas_ms[2:STEPS]), statistics.mean(step_ms[2:])
+        u, p = sim.flow.u, sim.flow.p
+        print(f"{tag} measure ms/step (steps 3-{STEPS}, mean) {m_mean:.3f}, step "
+              f"ms/step (measure included) {s_mean:.3f}, measure share "
+              f"{m_mean / s_mean:.3f}; per step measure "
+              f"{[round(t, 3) for t in meas_ms[:STEPS]]}, step "
+              f"{[round(t, 3) for t in step_ms]}", flush=True)
+        print(f"{tag} box cells per step {boxes} of {grid}; "
+              f"measure rounds per call {rounds}; band_x after steps "
+              f"{bands}; after sim_step_n {sim.flow.cfg.band_x}", flush=True)
+        print(f"{tag} pois_n {sim.pois_n}; dt {[round(d, 5) for d in sim.flow.dt]}; "
+              f"max|V_x| {sim.flow.state.V[0].abs().max().item():.5f}; "
+              f"max_memory_allocated {peak} B ({peak / 2**30:.3f} GiB)", flush=True)
+        print(f"{tag} launch counts {counts}", flush=True)
+        itmx = sim.flow.cfg.itmx
+        check(tuple(u.shape) == (3,) + cfg.shape and tuple(p.shape) == cfg.shape,
+              f"{tag}: wrong field shapes")
+        check(bool(torch.isfinite(u).all()) and bool(torch.isfinite(p).all()),
+              f"{tag}: u or p not finite")
+        check(all(0.0 < d <= 10.0 for d in sim.flow.dt), f"{tag}: dt out of (0, 10]")
+        check(n_loop == 2 * STEPS and len(sim.pois_n) == n_loop
+              + (10 if engine == "flat" else 0)
+              and all(1 <= i <= itmx for i in sim.pois_n),
+              f"{tag}: a pressure solve left [1, itmx={itmx}]: {sim.pois_n}")
+        check(len(meas) == STEPS + (5 if engine == "flat" else 0)
+              and all(1 <= r <= 8 for r in rounds), f"{tag}: measure calls {rounds}")
+        # the body's velocity is A·ω·cos(ωt) ≤ 0.5 in x and nothing else
+        vmax = sim.flow.state.V.abs().amax(dim=(1, 2, 3)).tolist()
+        check(0.0 < vmax[0] <= 0.5 * (1 + 1e-5) and max(vmax[1:]) <= 1e-6 * vmax[0],
+              f"{tag}: body velocity {vmax}")
+        if engine == "flat":
+            check(sim.flow.cfg.band_x is not None and all(
+                1 <= lo < hi <= m - 1 for (lo, hi), m in zip(sim.flow.cfg.band_box,
+                                                               cfg.shape)),
+                  f"{tag}: band {sim.flow.cfg.band_box}")
+        for key, c in counts.items():
+            if key in PATH_KERNELS[("moving", engine)]:
+                check(c > 0, f"{tag}: kernel {key} was not launched")
+            else:
+                check(c == 0, f"{tag}: kernel {key} of another path was launched")
+        out[n] = dict(measure_ms=m_mean, step_ms=s_mean, peak=peak, build_s=build_s,
+                      rounds=rounds, pois_n=list(sim.pois_n))
+        del sim, u, p
+    return dict(counts=total, sizes=out)
+
+
 def phase_probe(torch, st):
     """`tools/bandwidth_probe.py`, run through its own entry point with its
     own launch counts."""
@@ -964,7 +1128,7 @@ def phase_launch(torch, st):
 
 # ------------------------------------------------------------ phase 5
 SMALL = {"sphere": 64, "tgv": 64, "drag": 64, "les": 64, "ramp": 64,
-         "sphere-mp": 64}
+         "sphere-mp": 64, "moving": 64}
 MP_KERNELS = ("gs_incr_mp_k", "incr_gs_mp_k")
 # (configuration, run compared with): the comparisons held, each the step
 # after which it is made, its limits relative to max|u| and max|p|, and by
@@ -979,6 +1143,15 @@ HELD = {
     ("sphere-mp", "flat-plain"): ((1, 5e-4, 1e-3, 1),),
     ("sphere-mp", "flat-f32"): (),
 }
+
+
+def face_weight(L):
+    """The largest coefficient L of each cell's faces: a pressure difference
+    at a cell moves the flow only through L·∇p, by at most this factor."""
+    w = L.amax(dim=0)
+    for d in range(L.shape[0]):
+        w = w.maximum(L[d].roll(-1, d))
+    return w
 
 
 def phase_compare(torch, wt, st, dev, config: str, n: int):
@@ -1001,19 +1174,29 @@ def phase_compare(torch, wt, st, dev, config: str, n: int):
     sims = {mode: make_sim(torch, wt, cfg_o, n, dev, engine=engine)[0]
             for mode, (cfg_o, engine, _) in others.items()}
     shape, failures = k.flow.cfg.shape, []
+    remeasure = config == "moving"
     for step in range(1, 6):
-        k.sim_step(remeasure=False, udf=udf)
+        k.sim_step(remeasure=remeasure, udf=udf)
         for mode, o in sims.items():
             with others[mode][2]():
-                o.sim_step(remeasure=False, udf=udf)
+                o.sim_step(remeasure=remeasure, udf=udf)
             du = (k.flow.u - o.flow.u).abs().max().item()
             dp = (k.flow.p - o.flow.p).abs().max().item()
             su, sp = o.flow.u.abs().max().item(), o.flow.p.abs().max().item()
+            if remeasure:
+                dp_all, diff = dp, (k.flow.p - o.flow.p).abs()
+                dp = (diff * face_weight(o.levels[0].L)).max().item()
+                at = tuple(int(i) for i in torch.unravel_index(diff.argmax(), diff.shape))
+                where = (f"; the unweighted largest at {at}: p {k.flow.p[at].item():.6g} "
+                         f"vs {o.flow.p[at].item():.6g}, iD {o.levels[0].iD[at].item():.6g}, "
+                         f"largest face L {face_weight(o.levels[0].L)[at].item():.3g}")
             held = next((h for h in HELD.get((config, mode), HELD_DEFAULT)
                          if h[0] == step), None)
             print(f"phase5 {config} {shape} step {step}, flat vs {mode}: pois_n "
                   f"{k.pois_n[-2:]} vs {o.pois_n[-2:]}; max|du|/max|u|="
                   f"{du / su:.3e}, max|dp|/max|p|={dp / sp:.3e}"
+                  + (f" (weighted by the cell's largest face L; unweighted "
+                     f"{dp_all / sp:.3e}{where})" if remeasure else "")
                   + (f" (held to {held[1]:.0e}, {held[2]:.0e}, "
                      f"iterations within {held[3]})" if held else ""), flush=True)
             if held is None:
@@ -1026,6 +1209,34 @@ def phase_compare(torch, wt, st, dev, config: str, n: int):
                 failures.append(f"{config}: u of flat differs from {mode}")
             if not dp <= held[2] * sp:
                 failures.append(f"{config}: p of flat differs from {mode}")
+    torch.cuda.synchronize()
+    return failures
+
+
+def phase_band_check(torch, wt, dev, n: int = 128, steps: int = 3):
+    """The oscillating sphere at n³ re-measured on its box against the same
+    run re-measured densely: μ0, μ1, V and u after each step, equal bit for
+    bit or within 1e-6 of max|·|.  Returns the comparisons that failed."""
+    box, _ = make_sim(torch, wt, "moving", n, dev, engine="flat")
+    dense, _ = make_sim(torch, wt, "moving", n, dev, engine="flat")
+    dense.band_measure = False
+    failures = []
+    for step in range(1, steps + 1):
+        box.sim_step(remeasure=True)
+        dense.sim_step(remeasure=True)
+        parts = []
+        for name in ("mu0", "mu1", "V", "u"):
+            a, b = getattr(box.flow.state, name), getattr(dense.flow.state, name)
+            diff = (a - b).abs().max().item()
+            scale = b.abs().max().item()
+            parts.append(f"{name} " + ("equal bit for bit" if torch.equal(a, b) else
+                                       f"max|diff| {diff:.3e} = {diff / scale:.3e} of max"))
+            if not diff <= 1e-6 * scale:
+                failures.append(f"moving box vs dense measure: {name} at step {step}")
+        print(f"phase5 moving {box.flow.cfg.shape} step {step}, box vs dense measure: "
+              + "; ".join(parts) + f"; pois_n {box.pois_n[-2:]} vs {dense.pois_n[-2:]}; "
+              f"band_x {box.flow.cfg.band_x} vs {dense.flow.cfg.band_x}; box cells "
+              "{} of {}".format(*box_cells(box.flow.cfg)), flush=True)
     torch.cuda.synchronize()
     return failures
 
@@ -1060,7 +1271,8 @@ def main() -> int:
     check_build(_build)
 
     stats = phase_kernels(torch, np, wt, dev)
-    runs = {(c, e): phase_main(torch, wt, st, dev, c, e) for c, e in MAIN_RUNS}
+    runs = {(c, e): phase_moving(torch, st, wt, dev, e) if c == "moving"
+            else phase_main(torch, wt, st, dev, c, e) for c, e in MAIN_RUNS}
     a, b = runs[("sphere-mp", "flat")], runs[("sphere-s2", "flat")]
     print(f"phase4 smooth_it=2, bf16 smoothing vs float32: ms/step "
           f"{a['ms_step']:.3f} vs {b['ms_step']:.3f}; pois_n {a['pois_n']} vs "
@@ -1078,6 +1290,7 @@ def main() -> int:
           f"phase4: a kernel was launched by no path: {launches}")
     failures = [f for config in SMALL
                 for f in phase_compare(torch, wt, st, dev, config, SMALL[config])]
+    failures += phase_band_check(torch, wt, dev)
     check(not failures, f"phase5: {'; '.join(failures)}")
 
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,

@@ -288,6 +288,36 @@ def sphere(n, dev, body=True, **kw):
                          device=dev, **kw)
 
 
+@pytest.mark.parametrize("speed", [0.5, 4.0])
+def test_moving_body_box_measure(dev, speed):
+    """A translating sphere re-measured every step on the card: the flat
+    engine's box measure gives the run of the dense measure (μ0, μ1, V bit
+    for bit; u within 1e-6 of max, where a widened box moves K1's band),
+    launches the static sphere's kernels, and at speed 4 widens its box."""
+    def make():
+        ctr = torch.tensor([12.0, 16.0, 16.0], device=dev)
+        body = wt.AutoBody(lambda x, t: torch.sqrt(torch.sum((x - ctr) ** 2)) - 4.0,
+                           lambda x, t: x - torch.stack([speed * t, 0 * t, 0 * t]))
+        return wt.Simulation((48, 32, 32), (1.0, 0.0, 0.0), 4.0, nu=0.004,
+                             body=body, device=dev)
+    box, dense = make(), make()
+    dense.band_measure = False
+    assert box.engine == "flat"
+    rounds = []
+    st.reset_launch_counts()
+    for _ in range(4):
+        box.sim_step()
+        rounds.append(box.measure_rounds)
+    n = st.launch_counts()
+    assert n["conv_diff_bdim_k"] == 8 and n["bdim_k"] == 8 and n["projbc_k"] == 8
+    for _ in range(4):
+        dense.sim_step()
+    for name in ("mu0", "mu1", "V"):
+        assert torch.equal(getattr(box.flow.state, name), getattr(dense.flow.state, name))
+    assert rel_err(box.flow.u, dense.flow.u) <= 1e-6
+    assert (max(rounds) > 1) == (speed == 4.0), rounds
+
+
 def test_flat_engine_routing(dev):
     sim = sphere(32, dev)
     assert sim.engine == "flat" and sim.flow.cfg.band_x is not None

@@ -5,8 +5,8 @@
 Gates: the build's V, μ0, μ1 and level stack at 1e-12 (iD, which holds
 1/D for tiny D, at rel 1e-12); a 5-step trajectory with equal `pois_n`, dt
 history rel 1e-10, u atol 1e-9 and p atol 1e-8.  Also: the options outside
-the ported slices (`psolver="pcg"`, `flow_ctor`, `sim_step_n(remeasure=True)`)
-raise `NotImplementedError`.  Every port object is built
+the ported slices (`psolver="pcg"`, `flow_ctor`) raise
+`NotImplementedError`.  Every port object is built
 with ``device="cpu"`` (the entry points default to the card)."""
 import numpy as np
 import pytest
@@ -120,9 +120,3 @@ def test_no_body_uniform_flow_stays_uniform():
 def test_unsupported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Simulation((16, 8), (1.0, 0.0), 4.0, dtype=F64, device="cpu", **kw)
-
-
-def test_unsupported_stepping_raises():
-    sim = Simulation((16, 8), (1.0, 0.0), 4.0, dtype=F64, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sim.sim_step_n(1, remeasure=True)

@@ -9,15 +9,19 @@ one of ``sphere`` (the 256³ static sphere of ``bench.py``), ``tgv``
 N = 128), ``les`` (``examples/les_sharded.py``'s sphere at 256³ with the
 Smagorinsky udf), ``ramp`` (the 256³ sphere with a callable ``ubc`` and
 ``g``) and ``sphere-mp``/``sphere-s2`` (the 256³ sphere with ``smooth_it=2``
-with and without bf16 smoothing); the default runs the first three on both
-engines.  Each is built with ``Simulation`` as
-``chip_smoke.py`` builds it, stepped ``WARM`` times, then ``STEPS`` steps
-run unprofiled (CUDA events around each ``sim_step``, ``synchronize``
-after) and ``STEPS`` more under ``torch.profiler``.  Printed per config:
-wall ms/step unprofiled, device busy ms/step (the union of the kernel
-intervals of the profiled window), the idle share against the profiled
-wall, device operations per step, and the ten kernels with the most device
-time.  Needs a CUDA device; imports no JAX.
+with and without bf16 smoothing) and ``moving`` (``bench.py``'s oscillating
+sphere at 128³, each step re-measured: ``sim_step(remeasure=True)``); the
+default runs the first three on both engines.  Each is built with
+``Simulation`` as ``chip_smoke.py`` builds it, stepped ``WARM`` times, then
+``STEPS`` steps run unprofiled (host clock around each ``sim_step`` up to a
+``synchronize``) and ``STEPS`` more under ``torch.profiler``.  Printed per
+config: wall ms/step unprofiled, device busy ms/step (the union of the
+kernel intervals of the profiled window), the idle share against the
+profiled wall, device operations per step, and the ten kernels with the
+most device time.  For ``moving`` the same is printed first for ``STEPS``
+calls of the re-measure alone (``sim.measure()``, what each step runs
+before its momentum step), so the measure and the step read apart.  Needs a
+CUDA device; imports no JAX.
 
     PYTHONPATH=. python3 tools/profile_torch_step.py --against ROOT [config ...]
 
@@ -27,7 +31,8 @@ of the checkout at ``ROOT`` (imported under another name by
 and then times ``STEPS`` unprofiled steps of each in turns, ``ROUNDS``
 rounds with the order swapped every round: both walls of every round, their
 medians and the median of the paired differences (this − other).  No
-profile is taken in this mode.
+profile is taken in this mode.  ``moving`` steps re-measured in both (a
+checkout without the box measure re-measures densely).
 """
 from __future__ import annotations
 
@@ -55,16 +60,56 @@ def busy_ms(events) -> float:
     return total / 1e3
 
 
-def walls_ms(torch, sim, udf) -> list[float]:
-    """The walls of ``STEPS`` steps, each timed on the host clock up to a
-    ``synchronize``."""
+def size(case: str) -> int:
+    """The grid of a case: the drag sphere at N = 128, the moving rung at
+    128³, the rest at 256³."""
+    return 128 if case in ("drag", "moving") else 256
+
+
+def walls_ms(torch, fn) -> list[float]:
+    """The walls of ``STEPS`` calls of ``fn``, each timed on the host clock
+    up to a ``synchronize``."""
     walls = []
     for _ in range(STEPS):
         t0 = time.perf_counter()
-        sim.sim_step(remeasure=False, udf=udf)
+        fn()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     return walls
+
+
+def stepper(sim, udf, case: str):
+    """One step of a case: re-measured for ``moving``."""
+    return lambda: sim.sim_step(remeasure=case == "moving", udf=udf)
+
+
+def profiled(torch, label: str, fn, note) -> None:
+    """``STEPS`` unprofiled calls of ``fn``, then ``STEPS`` under the
+    profiler, and the line and top-ten kernels of the module docstring."""
+    from torch.profiler import ProfilerActivity, profile
+
+    walls = walls_ms(torch, fn)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            fn()
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = busy_ms(dev_events) / STEPS
+    per_name: dict[str, float] = {}
+    for e in dev_events:
+        per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
+    print(f"{label}: wall ms/step unprofiled {statistics.mean(walls):.3f} "
+          f"{[round(w, 3) for w in walls]}; profiled wall "
+          f"{prof_wall / STEPS:.3f}; device busy {busy:.3f} ms/step; idle "
+          f"share {1 - busy / (prof_wall / STEPS):.3f}; device ops/step "
+          f"{len(dev_events) / STEPS:.1f}; {note()}", flush=True)
+    for name, ms in top:
+        print(f"    {ms / STEPS:8.3f} ms/step  {name[:100]}", flush=True)
+    del prof
 
 
 def against(torch, cs, pkgs: dict, configs, dev) -> None:
@@ -72,16 +117,17 @@ def against(torch, cs, pkgs: dict, configs, dev) -> None:
     and stepped in turns (module docstring)."""
     for cfg in configs:
         engine, case = cfg.split(":")
-        sims = {label: cs.make_sim(torch, wt, case, 128 if case == "drag" else 256,
-                                   dev, engine=engine) for label, wt in pkgs.items()}
-        for sim, udf in sims.values():
+        sims = {label: cs.make_sim(torch, wt, case, size(case), dev, engine=engine)
+                for label, wt in pkgs.items()}
+        steps = {label: stepper(sim, udf, case) for label, (sim, udf) in sims.items()}
+        for step in steps.values():
             for _ in range(WARM):
-                sim.sim_step(remeasure=False, udf=udf)
+                step()
         torch.cuda.synchronize()
         labels, walls = list(pkgs), {label: [] for label in pkgs}
         for i in range(ROUNDS):
             for label in labels if i % 2 == 0 else labels[::-1]:
-                walls[label].append(statistics.mean(walls_ms(torch, *sims[label])))
+                walls[label].append(statistics.mean(walls_ms(torch, steps[label])))
         a, b = labels
         diff = statistics.median(x - y for x, y in zip(walls[a], walls[b]))
         print(f"{cfg}: wall ms/step in turns, " + "; ".join(
@@ -95,7 +141,6 @@ def against(torch, cs, pkgs: dict, configs, dev) -> None:
 
 def main(argv) -> int:
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("profile_torch_step: needs a CUDA device", file=sys.stderr)
@@ -118,34 +163,16 @@ def main(argv) -> int:
         return 0
     for cfg in configs:
         engine, case = cfg.split(":")
-        sim, udf = cs.make_sim(torch, wt, case, 128 if case == "drag" else 256,
-                               dev, engine=engine)
+        sim, udf = cs.make_sim(torch, wt, case, size(case), dev, engine=engine)
+        step = stepper(sim, udf, case)
         for _ in range(WARM):
-            sim.sim_step(remeasure=False, udf=udf)
+            step()
         torch.cuda.synchronize()
-        walls = walls_ms(torch, sim, udf)
-        n0 = len(sim.pois_n)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(STEPS):
-                sim.sim_step(remeasure=False, udf=udf)
-            torch.cuda.synchronize()
-            prof_wall = (time.perf_counter() - t0) * 1e3
-        dev_events = [e for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = busy_ms(dev_events) / STEPS
-        per_name: dict[str, float] = {}
-        for e in dev_events:
-            per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-        top = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
-        print(f"{cfg}: wall ms/step unprofiled {statistics.mean(walls):.3f} "
-              f"{[round(w, 3) for w in walls]}; profiled wall "
-              f"{prof_wall / STEPS:.3f}; device busy {busy:.3f} ms/step; idle "
-              f"share {1 - busy / (prof_wall / STEPS):.3f}; device ops/step "
-              f"{len(dev_events) / STEPS:.1f}; pois_n {sim.pois_n[n0:]}", flush=True)
-        for name, ms in top:
-            print(f"    {ms / STEPS:8.3f} ms/step  {name[:100]}", flush=True)
-        del sim, prof
+        if case == "moving":
+            profiled(torch, f"{cfg} measure alone", sim.measure,
+                     lambda: f"box {sim.flow.cfg.band_box}")
+        profiled(torch, cfg, step, lambda: f"pois_n {sim.pois_n[-2 * STEPS:]}")
+        del sim
         torch.cuda.empty_cache()
     return 0
 

@@ -1,7 +1,8 @@
 """waterlily_tpu_torch — the PyTorch + CUDA port of `waterlily_tpu`.
 
-The single-device flow past a static immersed body with the multigrid
-pressure solver, on dense ``(D, Nx, Ny, Nz)`` tensors, with periodic
+The single-device flow past a static or moving immersed body (`AutoBody`
+with a map callable or a `RigidMap`, CSG `SetBody`, re-measured on a box
+around the body) with the multigrid pressure solver, on dense ``(D, Nx, Ny, Nz)`` tensors, with periodic
 directions, the convective outlet, a callable initial or boundary velocity,
 a body force, the ``udf`` forcing hook (`utils.les` is the Smagorinsky LES)
 and mixed-precision smoothing, stepped by the generic engine (`models.flow`,
@@ -14,7 +15,8 @@ reference every part is tested against.  Entry points run on the card unless the
 ``device="cpu"``.  This package imports torch and numpy, never JAX.
 """
 from .models import (AutoBody, Body, Flow, FlowCfg, FlowState,  # noqa: F401
-                     NoBody, cds, flowflat, measure_fill, measure_sdf, quick,
+                     NoBody, RigidMap, SetBody, cds, curvature, flowflat,
+                     measure_fill, measure_sdf, quick, rotation, setmap,
                      vanleer)
 from .ops import (bc, fused3d, grid, mgflat, multigrid, poisson,  # noqa: F401
                   probe, stencil3d)

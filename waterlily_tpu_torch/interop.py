@@ -12,9 +12,10 @@ import numpy as np
 import torch
 
 from .models.flow import FlowState
+from .models.rigidmap import RigidMap
 from .ops.poisson import PoissonLevel
 
-__all__ = ["flow_state_from_numpy", "levels_from_numpy"]
+__all__ = ["flow_state_from_numpy", "levels_from_numpy", "rigidmap_from_numpy"]
 
 _FIELDS = ("u", "u0", "p", "V", "mu0", "mu1", "nu")
 
@@ -45,3 +46,17 @@ def levels_from_numpy(levels: Sequence[Sequence], device,
                      _tensor(iD, device, dtype),
                      None if Ainv is None else _tensor(Ainv, device, dtype))
         for L, D, iD, Ainv in levels)
+
+
+_MAP_FIELDS = ("x0", "theta", "xp", "V", "omega")
+
+
+def rigidmap_from_numpy(params: Mapping[str, np.ndarray], device,
+                        dtype: torch.dtype) -> RigidMap:
+    """A `RigidMap` from ``{x0, theta, xp, V, omega}`` numpy arrays (the
+    parameters of the JAX `RigidMap`; R follows from theta), so that the
+    same moving body steps in both packages."""
+    missing = [k for k in _MAP_FIELDS if k not in params]
+    if missing:
+        raise KeyError(f"rigidmap_from_numpy: missing fields {missing}")
+    return RigidMap(**{k: _tensor(params[k], device, dtype) for k in _MAP_FIELDS})

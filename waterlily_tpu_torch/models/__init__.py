@@ -1,4 +1,5 @@
-from . import autobody, body, flow, flowflat  # noqa: F401
-from .autobody import AutoBody
-from .body import Body, NoBody, measure_fill, measure_sdf
+from . import autobody, body, flow, flowflat, rigidmap  # noqa: F401
+from .autobody import AutoBody, curvature
+from .body import Body, NoBody, SetBody, measure_fill, measure_sdf
 from .flow import Flow, FlowCfg, FlowState, cds, quick, vanleer
+from .rigidmap import RigidMap, rotation, setmap

@@ -80,6 +80,9 @@ class FlowCfg:
     # but the face-1 planes, μ1 = 0, V = 0): the flat engine runs the full
     # BDIM on that slab only; set by `Simulation` from the measure
     band_x: Optional[tuple[int, int]] = None
+    # per-dim padded-index [lo, hi) box of the moving-body re-measure
+    # (`body.measure_fill(band_box=)`), kept by `Simulation` beside band_x
+    band_box: Optional[tuple[tuple[int, int], ...]] = None
     # mixed-precision smoothing on the flat engine in float32 with no
     # periodic direction: bf16 coefficients and correction, f32 x and r
     # (`fused3d.incr_gs_k(mp=True)`); ignored elsewhere, as in the JAX package

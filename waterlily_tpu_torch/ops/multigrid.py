@@ -15,7 +15,7 @@ face), the smoothers and increments refresh periodic ghosts, the dense
 coarse pseudo-inverse is that of the periodic operator, and the solution's
 periodic ghosts are refreshed after the gauge.  The distributed branches and
 the implicit-JVP wrapper `solve_mg_implicit` (whose forward pass is
-`solve_mg`) are not ported yet (ROADMAP queue 1, items 12 and 14).
+`solve_mg`) are not ported yet (ROADMAP queue 1, [dist] and [ad]).
 """
 from __future__ import annotations
 

@@ -17,7 +17,7 @@ count is the interior cell count).  With ``perdir`` the Jacobi smoother is
 the plain increment (its A·x is K16) and the red-black smoother is K13's
 colour sweeps then the increment, as in the JAX `poisson.py:134,163-172`;
 without it both are K15.  The PCG solver is not ported yet (ROADMAP queue
-1, item 13).
+1, [pcg]).
 """
 from __future__ import annotations
 

@@ -10,10 +10,17 @@ Supported: the multigrid solver, a constant or callable boundary velocity
 ``ubc(i, x, t)``, a body force ``g(i, x, t)``, the ``udf`` forcing hook of the
 step (`utils.les.sgs` is one), periodic directions (``perdir``), the
 convective outlet (``exit_bc``), a constant or callable initial velocity
-``u0``, static or moving `AutoBody` geometry re-measured densely, and
+``u0``, static or moving bodies (`AutoBody` with a map callable or a
+`RigidMap`, CSG `SetBody`) re-measured at every step that asks for it, and
 mixed-precision smoothing (``mp_smooth``) on the flat engine.  `sim_step_n`
-is a host loop over `step_once`.  Every tensor lives on ``device``, the card
-unless the caller asks for the CPU.
+is a host loop over `step_once`, with or without the re-measure.  Every
+tensor lives on ``device``, the card unless the caller asks for the CPU.
+
+The flat engine re-measures a body on the box ``cfg.band_box`` around it
+and widens the box when the body reaches a face (`Simulation.measure`, the
+JAX package's escape loop); the 3d engine re-measures densely, as in JAX.
+Unlike the JAX package's scan, nothing is deferred: after every step the
+state, ``levels`` and the bf16 level copies belong to the step's end time.
 
 Two engines step the flow, as in the JAX package: ``engine="3d"`` runs
 `flow.mom_step_impl` (the generic engine, kernels of `ops/stencil3d.py`),
@@ -78,26 +85,31 @@ def _as_dtype(v: float, dtype: torch.dtype) -> float:
 
 
 def _band_box(V: torch.Tensor, mu0: torch.Tensor, mu1: torch.Tensor,
-              perdir: tuple[int, ...] = ()) -> torch.Tensor:
+              perdir: tuple[int, ...] = (), box=None) -> torch.Tensor:
     """Per-dim padded-index ``[lo, hi)`` bounds of the interior cells whose
     BDIM moments deviate from the far field: μ1 = 0, V = 0, and μ0 = 1 but
     on the face-1 plane of each non-periodic direction, which the
-    measure-time BC fill zeroes (the JAX `_band_box`, `simulation.py:145-186`,
-    no box).  A ``(D, 2)`` int tensor; dim d reads ``(shape[d], 0)`` when
+    measure-time BC fill zeroes (the JAX `_band_box`,
+    `simulation.py:145-186`).  ``box`` (per-dim pairs or None) restricts the
+    search to the box of a banded measure, outside which the far field is
+    exact.  A ``(D, 2)`` int tensor; dim d reads ``(shape[d], 0)`` when
     nothing deviates."""
     D, shape = mu0.shape[0], tuple(mu0.shape[1:])
-    sl = (slice(None),) + tuple(slice(1, n - 1) for n in shape)
+    box = (None,) * D if box is None else box
+    bounds = [(1, n - 1) if bd is None else (max(1, int(bd[0])), min(n - 1, int(bd[1])))
+              for n, bd in zip(shape, tuple(box) + (None,) * (D - len(box)))]
+    sl = (slice(None),) + tuple(slice(a, b) for a, b in bounds)
     m0 = mu0[sl]
     exp = torch.ones_like(m0)
     for d in range(D):
-        if d not in perdir:
+        if d not in perdir and bounds[d][0] == 1:
             exp[(d,) + (slice(None),) * d + (0,)] = 0.0
     dev_cell = ((m0 != exp).any(dim=0) | (V[sl] != 0).any(dim=0)
                 | (mu1[(slice(None),) + sl] != 0).flatten(0, 1).any(dim=0))
     out = []
     for d in range(D):
         dev = dev_cell.any(dim=tuple(k for k in range(D) if k != d))
-        ix = torch.arange(1, shape[d] - 1, device=dev.device)
+        ix = torch.arange(*bounds[d], device=dev.device)
         out.append(torch.stack([torch.where(dev, ix, shape[d]).min(),
                                 torch.where(dev, ix + 1, 0).max()]))
     return torch.stack(out)
@@ -121,7 +133,12 @@ class Simulation:
     lists the periodic directions (0-based), ``exit_bc`` puts the convective
     outlet on the x-high face, ``u0`` is a constant tuple or a callable
     ``u0(i, x)`` written with torch ops.  ``device`` defaults to the card
-    (``"cuda"``); CPU callers pass ``device="cpu"``."""
+    (``"cuda"``); CPU callers pass ``device="cpu"``.
+
+    ``band_measure`` (True) lets the flat engine re-measure on the box
+    ``cfg.band_box``; set it False for the dense measure it must equal.
+    ``measure_rounds`` is the number of `measure_fill` calls the last
+    `measure` made (more than one when the body escaped its box)."""
 
     def __init__(self, dims, ubc, L, *, U=None, dt=0.25, nu=0.0,
                  g: Optional[Callable] = None, eps: float = 1.0,
@@ -143,12 +160,12 @@ class Simulation:
         check_fn(u0, D, dtype, 2, "u0")
         if flow_ctor is not None:
             raise NotImplementedError(
-                "flow_ctor is not ported yet: ROADMAP queue 1, item 13 "
+                "flow_ctor is not ported yet: ROADMAP queue 1, [pcg] "
                 "(solver injection)")
         if psolver != "mg":
             raise NotImplementedError(
                 f"psolver={psolver!r} is not ported yet: ROADMAP queue 1, "
-                "item 13 (solver injection)")
+                "[pcg] (solver injection)")
         if U is None:
             if callable(ubc):
                 raise ValueError("U (velocity scale) must be given when ubc "
@@ -177,6 +194,8 @@ class Simulation:
                             else min_coarse_cells)
         self.masks = tuple(mg.level_shapes(cfg.shape,
                                            min_cells=self._min_coarse)[1])
+        self.band_measure = True
+        self.measure_rounds = 0
         if isinstance(self.body, NoBody):
             self.levels = self._levels(self.flow.state.mu0)
         else:
@@ -200,21 +219,54 @@ class Simulation:
     # ------------------------------------------------------------- stepping
     def measure(self, t: Optional[float] = None):
         """Measure the body and rebuild the multigrid coefficients
-        (`measure!(sim)`, `WaterLily.jl:146-149`), densely over the grid."""
+        (`measure!(sim)`, `WaterLily.jl:146-149`) at time ``t`` (default:
+        the end of the next step).  On the flat engine, with a box known,
+        the measure runs on ``cfg.band_box``; when the deviating cells reach
+        a box face that is not the domain's, the box widens by
+        2·`_BAND_PAD` and the measure runs again, and when the box holds no
+        deviating cell a dense measure relocates the body, at most 8 rounds
+        (the JAX `measure`, `simulation.py:449-530`).  One host read of the
+        band bounds per round."""
         if isinstance(self.body, NoBody):
             return
         cfg = self.flow.cfg
         if t is None:
             t = self.time + self.flow.dt[-1]
-        V, mu0, mu1, _ = measure_fill(self.body, cfg.shape,
-                                      _as_dtype(t, cfg.dtype), float(self.eps),
-                                      cfg.dtype, self.device, cfg.perdir,
-                                      cfg.exit_bc)
+        t = _as_dtype(t, cfg.dtype)
+        flat = self.engine == "flat"
+        band = None
+        for rounds in range(1, 9):
+            box = cfg.band_box if flat and self.band_measure else None
+            V, mu0, mu1, _ = measure_fill(self.body, cfg.shape, t,
+                                          float(self.eps), cfg.dtype,
+                                          self.device, cfg.perdir, cfg.exit_bc,
+                                          band_box=box)
+            if not flat:
+                break
+            band = _band_box(V, mu0, mu1, cfg.perdir, box).tolist()
+            if box is None:
+                break
+            if band[0][1] <= band[0][0]:
+                # nothing deviates in the box: the body left it; relocate
+                self.flow.cfg = cfg = dataclasses.replace(cfg, band_x=None,
+                                                          band_box=None)
+                continue
+            if all((lo > a or a <= 1) and (hi < b or b >= n - 1)
+                   for (lo, hi), (a, b), n in zip(band, box, cfg.shape)):
+                break   # strictly inside, or clamped at the domain
+            wide = tuple((max(1, min(lo, a) - 2 * _BAND_PAD),
+                          min(n - 1, max(hi, b) + 2 * _BAND_PAD))
+                         for (lo, hi), (a, b), n in zip(band, box, cfg.shape))
+            if wide == box:
+                break
+            self.flow.cfg = cfg = dataclasses.replace(cfg, band_x=wide[0],
+                                                      band_box=wide)
+        self.measure_rounds = rounds
         self.flow.state = dataclasses.replace(self.flow.state,
                                               V=V, mu0=mu0, mu1=mu1)
         self.levels = self._levels(mu0)
-        if self.engine == "flat":
-            self._set_band(_band_box(V, mu0, mu1, cfg.perdir))
+        if flat:
+            self._set_band(band)
 
     def _levels(self, mu0: torch.Tensor):
         """The multigrid stack of ``mu0``; where ``mp_smooth`` takes effect,
@@ -226,16 +278,24 @@ class Simulation:
             levels = mgflat.mp_levels(levels)
         return levels
 
-    def _set_band(self, band: torch.Tensor):
-        """Set ``cfg.band_x`` from the raw x bounds of `_band_box` (one host
-        read), padded by `_BAND_PAD` rows and clamped to ``[1, Nx−1]``; no
-        band when nothing deviates (the static part of the JAX `_set_band`,
-        `simulation.py:380-415`)."""
+    def _set_band(self, band: list[list[int]]):
+        """Keep ``cfg.band_x`` (the x rows of the flat engine's BDIM slab)
+        and ``cfg.band_box`` (the box of the next measure) from the raw
+        per-dim ``[lo, hi)`` bounds of `_band_box`, read to the host: both
+        padded by `_BAND_PAD` and clamped to the interior, left as they are
+        while the raw bounds stay inside the stored box, None when nothing
+        deviates (the JAX `_set_band`, `simulation.py:380-415`)."""
         cfg = self.flow.cfg
-        lo, hi = band[0].tolist()
-        band_x = (None if hi <= lo else
-                  (max(1, lo - _BAND_PAD), min(cfg.shape[0] - 1, hi + _BAND_PAD)))
-        self.flow.cfg = dataclasses.replace(cfg, band_x=band_x)
+        if band[0][1] <= band[0][0]:
+            band_x, box = None, None
+        else:
+            if cfg.band_x is not None and cfg.band_box is not None and all(
+                    a <= lo and hi <= b for (lo, hi), (a, b) in zip(band, cfg.band_box)):
+                return
+            box = tuple((max(1, lo - _BAND_PAD), min(n - 1, hi + _BAND_PAD))
+                        for (lo, hi), n in zip(band, cfg.shape))
+            band_x = box[0]
+        self.flow.cfg = dataclasses.replace(cfg, band_x=band_x, band_box=box)
 
     def step_once(self, remeasure: bool = True, udf=None):
         """One `mom_step` (+ optional body re-measure) with the host
@@ -256,15 +316,11 @@ class Simulation:
         return self
 
     def sim_step_n(self, n: int, *, udf=None, remeasure: bool = False):
-        """``n`` CFL-limited steps without body re-measure: a host loop over
-        `step_once` (the JAX package runs one `lax.scan`; a device-resident
-        loop is ROADMAP queue 1, item 8)."""
-        if remeasure:
-            raise NotImplementedError(
-                "sim_step_n(remeasure=True) is not ported yet: ROADMAP queue "
-                "1, item 9 (moving bodies)")
+        """``n`` CFL-limited steps, each after a body re-measure if
+        ``remeasure``: a host loop over `step_once` (the JAX package runs one
+        `lax.scan`; a device-resident loop is ROADMAP queue 1, [graph])."""
         for _ in range(n):
-            self.step_once(remeasure=False, udf=udf)
+            self.step_once(remeasure=remeasure, udf=udf)
         return self
 
     def sim_step(self, t_end: Optional[float] = None, *, remeasure: bool = True,

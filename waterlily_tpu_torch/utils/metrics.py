@@ -9,7 +9,7 @@ reference does (`Metrics.jl:127`).  The JAX package sums in float32 with a
 Neumaier-compensated scan on the TPU only because the TPU has no fast
 float64; the card has it.  Moments, `lambda2_field`, `helicity_field`,
 `omega_theta_field` and `MeanFlow` are not ported yet (ROADMAP queue 1,
-item 11).
+[utils]).
 """
 from __future__ import annotations
 
