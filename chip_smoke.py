@@ -101,11 +101,40 @@ Phases (each prints its own lines; any failure exits non-zero):
       4.8e-3·max|u| by step 5, with no bf16 kernel involved, as (a) shows;
    c. against float32 smoothing (``sphere-s2``), for the record.
 
+6. the 2-D path (no hand kernel runs: they take 3-D float32 fields; each
+   run's launch counts must stay 0): ``examples/circle.py`` at its own size
+   (R = 16, 384×256, Re = 250) in float64 on the card, 10 steps, against
+   the same run on the CPU (u and p within 1e-9 of max, equal ``pois_n``);
+   the circle at R = 64 (1,536×1,024) in float32 after ``perturb``, 20
+   steps: ms/step, ``pois_n`` and C_d; ``examples/flapping_foil.py`` (L =
+   32, 256×128, float32) re-measured every step, 5 steps, the measure and
+   the step timed;
+7. PCG: the 256³ sphere of 4a with ``psolver="pcg"`` (``engine="auto"``
+   must pick the 3d engine), 5 steps with its launch counts (K12, K14 and
+   K16 for every A·x of the conjugate gradient) and a solver log, then the
+   same 5 steps under ``plain_ops()``, compared after each: iterations
+   within one, after step 1 u within 1e-4·max|u| and p within 1e-3·max|p|;
+   every solve stops at ``itmx`` (expected at 256³) and the stopped CG
+   amplifies rounding from step to step, so after step 5 the kernels may
+   also lie within 4 times the distance between the plain run and a plain
+   run from an initial u changed by 1e-7 of itself (1.4e-4·max|u| on an H100,
+   against a 1e-4 limit); its ms/step, the outer iterations of each solve
+   and K16's launches;
+8. the utilities on the PCG sphere's state: ``lambda2_field`` (timed, and
+   the memory it takes) and ``MeanFlow.update`` with u⊗u (timed), an npz
+   round trip of the state and the means that must come back bit for bit,
+   a VTK write and read that must hold the state, phase 7's solver log read
+   back by ``parse_log``, and ``update_particles`` on 100,000 tracers;
+   matplotlib must not have been imported.  Files go to
+   ``build/chip_smoke/`` in the checkout and are deleted.
+
 Before its last line it prints one JSON object with each kernel's launches
-(summed over the phase-4 runs a-g and i), error, times, bound, host µs per call
-and the launches of the 4h table (``tool_launches``, kept out of
-``launches``), and the card's name and power limit; the last line is
-``{"ok": true, "device": {...}}``.  Needs no JAX and no network.
+(summed over the phase-4 runs a-g and i and the phase-6 and 7 runs), error,
+times, bound, host µs per call, the launches of the 4h table
+(``tool_launches``, kept out of ``launches``) and of the PCG run
+(``pcg_launches``, in ``launches``), and the card's name and power limit;
+the last line is ``{"ok": true, "device": {...}}``.  Needs no JAX and no
+network.
 """
 from __future__ import annotations
 
@@ -283,6 +312,12 @@ PATH_KERNELS = {
     ("moving", "flat"): {"conv_diff_bdim_k", "bdim_k", "mult_k", "gs_incr_k",
                          "incr_gs_k", "bc_div_k", "projbc_k"},
     ("moving", "3d"): {"conv_diff_k", "bdim_k", "mult_k", "gs_incr_k"},
+    # 2-D: no hand kernel (they take 3-D float32 fields)
+    ("circle", "3d"): set(),
+    ("circle-64", "3d"): set(),
+    ("foil", "3d"): set(),
+    # PCG on the 3d engine: K12, K14, and K16 for every A·x of the CG
+    ("pcg", "3d"): {"conv_diff_k", "bdim_k", "mult_k"},
     ("probe", "tool"): {"copy_scale_k", "copy_scale6_k"},
     # `tools/launch_cost.py` calls every wrapper
     ("launch", "tool"): set(KERNELS),
@@ -298,6 +333,8 @@ HOST_ROW = {"conv_diff_k": "conv_diff_k", "conv_diff_bdim_k": "conv_diff_bdim_k"
             "gs_incr_mp_k": "gs_incr_k mp 4 colours",
             "incr_gs_mp_k": "incr_gs_k mp 4 colours norms",
             "copy_scale_k": "copy_scale_k", "copy_scale6_k": "copy_scale6_k"}
+# the paths of phases 6 and 7
+LATER_PATHS = {("circle", "3d"), ("circle-64", "3d"), ("foil", "3d"), ("pcg", "3d")}
 # (configuration, engine) in the order phase 4 runs them
 MAIN_RUNS = [(c, e) for c in ("sphere", "tgv", "drag", "les", "ramp")
              for e in ("flat", "3d")] + [("sphere-mp", "flat"), ("sphere-s2", "flat"),
@@ -764,9 +801,43 @@ def moving_sim(torch, wt, n: int, dev, **kw):
                          device=dev, **kw)
 
 
+def circle_sim(torch, wt, radius: int, dev, **kw):
+    """`examples/circle.py`: a (24R, 16R) channel, a circle of radius R at
+    (2R, 2R), Re = 250 (the README's 2-D example)."""
+    body = wt.AutoBody(lambda x, t: torch.sqrt(torch.sum((x - 2 * radius) ** 2)) - radius)
+    return wt.Simulation((24 * radius, 16 * radius), (1.0, 0.0), radius,
+                         nu=radius / 250, body=body, device=dev, **kw)
+
+
+def foil_sim(torch, wt, L: int, dev, **kw):
+    """`examples/flapping_foil.py`: a (8L, 4L) channel, a segment of chord
+    L and thickness 4 heaving by A = L/2 and pitching by 0.3 rad about its
+    leading edge at Strouhal number 0.3, Re = 250; re-measured every step."""
+    amp = 0.5 * L
+    f = 0.3 / (2 * amp)
+
+    def map_fn(x, t):
+        h = amp * torch.sin(2 * math.pi * f * t)
+        th = 0.3 * torch.cos(2 * math.pi * f * t)
+        c, s = torch.cos(th), torch.sin(th)
+        y = x - torch.stack([2.0 * L + 0 * h, 2.0 * L + h])
+        return torch.stack([c * y[0] + s * y[1], -s * y[0] + c * y[1]])
+
+    def sdf(x, t):
+        cl = torch.clamp(x[0], 0.0, L)
+        return torch.sqrt((x[0] - cl) ** 2 + x[1] ** 2) - 2.0
+    return wt.Simulation((8 * L, 4 * L), (1.0, 0.0), L, nu=L / 250,
+                         body=wt.AutoBody(sdf, map_fn), device=dev, **kw)
+
+
 def make_sim(torch, wt, config: str, n: int, dev, **kw):
-    """The `Simulation` of a configuration at size ``n`` and the ``udf`` its
-    steps take."""
+    """The `Simulation` of a configuration at size ``n`` (for ``circle`` the
+    radius, float32 unless ``dtype`` is given) and the ``udf`` its steps
+    take."""
+    if config == "circle":
+        return circle_sim(torch, wt, n, dev, **kw), None
+    if config == "pcg":
+        kw = dict(kw, psolver="pcg")
     if config == "tgv":
         return tgv_sim(torch, wt, n, dev, **kw), None
     if config == "drag":
@@ -1241,6 +1312,302 @@ def phase_band_check(torch, wt, dev, n: int = 128, steps: int = 3):
     return failures
 
 
+# ------------------------------------------------------------ phases 6-8
+CIRCLE_RADII = (16, 64)      # `examples/circle.py`'s own size, and 4x
+FOIL_L = 32                  # `examples/flapping_foil.py`'s own size
+PCG_STEPS = 5
+# how many times the float32 rounding sensitivity of the PCG run (phase 7)
+# the kernels may part from the plain versions after the last step
+PCG_SENSITIVITY = 4.0
+SMOKE_DIR = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke"
+
+
+def step_events(torch, step, n: int) -> list[float]:
+    """``n`` calls of ``step``, each between two CUDA events: ms each."""
+    events = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        step()
+        b.record()
+        events.append((a, b))
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in events]
+
+
+def check_no_kernels(counts, tag: str) -> None:
+    """A 2-D path launches no hand kernel (they take 3-D float32 only)."""
+    check(not any(counts.values()), f"{tag}: a kernel was launched: {counts}")
+
+
+def circle_cd(sim, mt) -> float:
+    """`examples/circle.py`'s C_d = −(F_p + F_v)_x / R (diameter 2R)."""
+    st = sim.flow.state
+    fp = mt.pressure_force(st.p, sim.body, sim.time)
+    fv = mt.viscous_force(st.u, st.nu, sim.body, sim.time)
+    return -2.0 * (fp[0] + fv[0]).item() / (2 * sim.L)
+
+
+def phase_2d(torch, wt, st, dev):
+    """Phase 6: the 2-D path.  (a) `examples/circle.py` at its own size in
+    float64 on the card, 10 steps, against the same run on the CPU: u and p
+    within 1e-9 of max, equal `pois_n`; (b) the circle at R = 64 in float32
+    after `perturb`, 20 steps: ms/step, `pois_n`, C_d; (c) the flapping
+    foil re-measured every step, 5 steps.  Each with its launch counts (no
+    hand kernel: 2-D)."""
+    from waterlily_tpu_torch.utils import metrics as mt
+
+    runs = {}
+    r16 = CIRCLE_RADII[0]
+    tag = f"phase6 circle R={r16} float64"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    card = make_sim(torch, wt, "circle", r16, dev, dtype=torch.float64)[0]
+    host = make_sim(torch, wt, "circle", r16, "cpu", dtype=torch.float64)[0]
+    check(card.engine == "3d", f"{tag}: engine {card.engine}")
+    st.reset_launch_counts()
+    ms = step_events(torch, lambda: card.sim_step(remeasure=False), STEPS)
+    counts = st.launch_counts()
+    t0 = time.perf_counter()
+    host.sim_step_n(STEPS)
+    host_s = time.perf_counter() - t0
+    du = (card.flow.u.cpu() - host.flow.u).abs().max().item() / host.flow.u.abs().max().item()
+    dp = (card.flow.p.cpu() - host.flow.p).abs().max().item() / host.flow.p.abs().max().item()
+    print(f"{tag} {card.flow.cfg.shape}: card ms/step (steps 3-{STEPS}, mean) "
+          f"{statistics.mean(ms[2:]):.3f}, per step {[round(t, 3) for t in ms]}; "
+          f"CPU {host_s / STEPS * 1e3:.1f} ms/step; pois_n card {card.pois_n} CPU "
+          f"{host.pois_n}; card vs CPU max|du|/max|u| {du:.3e}, max|dp|/max|p| "
+          f"{dp:.3e} (held to 1e-9); launch counts {counts}", flush=True)
+    check(card.pois_n == host.pois_n, f"{tag}: pois_n differ from the CPU run")
+    check(du <= 1e-9 and dp <= 1e-9, f"{tag}: u or p differ from the CPU run")
+    check_no_kernels(counts, tag)
+    runs[("circle", "3d")] = dict(counts=counts, ms_step=statistics.mean(ms[2:]),
+                                  pois_n=list(card.pois_n))
+    del card, host
+
+    r64 = CIRCLE_RADII[1]
+    tag = f"phase6 circle R={r64} float32"
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sim = make_sim(torch, wt, "circle", r64, dev)[0]
+    sim.perturb(0.1, seed=SEED)
+    st.reset_launch_counts()
+    ms = step_events(torch, lambda: sim.sim_step(remeasure=False), 2 * STEPS)
+    counts = st.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    cd = circle_cd(sim, mt)
+    u, p = sim.flow.u, sim.flow.p
+    print(f"{tag} {sim.flow.cfg.shape}: ms/step (steps 3-{2 * STEPS}, mean) "
+          f"{statistics.mean(ms[2:]):.3f}, per step {[round(t, 3) for t in ms]}; "
+          f"pois_n {sim.pois_n}; C_d after step {2 * STEPS} {cd:.6f} at tU/L "
+          f"{sim.sim_time:.4f}; peak {peak / 2**30:.3f} GiB; launch counts {counts}",
+          flush=True)
+    check(math.isfinite(cd) and bool(torch.isfinite(u).all()) and bool(torch.isfinite(p).all()),
+          f"{tag}: C_d, u or p not finite")
+    check(all(1 <= n <= sim.flow.cfg.itmx for n in sim.pois_n), f"{tag}: pois_n {sim.pois_n}")
+    check_no_kernels(counts, tag)
+    runs[("circle-64", "3d")] = dict(counts=counts, ms_step=statistics.mean(ms[2:]),
+                                     pois_n=list(sim.pois_n), peak=peak, cd=cd)
+    del sim, u, p
+
+    tag = f"phase6 foil L={FOIL_L} float32"
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sim = foil_sim(torch, wt, FOIL_L, dev)
+    meas = []
+    time_measure(torch, sim, meas)
+    st.reset_launch_counts()
+    ms = step_events(torch, lambda: sim.sim_step(remeasure=True), 5)
+    counts = st.launch_counts()
+    meas_ms = [a.elapsed_time(b) for a, b, _ in meas]
+    print(f"{tag} {sim.flow.cfg.shape}: step ms (measure included) "
+          f"{[round(t, 3) for t in ms]}, measure ms {[round(t, 3) for t in meas_ms]}; "
+          f"pois_n {sim.pois_n}; max|V| {sim.flow.state.V.abs().max().item():.5f}; "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launch counts "
+          f"{counts}", flush=True)
+    check(bool(torch.isfinite(sim.flow.u).all()) and len(meas) == 5,
+          f"{tag}: u not finite or a measure missing")
+    check(sim.flow.state.V.abs().max().item() > 0, f"{tag}: the foil does not move")
+    check_no_kernels(counts, tag)
+    runs[("foil", "3d")] = dict(counts=counts, ms_step=statistics.mean(ms[2:]),
+                                measure_ms=statistics.mean(meas_ms[2:]),
+                                pois_n=list(sim.pois_n))
+    del sim
+    return runs
+
+
+def phase_pcg(torch, wt, st, dev):
+    """Phase 7: the 256³ sphere with ``psolver="pcg"`` (``engine="auto"``
+    must pick the 3d engine), ``PCG_STEPS`` steps with its launch counts and
+    a solver log; then the same steps under ``plain_ops()``, and, to
+    measure how far float32 rounding alone moves this run, under
+    ``plain_ops()`` from an initial u changed by 1e-7 of itself (``twin``).
+    Every solve stops at ``itmx``, and a CG stopped short carries a rounding
+    difference forward, amplified at each step.  Held: iterations within
+    one at every step; after step 1 u within 1e-4·max|u| and p within
+    1e-3·max|p| of the plain run (the phase-5 limits); after step
+    ``PCG_STEPS`` within those limits or within ``PCG_SENSITIVITY`` times the
+    twin's distance from the plain run.  Returns the run (its sim is the
+    utilities' state)."""
+    from waterlily_tpu_torch.utils import log
+
+    tag = f"phase7 pcg {FINE}^3"
+    SMOKE_DIR.mkdir(parents=True, exist_ok=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sim = make_sim(torch, wt, "pcg", FINE, dev)[0]
+    check(sim.engine == "3d" and sim.masks == () and len(sim.levels) == 1,
+          f"{tag}: engine {sim.engine}, {len(sim.levels)} levels")
+    logger = log.SolverLogger(str(SMOKE_DIR / "pcg"))
+    st.reset_launch_counts()
+    ms, states = [], []
+    for _ in range(PCG_STEPS):
+        ms += step_events(torch, lambda: sim.sim_step(remeasure=False), 1)
+        logger.log_step(sim)
+        states.append((sim.flow.u.clone(), sim.flow.p.clone()))
+    counts = st.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    itmx = sim.flow.cfg.itmx
+    print(f"{tag}: ms/step {statistics.mean(ms[1:]):.3f} (steps 2-{PCG_STEPS}), per step "
+          f"{[round(t, 3) for t in ms]}; outer iterations a solve {sim.pois_n} "
+          f"(reached itmx={itmx}: {sum(n == itmx for n in sim.pois_n)} of "
+          f"{len(sim.pois_n)}); K16 mult_k launches {counts['mult_k']} "
+          f"({counts['mult_k'] / PCG_STEPS:.1f} a step); peak {peak / 2**30:.3f} GiB; "
+          f"launch counts {counts}", flush=True)
+    for k, n in counts.items():
+        check((n > 0) == (k in PATH_KERNELS[("pcg", "3d")]),
+              f"{tag}: launch count of {k} is {n}")
+    plain = make_sim(torch, wt, "pcg", FINE, dev)[0]
+    twin = make_sim(torch, wt, "pcg", FINE, dev)[0]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    u = twin.flow.state.u
+    twin.flow.state.u = u * (1 + 1e-7 * torch.randn(u.shape, generator=gen, device=dev))
+
+    def rel(a, b):
+        return (a - b).abs().max().item() / b.abs().max().item()
+    failures = []
+    for step, (u, p) in enumerate(states, 1):
+        with st.plain_ops():
+            plain.sim_step(remeasure=False)
+            twin.sim_step(remeasure=False)
+        du, dp = rel(u, plain.flow.u), rel(p, plain.flow.p)
+        su, sp = rel(twin.flow.u, plain.flow.u), rel(twin.flow.p, plain.flow.p)
+        n_ok = all(abs(a - b) <= 1 for a, b in zip(sim.pois_n[:2 * step], plain.pois_n))
+        print(f"{tag} step {step}, kernels vs plain_ops(): pois_n {sim.pois_n[2 * step - 2:2 * step]}"
+              f" vs {plain.pois_n[-2:]}; max|du|/max|u| {du:.3e}, max|dp|/max|p| {dp:.3e}; "
+              f"twin (u changed by 1e-7) vs plain: {su:.3e}, {sp:.3e}", flush=True)
+        if not n_ok:
+            failures.append(f"iteration counts at step {step}")
+        if step == 1 and not (du <= 1e-4 and dp <= 1e-3):
+            failures.append("u or p after step 1")
+        if step == PCG_STEPS and not (du <= max(1e-4, PCG_SENSITIVITY * su)
+                                      and dp <= max(1e-3, PCG_SENSITIVITY * sp)):
+            failures.append(f"u or p after step {step}")
+    check(sum(st.launch_counts().values()) == sum(counts.values()),
+          f"{tag}: plain_ops() launched a kernel")
+    check(not failures, f"{tag}: kernels and plain versions differ: {failures}")
+    check(bool(torch.isfinite(sim.flow.u).all()) and bool(torch.isfinite(sim.flow.p).all()),
+          f"{tag}: u or p not finite")
+    del plain, twin, states
+    torch.cuda.empty_cache()
+    return dict(counts=counts, ms_step=statistics.mean(ms[1:]), pois_n=list(sim.pois_n),
+                peak=peak, sim=sim, log=logger.fname)
+
+
+def phase_utils(torch, wt, dev, run):
+    """Phase 8: the utilities on the 256³ PCG sphere's state: `lambda2_field`
+    and `MeanFlow.update` timed, an npz round trip (bit for bit), a VTK
+    write and read, the solver log of phase 7 read back, and
+    `update_particles` on 100,000 tracers.  No matplotlib."""
+    import numpy as np
+
+    from waterlily_tpu_torch.utils import io, log, metrics as mt, pathlines as pl
+
+    sim = run["sim"]
+    tag = f"phase8 utilities {FINE}^3"
+    u = sim.flow.u
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        b.synchronize()
+        return out, a.elapsed_time(b)
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    lam2, lam_ms = timed(lambda: mt.lambda2_field(u))
+    lam_peak = torch.cuda.max_memory_allocated() - base
+    _, lam_ms2 = timed(lambda: mt.lambda2_field(u))
+    check(tuple(lam2.shape) == tuple(u.shape[1:]) and bool(torch.isfinite(lam2).all()),
+          f"{tag}: lambda2 not finite")
+    print(f"{tag}: lambda2_field {lam_ms:.1f} ms, again {lam_ms2:.1f} ms ({mt.LAMBDA2_CHUNK} "
+          f"cells an eigvalsh call), peak above the state {lam_peak / 2**30:.3f} GiB; "
+          f"min {lam2.min().item():.4e}, cells with lambda2 < 0: "
+          f"{int((lam2 < 0).sum().item())}", flush=True)
+    del lam2
+    mf = mt.MeanFlow(flow=sim.flow, uu_stats=True)
+    _, mf_ms1 = timed(lambda: mf.update(sim.flow))
+    sim.sim_step(remeasure=False)
+    _, mf_ms2 = timed(lambda: mf.update(sim.flow))
+    print(f"{tag}: MeanFlow.update with u⊗u {mf_ms1:.3f} ms (first), {mf_ms2:.3f} ms",
+          flush=True)
+
+    f = SMOKE_DIR / "state.npz"
+    old_u, old_p, old_dt, old_uu = sim.flow.u, sim.flow.p, list(sim.flow.dt), mf.UU
+    t0 = time.perf_counter()
+    io.save(str(f), sim, meanflow=mf)
+    t1 = time.perf_counter()
+    io.load(str(f), sim, meanflow=mf)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    same = (torch.equal(sim.flow.u, old_u) and torch.equal(sim.flow.p, old_p)
+            and torch.equal(sim.flow.state.u0, old_u) and sim.flow.dt == old_dt
+            and torch.equal(mf.UU, old_uu))
+    print(f"{tag}: npz {f.stat().st_size / 2**20:.1f} MiB, save {t1 - t0:.2f} s, load "
+          f"{t2 - t1:.2f} s, bit for bit {same}", flush=True)
+    check(same, f"{tag}: the npz round trip changed the state")
+    f.unlink()
+
+    t0 = time.perf_counter()
+    w = io.VTKWriter(str(SMOKE_DIR / "smoke"), dirname=str(SMOKE_DIR / "vtk"))
+    w.write(sim)
+    t1 = time.perf_counter()
+    back = io._read_vti(w.entries[-1][1])
+    t2 = time.perf_counter()
+    vtk_ok = (np.array_equal(back["Velocity"], sim.flow.u.cpu().numpy())
+              and np.array_equal(back["Pressure"], sim.flow.p.cpu().numpy()))
+    print(f"{tag}: VTK write {t1 - t0:.2f} s ({pathlib.Path(w.entries[-1][1]).stat().st_size / 2**20:.1f} "
+          f"MiB), read {t2 - t1:.2f} s, equal {vtk_ok}", flush=True)
+    check(vtk_ok, f"{tag}: the VTK file does not hold the state")
+    del back
+
+    counts, _, _ = log.parse_log(run["log"])
+    print(f"{tag}: solver log {run['log']}: {len(counts)} solves, counts {counts}", flush=True)
+    check(counts == run["pois_n"], f"{tag}: the solver log does not read back")
+
+    p = pl.Particles.init(100_000, sim.flow.cfg.shape, life=255, seed=SEED, device=dev)
+    (p2, old, v), ms1 = timed(lambda: pl.update_particles(p, sim))
+    (p3, _, _), ms2 = timed(lambda: pl.update_particles(p2, sim))
+    hi = torch.tensor([s - 2 for s in sim.flow.cfg.shape], device=dev)
+    check(bool(torch.isfinite(p3.pos).all()) and bool(((p3.pos >= 0) & (p3.pos <= hi)).all()),
+          f"{tag}: particles left the domain")
+    print(f"{tag}: update_particles on 100,000 tracers {ms1:.3f} ms (first), {ms2:.3f} "
+          f"ms; mean speed {torch.linalg.norm(v, dim=1).mean().item():.4f}", flush=True)
+    check("matplotlib" not in sys.modules, f"{tag}: matplotlib was imported")
+    for q in SMOKE_DIR.rglob("*"):
+        if q.is_file():
+            q.unlink()
+    return dict(lambda2_ms=lam_ms, lambda2_peak=lam_peak, meanflow_ms=mf_ms2)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -1283,15 +1650,21 @@ def main() -> int:
     # counts are checked by its own phase and kept out of `launches`
     cost = phase_launch(torch, st)
     host = cost["rows"]
-    check(set(runs) | {("launch", "tool")} == set(PATH_KERNELS),
+    check(set(runs) | {("launch", "tool")} | LATER_PATHS == set(PATH_KERNELS),
           "phase4: a path was not run")
-    launches = {k: sum(r["counts"][k] for r in runs.values()) for k in KERNELS}
-    check(all(n > 0 for n in launches.values()),
-          f"phase4: a kernel was launched by no path: {launches}")
     failures = [f for config in SMALL
                 for f in phase_compare(torch, wt, st, dev, config, SMALL[config])]
     failures += phase_band_check(torch, wt, dev)
     check(not failures, f"phase5: {'; '.join(failures)}")
+    runs.update(phase_2d(torch, wt, st, dev))
+    runs[("pcg", "3d")] = pcg = phase_pcg(torch, wt, st, dev)
+    phase_utils(torch, wt, dev, pcg)
+    del pcg["sim"]
+    check(set(runs) | {("launch", "tool")} == set(PATH_KERNELS),
+          "phase6-8: a path was not run")
+    launches = {k: sum(r["counts"][k] for r in runs.values()) for k in KERNELS}
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel was launched by no path: {launches}")
 
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[k], "max_abs_err": stats[k]["max_abs_err"],
@@ -1300,7 +1673,8 @@ def main() -> int:
                 "library_ms": stats[k]["library_ms"],
                 "host_us": host[HOST_ROW[k]]["host_us"],
                 "mul_host_us": host[HOST_ROW[k]]["mul_host_us"],
-                "tool_launches": cost["counts"][k]}
+                "tool_launches": cost["counts"][k],
+                "pcg_launches": pcg["counts"][k]}
                for k, (_, src, rep, _, _) in KERNELS.items()]
     check(set(st.launch_counts()) == set(KERNELS),
           "the kernels table and the launch counts name different kernels")

@@ -4,10 +4,10 @@
 
 Gates: the build's V, μ0, μ1 and level stack at 1e-12 (iD, which holds
 1/D for tiny D, at rel 1e-12); a 5-step trajectory with equal `pois_n`, dt
-history rel 1e-10, u atol 1e-9 and p atol 1e-8.  Also: the options outside
-the ported slices (`psolver="pcg"`, `flow_ctor`) raise
-`NotImplementedError`.  Every port object is built
-with ``device="cpu"`` (the entry points default to the card)."""
+history rel 1e-10, u atol 1e-9 and p atol 1e-8, and the same pair to 10
+steps with u and p within 1e-10 of their max.  `psolver="pcg"` and
+`flow_ctor` are held in `tests/test_torch_pcg.py`.  Every port object is
+built with ``device="cpu"`` (the entry points default to the card)."""
 import numpy as np
 import pytest
 import torch
@@ -69,6 +69,21 @@ def test_trajectory(pair):
     assert sim_t.sim_time == pytest.approx(sim_j.sim_time, rel=1e-10)
 
 
+def test_trajectory_10_steps(pair):
+    """The same pair stepped to 10 steps (whatever ran before): equal
+    `pois_n`, dt rel 1e-10, u and p within 1e-10 of their max."""
+    sim_j, sim_t = pair
+    while len(sim_t.flow.dt) < 11:
+        sim_j.sim_step(remeasure=False)
+        sim_t.sim_step(remeasure=False)
+    assert len(sim_j.flow.dt) == 11
+    assert sim_t.pois_n == list(sim_j.pois_n)
+    np.testing.assert_allclose(sim_t.flow.dt, sim_j.flow.dt, rtol=1e-10)
+    for k in ("u", "p"):
+        a, b = getattr(sim_t.flow, k).numpy(), np.asarray(getattr(sim_j.flow, k))
+        close(a, b, 1e-10 * np.abs(b).max())
+
+
 def test_remeasure_static_body_and_step_n():
     """A static body re-measured every step gives the same run as no
     re-measure; `sim_step_n` equals the host loop of `sim_step`."""
@@ -113,10 +128,3 @@ def test_no_body_uniform_flow_stays_uniform():
     assert torch.allclose(inner[0], torch.ones_like(inner[0]))
     assert torch.allclose(inner[1], torch.zeros_like(inner[1]))
     assert float(sim.flow.p.abs().max()) < 1e-12
-
-
-@pytest.mark.parametrize("kw", [dict(psolver="pcg"), dict(flow_ctor=object)],
-                         ids=["pcg", "flow_ctor"])
-def test_unsupported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Simulation((16, 8), (1.0, 0.0), 4.0, dtype=F64, device="cpu", **kw)

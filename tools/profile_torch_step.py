@@ -10,8 +10,10 @@ N = 128), ``les`` (``examples/les_sharded.py``'s sphere at 256³ with the
 Smagorinsky udf), ``ramp`` (the 256³ sphere with a callable ``ubc`` and
 ``g``) and ``sphere-mp``/``sphere-s2`` (the 256³ sphere with ``smooth_it=2``
 with and without bf16 smoothing) and ``moving`` (``bench.py``'s oscillating
-sphere at 128³, each step re-measured: ``sim_step(remeasure=True)``); the
-default runs the first three on both engines.  Each is built with
+sphere at 128³, each step re-measured: ``sim_step(remeasure=True)``),
+``pcg`` (the 256³ sphere with ``psolver="pcg"``, 3d engine only) and
+``circle`` (``examples/circle.py`` at R = 64, 1,536×1,024, float32, 3d
+engine only: 2-D); the default runs the first three on both engines.  Each is built with
 ``Simulation`` as ``chip_smoke.py`` builds it, stepped ``WARM`` times, then
 ``STEPS`` steps run unprofiled (host clock around each ``sim_step`` up to a
 ``synchronize``) and ``STEPS`` more under ``torch.profiler``.  Printed per
@@ -62,8 +64,8 @@ def busy_ms(events) -> float:
 
 def size(case: str) -> int:
     """The grid of a case: the drag sphere at N = 128, the moving rung at
-    128³, the rest at 256³."""
-    return 128 if case in ("drag", "moving") else 256
+    128³, the circle at radius 64, the rest at 256³."""
+    return {"drag": 128, "moving": 128, "circle": 64}.get(case, 256)
 
 
 def walls_ms(torch, fn) -> list[float]:

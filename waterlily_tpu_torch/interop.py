@@ -14,8 +14,11 @@ import torch
 from .models.flow import FlowState
 from .models.rigidmap import RigidMap
 from .ops.poisson import PoissonLevel
+from .utils.metrics import MeanFlow
+from .utils.pathlines import Particles
 
-__all__ = ["flow_state_from_numpy", "levels_from_numpy", "rigidmap_from_numpy"]
+__all__ = ["flow_state_from_numpy", "levels_from_numpy", "rigidmap_from_numpy",
+           "meanflow_from_numpy", "particles_from_numpy"]
 
 _FIELDS = ("u", "u0", "p", "V", "mu0", "mu1", "nu")
 
@@ -60,3 +63,31 @@ def rigidmap_from_numpy(params: Mapping[str, np.ndarray], device,
     if missing:
         raise KeyError(f"rigidmap_from_numpy: missing fields {missing}")
     return RigidMap(**{k: _tensor(params[k], device, dtype) for k in _MAP_FIELDS})
+
+
+def meanflow_from_numpy(arrays: Mapping[str, np.ndarray], device,
+                        dtype: torch.dtype) -> MeanFlow:
+    """A `MeanFlow` from ``{P, U, t}`` and, with Reynolds stresses, ``UU``
+    (the JAX `MeanFlow`'s fields: numpy arrays and the list of times)."""
+    P = _tensor(arrays["P"], device, dtype)
+    mf = MeanFlow(shape=tuple(n - 2 for n in P.shape), D=arrays["U"].shape[0],
+                  uu_stats=arrays.get("UU") is not None, dtype=dtype,
+                  device=device)
+    mf.P, mf.U = P, _tensor(arrays["U"], device, dtype)
+    if mf.UU is not None:
+        mf.UU = _tensor(arrays["UU"], device, dtype)
+    mf.t = [float(v) for v in arrays["t"]]
+    return mf
+
+
+def particles_from_numpy(arrays: Mapping[str, np.ndarray], device,
+                         dtype: torch.dtype, life: int = 255,
+                         seed: int = 0) -> Particles:
+    """`Particles` at the JAX swarm's ``{pos, age}`` (numpy arrays), with a
+    respawn generator seeded with ``seed`` (the JAX swarm's key has no
+    counterpart: respawned positions differ)."""
+    return Particles(pos=_tensor(arrays["pos"], device, dtype),
+                     age=torch.as_tensor(np.array(arrays["age"]), dtype=torch.int64,
+                                         device=device),
+                     generator=torch.Generator(device=device).manual_seed(seed),
+                     life=life)

@@ -70,7 +70,10 @@ class AutoBody(Body):
             dmdt = self.map.map_velocity(x, t)
         else:
             J = jacfwd(lambda z: self.map(z, t))(x)
-            dmdt = jvp(lambda tt: self.map(x, tt), (t,), (torch.ones_like(t),))[1]
+            # forward mode gives a float64 tangent to a 0-d float32 map
+            # (a 2-D map built of scalars times Python floats): cast back
+            dmdt = jvp(lambda tt: self.map(x, tt), (t,),
+                       (torch.ones_like(t),))[1].to(J.dtype)
         n = J.T @ n_b
         m = torch.sqrt(torch.sum(n**2))
         msafe = torch.where(m > 0, m, 1.0)

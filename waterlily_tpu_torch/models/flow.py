@@ -18,7 +18,8 @@ Supported: a constant tuple or a callable ``ubc(i, x, t)``; a body force
 ``udf(f, state, u_adv, t)`` forcing hook of the step; a constant tuple or a
 callable ``u0(i, x)`` (batched with `torch.func.vmap`); periodic directions
 ``perdir``; the convective outlet ``exit_bc`` on the x-high face; the
-multigrid solver, with ``mp_smooth`` (bf16 smoothing) on the flat engine.
+multigrid solver, with ``mp_smooth`` (bf16 smoothing) on the flat engine,
+or an injected ``solve_fn`` (the PCG solver of ``psolver="pcg"``).
 """
 from __future__ import annotations
 
@@ -168,16 +169,22 @@ def bdim_update(u, u0, f, V, mu0, mu1, dt) -> torch.Tensor:
 
 
 def project(u: torch.Tensor, p: torch.Tensor, levels, masks, dt_w: float,
-            cfg: FlowCfg, t=0.0):
+            cfg: FlowCfg, t=0.0, solve_fn=None):
     """Pressure projection (`mom_project!`, `Flow.jl:223-232`): solve
     ``A x = div(u)`` warm-started from ``p·dt_w``, ``u_i -= L_i ∂_i x``,
-    `BC!` at time ``t``, ``p = x/dt_w``.  Returns ``(u, p, iters, stats)``."""
+    `BC!` at time ``t``, ``p = x/dt_w``.  ``solve_fn(levels, masks, x, z,
+    tol, itmx, perdir)`` is the pressure-solver injection point (`pois_ctor`,
+    `src/WaterLily.jl:96-97`; default the multigrid solve).  Returns ``(u,
+    p, iters, stats)``."""
     z = div_field(u)
     x = p * dt_w
-    res = mg.solve_mg(levels, masks, x, z, tol=cfg.tol, itmx=cfg.itmx,
-                      smooth_it=cfg.smooth_it,
-                      fine_smooth_it=cfg.fine_smooth_it,
-                      fine_presmooth=cfg.fine_presmooth, perdir=cfg.perdir)
+    if solve_fn is not None:
+        res = solve_fn(levels, masks, x, z, cfg.tol, cfg.itmx, cfg.perdir)
+    else:
+        res = mg.solve_mg(levels, masks, x, z, tol=cfg.tol, itmx=cfg.itmx,
+                          smooth_it=cfg.smooth_it,
+                          fine_smooth_it=cfg.fine_smooth_it,
+                          fine_presmooth=cfg.fine_presmooth, perdir=cfg.perdir)
     x = res.x
     u = bc_vector(proj_correct(u, x, levels[0].L), cfg.ubc, t,
                   save_exit=cfg.exit_bc, perdir=cfg.perdir)
@@ -203,14 +210,15 @@ def _phase(state: FlowState, u_adv, u_into, f_t, dt, cfg: FlowCfg, udf=None):
 
 
 def mom_step_impl(cfg: FlowCfg, state: FlowState, levels, masks, dt: float,
-                  t0: float = 0.0, udf=None):
+                  t0: float = 0.0, udf=None, solve_fn=None):
     """One time step (`mom_step!`, `Flow.jl:156-167`): predictor advected by
     u0 and forced at ``t0``, `BC!` at ``t1 = t0 + dt`` and (``exit_bc``) the
     convective outlet, projection (w=1), corrector advected by the projected
     u and forced at ``t1``, blend ½, `BC!`, projection (w=½), then the CFL
     limit.  ``dt`` and ``t0`` are host floats already rounded to
-    ``cfg.dtype``; ``udf(f, state, u_adv, t)`` returns the forced RHS.
-    Returns ``(state', dt_next (0-d tensor), [iters1, iters2],
+    ``cfg.dtype``; ``udf(f, state, u_adv, t)`` returns the forced RHS;
+    ``solve_fn`` replaces the multigrid solve of both projections
+    (`project`).  Returns ``(state', dt_next (0-d tensor), [iters1, iters2],
     [stats1, stats2])``."""
     t1 = t0 + dt
     u0 = state.u
@@ -220,11 +228,12 @@ def mom_step_impl(cfg: FlowCfg, state: FlowState, levels, masks, dt: float,
     u = bc_vector(u, cfg.ubc, t1, save_exit=cfg.exit_bc, perdir=cfg.perdir)
     if cfg.exit_bc:
         u = exit_bc(u, u0, dt)
-    u, p, n1, s1 = project(u, state.p, levels, masks, dt, cfg, t1)
+    u, p, n1, s1 = project(u, state.p, levels, masks, dt, cfg, t1, solve_fn)
     u = _phase(state, u, u, t1, dt, cfg, udf)
     u = scale_interior(u, 0.5)
     u = bc_vector(u, cfg.ubc, t1, save_exit=cfg.exit_bc, perdir=cfg.perdir)
-    u, p, n2, s2 = project(u, p, levels, masks, 0.5 * dt, cfg, t1)
+    u, p, n2, s2 = project(u, p, levels, masks, 0.5 * dt, cfg, t1,
+                          solve_fn)
     state = dataclasses.replace(state, u=u, p=p)
     dt_next = cfl(u, state.nu)
     return state, dt_next, [n1, n2], [s1, s2]

@@ -28,7 +28,8 @@ import torch
 from .bc import bc_vector, per_bc
 from .grid import grow, interior
 from .poisson import (_inside_ones, coarse_solve, dense_pinv, gauss_seidel_rb,
-                      increment, jacobi, make_level, norms, residual)
+                      increment, jacobi, make_level, norms, residual,
+                      stop_tolerances)
 
 __all__ = [
     "divisible", "coarsen_mask", "coarse_shape", "level_shapes",
@@ -188,8 +189,7 @@ def solve_loop(p, x: torch.Tensor, z: torch.Tensor, tol: float, itmx: int,
     ``Linf < tol``, then `canonical_gauge` on the fine level ``p`` and the
     periodic ghost refresh of the solution."""
     npdt = np.dtype(str(x.dtype).replace("torch.", ""))
-    r1tol = float(npdt.type((tol / 10.0) * math.prod(n - 2 for n in x.shape)))
-    rinf_tol = float(npdt.type(tol))
+    r1tol, rinf_tol = stop_tolerances(x, tol)
     r = residual(p, x, z, perdir)
     r1, rinf = torch.stack(norms(r)).tolist()     # one device→host read
     omega = npdt.type(1.0)

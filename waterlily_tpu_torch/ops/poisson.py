@@ -16,8 +16,9 @@ JAX `ops/dist.py`; `psum_all`/`pmax_all` are the identity and the inside
 count is the interior cell count).  With ``perdir`` the Jacobi smoother is
 the plain increment (its A·x is K16) and the red-black smoother is K13's
 colour sweeps then the increment, as in the JAX `poisson.py:134,163-172`;
-without it both are K15.  The PCG solver is not ported yet (ROADMAP queue
-1, [pcg]).
+without it both are K15.  `pcg` and `solve` are the standalone
+Jacobi-preconditioned conjugate-gradient solver that ``psolver="pcg"``
+injects in place of the multigrid one; its A·x is K16 as well.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ __all__ = [
     "PoissonLevel", "make_level", "with_bf16", "set_diag", "mult", "residual",
     "increment",
     "jacobi", "gauss_seidel_rb", "norms", "dense_pinv",
-    "coarse_solve",
+    "coarse_solve", "pcg", "solve", "stop_tolerances",
 ]
 
 
@@ -202,3 +203,70 @@ def norms(r: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     full-tensor reductions equal the interior ones (`Poisson.jl:188-191`)."""
     a = torch.abs(r)
     return torch.sum(a), torch.max(a)
+
+
+def _pdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Interior dot product (`perdot`, `Poisson.jl:153-158`)."""
+    return torch.sum(interior(a) * interior(b))
+
+
+def pcg(p: PoissonLevel, x: torch.Tensor, r: torch.Tensor, it: int = 6,
+        perdir: tuple[int, ...] = ()):
+    """Jacobi-preconditioned conjugate gradient with the reference's
+    early-exit guards (`pcg!`, `Poisson.jl:166-186`): stop when ρ falls
+    below ``10·eps(dtype)``, when α leaves [1e-2, 1e2] (that iteration then
+    moves nothing) or after ``it`` iterations.  All ``it`` iterations are
+    issued with no host read: once the stop flag ``go`` is down, the step
+    length is 0 and the search direction restarts from the preconditioned
+    residual, so ``x`` and ``r`` stay bit for bit where the JAX
+    `lax.while_loop` stops, with no full-field select."""
+    tiny = 10 * torch.finfo(x.dtype).eps
+    eps = zero_ghost(r * p.iD)
+    rho = torch.sum(r * eps)
+    go = torch.abs(rho) >= tiny
+    for i in range(it):
+        epsb = per_bc(eps, perdir)
+        zz = _mult_raw(p, epsb)
+        alpha = rho / _pdot(zz, epsb)
+        bad = (torch.abs(alpha) < 1e-2) | (torch.abs(alpha) > 1e2)
+        a = torch.where(go & ~bad, alpha, 0.0)
+        x = x + a * zero_ghost(epsb)
+        r = r - a * zz
+        z2 = zero_ghost(r * p.iD)
+        rho2 = torch.sum(r * z2)
+        more = go & ~bad & (i + 1 < it) & (torch.abs(rho2) >= tiny)
+        eps = zero_ghost(torch.where(more, rho2 / rho, 0.0) * epsb + z2)
+        rho = torch.where(go, rho2, rho)
+        go = more
+    return x, r
+
+
+def stop_tolerances(x: torch.Tensor, tol: float) -> tuple[float, float]:
+    """The dual-norm stop ``L1 < tol/10·N_inside`` ∧ ``Linf < tol``
+    (`Poisson.jl:194`) as host floats rounded to ``x``'s dtype, so that a
+    comparison with a norm read back from the device is the dtype's."""
+    npdt = torch.empty((), dtype=x.dtype).numpy().dtype.type
+    return (float(npdt((tol / 10.0) * math.prod(n - 2 for n in x.shape))),
+            float(npdt(tol)))
+
+
+def solve(p: PoissonLevel, x: torch.Tensor, z: torch.Tensor, tol: float = 2e-3,
+          itmx: int = 1000, perdir: tuple[int, ...] = ()):
+    """Standalone PCG Poisson solver (`solver!`, `Poisson.jl:212-223`): a
+    do-while of `pcg` (6 inner iterations) bounded by ``itmx`` outer
+    iterations, stopped by ``L1 < tol/10·N`` ∧ ``Linf < tol`` (both in the
+    working dtype), reading the two norms back once per outer iteration.
+    Returns ``(x, r, iters, stats)`` with ``x``'s periodic ghosts refreshed
+    (no gauge is pinned) and ``stats`` the rows ``(r_inf, r_1, 0.0)``, row 0
+    at entry: the layout of the multigrid rows with ω = 0."""
+    r1tol, rinf_tol = stop_tolerances(x, tol)
+    r = residual(p, x, z, perdir)
+    r1, rinf = torch.stack(norms(r)).tolist()
+    stats = [(rinf, r1, 0.0)]
+    n = 0
+    while n < itmx and (n == 0 or not (r1 < r1tol and rinf < rinf_tol)):
+        x, r = pcg(p, x, r, it=6, perdir=perdir)
+        r1, rinf = torch.stack(norms(r)).tolist()
+        n += 1
+        stats.append((rinf, r1, 0.0))
+    return per_bc(x, perdir), r, n, stats

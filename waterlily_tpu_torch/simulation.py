@@ -6,15 +6,19 @@ body measure and the multigrid pressure solver, and `sim_step` drives the
 host time loop around `mom_step_impl` (data-dependent CFL, like the
 reference's `sim_step!` loop at `WaterLily.jl:128-139`).
 
-Supported: the multigrid solver, a constant or callable boundary velocity
+Supported: the multigrid solver or the injected PCG solver
+(``psolver="pcg"``, `pcg_solve_fn`), an injected flow class (``flow_ctor``),
+a constant or callable boundary velocity
 ``ubc(i, x, t)``, a body force ``g(i, x, t)``, the ``udf`` forcing hook of the
 step (`utils.les.sgs` is one), periodic directions (``perdir``), the
 convective outlet (``exit_bc``), a constant or callable initial velocity
 ``u0``, static or moving bodies (`AutoBody` with a map callable or a
 `RigidMap`, CSG `SetBody`) re-measured at every step that asks for it, and
-mixed-precision smoothing (``mp_smooth``) on the flat engine.  `sim_step_n`
-is a host loop over `step_once`, with or without the re-measure.  Every
-tensor lives on ``device``, the card unless the caller asks for the CPU.
+mixed-precision smoothing (``mp_smooth``) on the flat engine, in 2-D and
+3-D.  `sim_step_n` is a host loop over `step_once`, with or without the
+re-measure; `perturb` adds velocity noise, `sdf_field` samples the body's
+signed distance.  Every tensor lives on ``device``, the card unless the
+caller asks for the CPU.
 
 The flat engine re-measures a body on the box ``cfg.band_box`` around it
 and widens the box when the body reaches a face (`Simulation.measure`, the
@@ -27,8 +31,8 @@ Two engines step the flow, as in the JAX package: ``engine="3d"`` runs
 ``engine="flat"`` runs `flowflat.mom_step_flat_impl` (the fused engine,
 kernels of `ops/fused3d.py`, on the body's x band `cfg.band_x`).
 ``engine="auto"`` takes the flat engine on a CUDA device in float32 and 3-D
-(the counterpart of the JAX rule "flat on the TPU") and the 3d engine
-elsewhere.
+with the multigrid solver (the counterpart of the JAX rule "flat on the
+TPU") and the 3d engine elsewhere.
 """
 from __future__ import annotations
 
@@ -40,11 +44,12 @@ import torch
 
 from .models import flow as fl
 from .models import flowflat as ff
-from .models.body import Body, NoBody, measure_fill
+from .models.body import Body, NoBody, measure_fill, measure_sdf
 from .ops import mgflat
 from .ops import multigrid as mg
+from .ops import poisson as ps
 
-__all__ = ["Simulation", "check_fn"]
+__all__ = ["Simulation", "pcg_solve_fn", "check_fn"]
 
 ENGINES = ("auto", "flat", "3d")
 _BAND_PAD = 4    # rows of slack around the band (`simulation.py:213`)
@@ -115,6 +120,14 @@ def _band_box(V: torch.Tensor, mu0: torch.Tensor, mu1: torch.Tensor,
     return torch.stack(out)
 
 
+def pcg_solve_fn(levels, masks, x, z, tol, itmx, perdir):
+    """The standalone PCG `solve` on the fine level in place of the
+    multigrid solve (the `pois_ctor` injection hook of the reference,
+    `src/WaterLily.jl:96-97`; ``psolver="pcg"``)."""
+    x, r, n, stats = ps.solve(levels[0], x, z, tol=tol, itmx=itmx, perdir=perdir)
+    return mg.MGSolveResult(x, r, n, stats)
+
+
 class Simulation:
     """`Simulation(dims, ubc, L; ...)` (`src/WaterLily.jl:36-75`).
 
@@ -129,11 +142,19 @@ class Simulation:
     solve below ``min_coarse_cells=64``; ``mp_smooth=True`` asks for bf16
     smoothing, which takes effect on the flat engine in float32 with no
     periodic direction (`mgflat.mp_applies`).  ``engine`` picks the
-    stepping engine (module docstring); ``"flat"`` needs D = 3.  ``perdir``
+    stepping engine (module docstring); ``"flat"`` needs D = 3 and the
+    multigrid solver.  ``perdir``
     lists the periodic directions (0-based), ``exit_bc`` puts the convective
     outlet on the x-high face, ``u0`` is a constant tuple or a callable
     ``u0(i, x)`` written with torch ops.  ``device`` defaults to the card
     (``"cuda"``); CPU callers pass ``device="cpu"``.
+
+    ``flow_ctor`` and ``psolver`` are the injection hooks
+    (`WaterLily.jl:69-74`): ``flow_ctor(dims, ubc, dt=, nu=, g=, u0=,
+    perdir=, exit_bc=, scheme=, dtype=, tol=, itmx=, device=)`` builds the
+    flow in place of `Flow` (it gets no solver tuning keywords, as in the
+    JAX package); ``psolver="pcg"`` solves the pressure with `pcg_solve_fn`
+    on one level (``masks = ()``), which only the 3d engine runs.
 
     ``band_measure`` (True) lets the flat engine re-measure on the box
     ``cfg.band_box``; set it False for the dense measure it must equal.
@@ -158,14 +179,8 @@ class Simulation:
         check_fn(ubc, D, dtype, 3, "ubc")
         check_fn(g, D, dtype, 3, "g")
         check_fn(u0, D, dtype, 2, "u0")
-        if flow_ctor is not None:
-            raise NotImplementedError(
-                "flow_ctor is not ported yet: ROADMAP queue 1, [pcg] "
-                "(solver injection)")
-        if psolver != "mg":
-            raise NotImplementedError(
-                f"psolver={psolver!r} is not ported yet: ROADMAP queue 1, "
-                "[pcg] (solver injection)")
+        if psolver not in ("mg", "pcg"):
+            raise ValueError(f"unknown psolver {psolver!r}")
         if U is None:
             if callable(ubc):
                 raise ValueError("U (velocity scale) must be given when ubc "
@@ -173,27 +188,32 @@ class Simulation:
             U = math.sqrt(sum(float(v) ** 2 for v in ubc))
         self.U, self.L, self.eps = U, L, eps
         self.device = torch.device(device)
-        self.flow = fl.Flow(tuple(dims), ubc, dt=dt, nu=nu, g=g, u0=u0,
-                            perdir=tuple(perdir), exit_bc=exit_bc,
-                            scheme=scheme, dtype=dtype, tol=tol, itmx=itmx,
-                            smooth_it=smooth_it, fine_smooth_it=fine_smooth_it,
-                            mp_smooth=mp_smooth, fine_presmooth=fine_presmooth,
-                            device=self.device)
+        tuning = {} if flow_ctor is not None else dict(
+            smooth_it=smooth_it, fine_smooth_it=fine_smooth_it,
+            mp_smooth=mp_smooth, fine_presmooth=fine_presmooth)
+        self.flow = (flow_ctor or fl.Flow)(
+            tuple(dims), ubc, dt=dt, nu=nu, g=g, u0=u0, perdir=tuple(perdir),
+            exit_bc=exit_bc, scheme=scheme, dtype=dtype, tol=tol, itmx=itmx,
+            device=self.device, **tuning)
         self.body = body if body is not None else NoBody()
         self.psolver = psolver
         cfg = self.flow.cfg
         if engine == "auto":
-            engine = ("flat" if self.device.type == "cuda"
+            engine = ("flat" if self.device.type == "cuda" and psolver == "mg"
                       and dtype == torch.float32 and ff.flat_supported(cfg)
                       else "3d")
-        if engine == "flat" and not ff.flat_supported(cfg):
-            raise ValueError("engine='flat' needs D=3")
+        if engine == "flat" and (psolver != "mg" or not ff.flat_supported(cfg)):
+            raise ValueError("flat engine needs psolver='mg' and D=3")
         self.engine = engine
         self.solver_stats = None   # last step's per-projection residual logs
         self._min_coarse = (mg.MIN_COARSE_CELLS if min_coarse_cells is None
                             else min_coarse_cells)
-        self.masks = tuple(mg.level_shapes(cfg.shape,
-                                           min_cells=self._min_coarse)[1])
+        if psolver == "pcg":
+            self.masks, self.solve_fn = (), pcg_solve_fn
+        else:
+            self.masks = tuple(mg.level_shapes(
+                cfg.shape, min_cells=self._min_coarse)[1])
+            self.solve_fn = None
         self.band_measure = True
         self.measure_rounds = 0
         if isinstance(self.body, NoBody):
@@ -270,7 +290,10 @@ class Simulation:
 
     def _levels(self, mu0: torch.Tensor):
         """The multigrid stack of ``mu0``; where ``mp_smooth`` takes effect,
-        with the bf16 coefficient copies of `mgflat.mp_levels`."""
+        with the bf16 coefficient copies of `mgflat.mp_levels`.  PCG keeps
+        the fine level alone (JAX `simulation.py:532-539`)."""
+        if self.psolver == "pcg":
+            return (ps.make_level(mu0),)
         cfg = self.flow.cfg
         levels = mg.update_mg(self.masks, mu0, cfg.perdir)
         if self.engine == "flat" and mgflat.mp_applies(
@@ -306,9 +329,13 @@ class Simulation:
         cfg = self.flow.cfg
         dt = _as_dtype(self.flow.dt[-1], cfg.dtype)
         t0 = _as_dtype(self.time, cfg.dtype)
-        step = ff.mom_step_flat_impl if self.engine == "flat" else fl.mom_step_impl
-        state, dt_next, iters, stats = step(cfg, self.flow.state, self.levels,
-                                            self.masks, dt, t0, udf)
+        if self.engine == "flat":
+            state, dt_next, iters, stats = ff.mom_step_flat_impl(
+                cfg, self.flow.state, self.levels, self.masks, dt, t0, udf)
+        else:
+            state, dt_next, iters, stats = fl.mom_step_impl(
+                cfg, self.flow.state, self.levels, self.masks, dt, t0, udf,
+                self.solve_fn)
         self.flow.state = state
         self.flow.dt.append(dt_next.item())
         self.flow.pois_n += iters
@@ -340,3 +367,24 @@ class Simulation:
     def sim_info(self):
         """One-line status print (`sim_info`, `WaterLily.jl:155`)."""
         print(f"tU/L={self.sim_time:.4f}, dt={self.flow.dt[-1]:.3f}")
+
+    # ------------------------------------------------------------- utilities
+    def perturb(self, noise: float = 0.1, seed: int = 0):
+        """Add normal velocity noise of scale ``noise·U`` to every face, the
+        ghosts included (`perturb!`, `WaterLily.jl:161`), drawn from a
+        generator on the simulation's device seeded with ``seed``.  The JAX
+        package draws from `jax.random`: the same seed gives other numbers
+        there, with the same statistics."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        u = self.flow.state.u
+        u = u + noise * self.U * torch.randn(u.shape, generator=gen, dtype=u.dtype,
+                                             device=u.device)
+        self.flow.state = dataclasses.replace(self.flow.state, u=u)
+        return self
+
+    def sdf_field(self, t: Optional[float] = None) -> torch.Tensor:
+        """Signed distance of the body at every cell centre, ghosts zero, at
+        time ``t`` (default: now)."""
+        cfg = self.flow.cfg
+        return measure_sdf(self.body, cfg.shape, self.time if t is None else t,
+                           cfg.dtype, self.device)

@@ -1,28 +1,35 @@
-"""Flow diagnostics: kinetic energy, vorticity, strain and body forces.
+"""Flow diagnostics: vorticity, strain, vortex criteria, body forces and
+moments, running means.
 
-PyTorch counterpart of the part of `waterlily_tpu/utils/metrics.py` (the
-port of `src/Metrics.jl`) that the sphere-drag and Taylor–Green examples
-use.  Pointwise metrics are whole-tensor shift expressions; the surface
-integrals evaluate the body normal at every interior cell with one vmapped
-sweep (`models.body` chunks it) and sum in float64 on either device, as the
-reference does (`Metrics.jl:127`).  The JAX package sums in float32 with a
-Neumaier-compensated scan on the TPU only because the TPU has no fast
-float64; the card has it.  Moments, `lambda2_field`, `helicity_field`,
-`omega_theta_field` and `MeanFlow` are not ported yet (ROADMAP queue 1,
-[utils]).
+PyTorch counterpart of `waterlily_tpu/utils/metrics.py` (the port of
+`src/Metrics.jl`).  Pointwise metrics are whole-tensor shift expressions;
+the surface integrals evaluate the body normal at every interior cell with
+one vmapped sweep (`models.body` chunks it) and sum in float64 on either
+device, as the reference does (`Metrics.jl:127`).  The JAX package sums in
+float32 with a Neumaier-compensated scan on the TPU only because the TPU has
+no fast float64; the card has it.  `lambda2_field` takes the eigenvalues of
+``LAMBDA2_CHUNK`` cells' 3×3 matrices per batched `eigvalsh` call.
 """
 from __future__ import annotations
 
 import torch
 
 from ..models.body import Body, _interior_points, _measure_points, kern
-from ..ops.grid import grow, shift
+from ..ops.grid import grow, loc_grid, shift
 
 __all__ = [
-    "dudx", "ke_field", "curl_edge", "omega_field", "omega_mag_field",
-    "vorticity", "strain_field",
+    "dudx", "ke_field", "lambda2_field", "curl_edge", "omega_field",
+    "omega_mag_field", "omega_theta_field", "helicity_field", "strain_field",
+    "vorticity",
     "nds_field", "pressure_force", "viscous_force", "total_force",
+    "pressure_moment", "viscous_moment", "total_moment", "MeanFlow",
+    "LAMBDA2_CHUNK",
 ]
+
+# cells per batched `eigvalsh` call of `lambda2_field`: cuSOLVER's batched
+# symmetric solver refuses 32,768 3×3 matrices and more in one call
+# (CUSOLVER_STATUS_INVALID_VALUE on an H100 with CUDA 12.8)
+LAMBDA2_CHUNK = 1 << 14
 
 
 def dudx(i: int, j: int, u: torch.Tensor) -> torch.Tensor:
@@ -42,6 +49,30 @@ def ke_field(u: torch.Tensor, U=None) -> torch.Tensor:
         Ui = 0.0 if U is None else U[i]
         s = s + (u[i] + shift(u[i], i, 1) - 2 * Ui) ** 2
     return 0.125 * s
+
+
+def _jacobian_field(u: torch.Tensor) -> torch.Tensor:
+    D = u.shape[0]
+    return torch.stack([torch.stack([dudx(i, j, u) for j in range(D)])
+                        for i in range(D)])
+
+
+def lambda2_field(u: torch.Tensor) -> torch.Tensor:
+    """λ₂ vortex criterion (`λ₂`, `Metrics.jl:54-58`): the middle eigenvalue
+    of S² + Ω² at every cell, by batched `eigvalsh` in chunks of
+    `LAMBDA2_CHUNK` cells."""
+    J = _jacobian_field(u)                       # (3, 3, *sp)
+    Jt = J.transpose(0, 1)
+    S, O = (J + Jt) / 2, (J - Jt) / 2
+    A = (torch.einsum("ik...,kj...->ij...", S, S)
+         + torch.einsum("ik...,kj...->ij...", O, O))
+    sp = A.shape[2:]
+    Ab = A.reshape(3, 3, -1).permute(2, 0, 1)
+    out = torch.empty(Ab.shape[0], dtype=u.dtype, device=u.device)
+    for k in range(0, Ab.shape[0], LAMBDA2_CHUNK):
+        out[k:k + LAMBDA2_CHUNK] = torch.linalg.eigvalsh(
+            Ab[k:k + LAMBDA2_CHUNK])[:, 1]       # ascending
+    return out.reshape(sp)
 
 
 def _cyclic(i: int):
@@ -66,6 +97,36 @@ def omega_field(u: torch.Tensor) -> torch.Tensor:
 def omega_mag_field(u: torch.Tensor) -> torch.Tensor:
     """|∇×u| (`ω_mag`, `Metrics.jl:84-86`)."""
     return torch.sqrt(torch.sum(omega_field(u) ** 2, dim=0))
+
+
+def omega_theta_field(u: torch.Tensor, z, center) -> torch.Tensor:
+    """Azimuthal vorticity ω·θ̂ about the axis ``z`` through ``center``
+    (`ω_θ`, `Metrics.jl:91-97`); zero on the axis."""
+    sp = tuple(u.shape[1:])
+    x = loc_grid(None, sp, u.dtype, u.device)
+    view = (3, 1, 1, 1)
+    rel = x - torch.as_tensor(center, dtype=u.dtype, device=u.device).reshape(view)
+    zz = torch.as_tensor(z, dtype=u.dtype, device=u.device).reshape(view)
+    theta = torch.linalg.cross(zz.expand(rel.shape), rel, dim=0)
+    n = torch.sqrt(torch.sum(theta ** 2, dim=0))
+    dot = torch.sum(theta * omega_field(u), dim=0)
+    return torch.where(n <= torch.finfo(u.dtype).eps, 0.0,
+                       dot / torch.where(n == 0, 1.0, n))
+
+
+def helicity_field(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Helicity density at the cells from a velocity and a vorticity field
+    (`helicity`, `Metrics.jl:99-109`)."""
+    s = torch.zeros(u.shape[1:], dtype=u.dtype, device=u.device)
+    for d in range(3):
+        d1, d2 = _cyclic(d)
+        umid = u[d] + shift(u[d], d, 1)
+        acc = torch.zeros_like(s)
+        for i1 in (0, 1):
+            for i2 in (0, 1):
+                acc = acc + shift(shift(w[d], d1, i1), d2, i2)
+        s = s + umid * acc
+    return s / 8
 
 
 def vorticity(u: torch.Tensor) -> torch.Tensor:
@@ -121,3 +182,101 @@ def total_force(sim) -> torch.Tensor:
     st = sim.flow.state
     return (pressure_force(st.p, sim.body, sim.time)
             + viscous_force(st.u, st.nu, sim.body, sim.time))
+
+
+def _cross_field(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Cross product of ``(D, *sp)`` fields: a ``(1, *sp)`` scalar in 2-D,
+    a vector in 3-D."""
+    if a.shape[0] == 2:
+        return (a[0] * b[1] - a[1] * b[0])[None]
+    return torch.linalg.cross(a, b, dim=0)
+
+
+def _rel_coords(shape, x0, dtype, device) -> torch.Tensor:
+    D = len(shape)
+    x = loc_grid(None, tuple(shape), dtype, device)
+    return x - torch.as_tensor(x0, dtype=dtype, device=device).reshape((D,) + (1,) * D)
+
+
+def pressure_moment(x0, p: torch.Tensor, body: Body, t=0.0) -> torch.Tensor:
+    """∮ p (x − x0)×n dS (`pressure_moment`, `Metrics.jl:166-173`), a
+    float64 tensor on ``p``'s device: ``(1,)`` in 2-D, ``(3,)`` in 3-D."""
+    nds = nds_field(body, tuple(p.shape), t, p.dtype, p.device)
+    rel = _rel_coords(p.shape, x0, p.dtype, p.device)
+    return _grid_sum(p[None] * _cross_field(rel, nds))
+
+
+def viscous_moment(x0, u: torch.Tensor, nu, body: Body, t=0.0) -> torch.Tensor:
+    """−∮ 2ν (x − x0)×(S·n) dS (`viscous_moment`, `Metrics.jl:179-190`), a
+    float64 tensor on ``u``'s device."""
+    sp = tuple(u.shape[1:])
+    nds = nds_field(body, sp, t, u.dtype, u.device)
+    Sn = torch.einsum("ij...,j...->i...", strain_field(u), nds)
+    rel = _rel_coords(sp, x0, u.dtype, u.device)
+    return _grid_sum(-2.0 * nu * _cross_field(rel, Sn))
+
+
+def total_moment(x0, sim) -> torch.Tensor:
+    """Pressure + viscous moment about ``x0`` on the body of a `Simulation`
+    (`total_moment`, `Metrics.jl:195-197`)."""
+    st = sim.flow.state
+    return (pressure_moment(x0, st.p, sim.body, sim.time)
+            + viscous_moment(x0, st.u, st.nu, sim.body, sim.time))
+
+
+class MeanFlow:
+    """Running averages of P, U (and, with ``uu_stats``, of u⊗u) over the
+    flow's history (`MeanFlow`, `Metrics.jl:205-257`).  Built from a
+    ``flow`` (its state's shapes, dtype, device and time) or from interior
+    ``shape``, ``D``, ``dtype`` and ``device``."""
+
+    def __init__(self, shape=None, D=None, flow=None, t_init=0.0,
+                 uu_stats: bool = False, dtype=torch.float32, device="cuda"):
+        if flow is not None:
+            st = flow.state
+            D, dtype, t_init = flow.cfg.D, flow.cfg.dtype, flow.time
+            self.P = torch.zeros_like(st.p)
+            self.U = torch.zeros_like(st.u)
+            shape, device = tuple(st.p.shape), st.p.device
+        else:
+            shape = tuple(n + 2 for n in shape)   # interior dims, as the reference
+            D = D or len(shape)
+            self.P = torch.zeros(shape, dtype=dtype, device=device)
+            self.U = torch.zeros((D,) + shape, dtype=dtype, device=device)
+        self.UU = (torch.zeros((D, D) + shape, dtype=dtype, device=device)
+                   if uu_stats else None)
+        self.t = [float(t_init)]
+        self.uu_stats = uu_stats
+
+    @property
+    def time(self) -> float:
+        return self.t[-1] - self.t[0]
+
+    def reset(self, t_init: float = 0.0):
+        """Zero the averages and restart the window (`reset!`,
+        `Metrics.jl:234-241`)."""
+        self.P = torch.zeros_like(self.P)
+        self.U = torch.zeros_like(self.U)
+        if self.UU is not None:
+            self.UU = torch.zeros_like(self.UU)
+        self.t = [float(t_init)]
+
+    def update(self, flow):
+        """Blend in the flow's present fields with the weight dt/(dt + the
+        window) (`update!`, `Metrics.jl:228-243`); the first update takes
+        them whole."""
+        dt = flow.time - self.t[-1]
+        eps_w = dt / (dt + self.time + float(torch.finfo(self.P.dtype).eps))
+        if len(self.t) == 1:
+            eps_w = 1.0
+        u, p = flow.state.u, flow.state.p
+        self.P = eps_w * p + (1 - eps_w) * self.P
+        self.U = eps_w * u + (1 - eps_w) * self.U
+        if self.uu_stats:
+            uu_now = torch.einsum("i...,j...->ij...", u, u)
+            self.UU = eps_w * uu_now + (1 - eps_w) * self.UU
+        self.t.append(self.t[-1] + dt)
+
+    def uu(self) -> torch.Tensor:
+        """Reynolds stresses ⟨u⊗u⟩ − Ū⊗Ū (`uu`, `Metrics.jl:246-253`)."""
+        return self.UU - torch.einsum("i...,j...->ij...", self.U, self.U)
