@@ -6,7 +6,8 @@
 Phases (each prints its own lines; any failure exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit) and the toolchain;
-2. build the CUDA kernels of ``waterlily_tpu_torch/csrc`` with ``nvcc``; the
+2. build the CUDA kernels of ``waterlily_tpu_torch/csrc`` with ``nvcc`` (one
+   process a source, all started together); the
    compiler's report (``-Xptxas -v``) must show all 27 conv–diff
    instantiations (K12: 3 schemes × 8 periodic masks, K1: 3 schemes), the 16
    of K7's tiled cascade (1–4 colours, with and without norms, float32 and
@@ -17,12 +18,15 @@ Phases (each prints its own lines; any failure exits non-zero):
    the bf16 smoothers with 0, 2 and 4 colours and with and without norms,
    K7 with 4, 2 and 3 colours and K6, K15, K13 and the bf16 K5 and K7 with
    4 colours on each of their routes, the tiled cascade and the per-colour
-   launches, where the shape allows it)
+   launches, where the shape allows it; K12's tangent kernel on every
+   periodic mask with quick and walled and xyz-periodic with the others,
+   against `torch.func.jvp` of the plain conv–diff)
    against its plain PyTorch version in float32 on random inputs at the
    shapes the main paths give it (258³ fine level, 130³, 66³ and 18³ MG
    levels, a non-cubic (50, 34, 34) and an odd-interior (51, 34, 35)), and
    the median time of each case at 258³ beside its plain version's; K12,
-   K1, K7, K15, K13 and the bf16 K5 and K7 are also timed at the drag grid
+   K1, K7, K15, K13, the bf16 K5 and K7 and K12's tangent are also timed at
+   the drag grid
    (322, 130, 130), K15, K13 and the bf16 K5 and K7 at 130³ too, and each
    of their times is printed beside the kernels they replaced
    (``BEFORE_MS``: K12 and K1 one thread per (cell, component), K7, K15,
@@ -126,13 +130,24 @@ Phases (each prints its own lines; any failure exits non-zero):
    a VTK write and read that must hold the state, phase 7's solver log read
    back by ``parse_log``, and ``update_particles`` on 100,000 tracers;
    matplotlib must not have been imported.  Files go to
-   ``build/chip_smoke/`` in the checkout and are deleted.
+   ``build/chip_smoke/`` in the checkout and are deleted;
+9. forward-mode AD (`torch.func.jvp` through `mom_step_impl` on the 3d
+   engine, float32, dt and t carried as 0-d tensors): the 256³ sphere of
+   4a, d(F_x)/d(Re) after 5 steps (Re = U R/ν, F the pressure + viscous
+   force), its primal run and its jvp timed (ms per step, peak memory), the
+   jvp's launch counts (K12 and its tangent kernel ``conv_diff_jvp_k``,
+   K14, K15, K16; no other kernel, none plain), then the same jvp under
+   ``plain_ops()``: the derivatives within ``AD_SPHERE_TOL`` and every
+   primal and tangent solve's iterations within one; and the 64³
+   Taylor–Green vortex (periodic: K13), dKE/dRe against the kernels'
+   central difference (h = 1 % of Re) within 10 %.
 
 Before its last line it prints one JSON object with each kernel's launches
-(summed over the phase-4 runs a-g and i and the phase-6 and 7 runs), error,
+(summed over the phase-4 runs a-g and i and the phase-6, 7 and 9 runs), error,
 times, bound, host µs per call, the launches of the 4h table
-(``tool_launches``, kept out of ``launches``) and of the PCG run
-(``pcg_launches``, in ``launches``), and the card's name and power limit;
+(``tool_launches``, kept out of ``launches``), of the PCG run
+(``pcg_launches``) and of the AD runs (``ad_launches``, both in
+``launches``), and the card's name and power limit;
 the last line is ``{"ok": true, "device": {...}}``.  Needs no JAX and no
 network.
 """
@@ -140,6 +155,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import importlib.util
 import json
 import math
@@ -158,6 +174,7 @@ F32_FLOPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 _STENCIL = "waterlily_tpu_torch/csrc/stencil3d.cu"
 _FUSED = "waterlily_tpu_torch/csrc/fused3d.cu"
 _PROBE = "waterlily_tpu_torch/csrc/probe.cu"
+_JVP = "waterlily_tpu_torch/csrc/convdiff_jvp.cu"
 # the bf16 smoothers round where their plain versions round and use no fused
 # multiply-add: x to 1e-5, r to one flipped bf16 rounding, the norms to 1e-5
 _MP_TOL = (1e-5, 2.0 ** -8, 1e-5, 1e-5)
@@ -191,14 +208,24 @@ KERNELS = {
                      30, 60),
     "copy_scale_k": (0.0, _PROBE, "benchmarks/leanprobe.py:99", 8, 1),
     "copy_scale6_k": (0.0, _PROBE, "benchmarks/bwprobe.py:128", 48, 6),
+    # K12's tangent: u, du in, dr out (36 B); 9 tangent face fluxes of ~40
+    # operations and their sums a cell; the JAX package takes the jvp of
+    # the conv-diff of the TPU kernel it replaces
+    "conv_diff_jvp_k": (2e-5, _JVP, "waterlily_tpu/ops/pallas3d.py:274", 36, 400),
 }
 DRAG_GRID = (322, 130, 130)      # `drag_sim(128)` with its ghost cells
+# every periodic mask of K12 and its tangent, walled first
+PER_MASKS = [tuple(j for j in range(3) if m >> j & 1) for m in range(8)]
+# the tangent kernel's cases that phase 3 times (its plain version, a
+# `torch.func.jvp`, takes 55-190 ms a call at 258^3 on an NVIDIA H100 80GB
+# HBM3 at 700 W)
+JVP_TIMED = ("quick", "vanleer", "cds", "quick per=012")
 # the redesigned kernels: timed at the drag grid too, beside `BEFORE_MS`
 REDESIGNED = ("conv_diff_k", "conv_diff_bdim_k", "incr_gs_k", "gs_incr_k",
               "gauss_sweeps_k", "gs_incr_mp_k", "incr_gs_mp_k")
 # the shapes at which a redesigned kernel is timed besides 258^3: the
 # smoothers whose routes change with the level also at 130^3
-TIMED_AT = {DRAG_GRID: REDESIGNED,
+TIMED_AT = {DRAG_GRID: REDESIGNED + ("conv_diff_jvp_k",),
             (130,) * 3: ("gs_incr_k", "gauss_sweeps_k", "gs_incr_mp_k",
                          "incr_gs_mp_k")}
 # ms per call of the kernels that the redesigns replaced, on an NVIDIA H100
@@ -319,6 +346,13 @@ PATH_KERNELS = {
     # PCG on the 3d engine: K12, K14, and K16 for every A·x of the CG
     ("pcg", "3d"): {"conv_diff_k", "bdim_k", "mult_k"},
     ("probe", "tool"): {"copy_scale_k", "copy_scale6_k"},
+    # phase 9, forward-mode AD on the 3d engine: K12 and its tangent kernel,
+    # K14 (primal and tangent launches), the solver's kernels on the primal
+    # and tangent solves (K15 walled; K13 and K16 periodic)
+    ("ad-sphere", "3d"): {"conv_diff_k", "conv_diff_jvp_k", "bdim_k", "mult_k",
+                          "gs_incr_k"},
+    ("ad-tgv", "3d"): {"conv_diff_k", "conv_diff_jvp_k", "bdim_k", "mult_k",
+                       "gauss_sweeps_k"},
     # `tools/launch_cost.py` calls every wrapper
     ("launch", "tool"): set(KERNELS),
 }
@@ -332,9 +366,11 @@ HOST_ROW = {"conv_diff_k": "conv_diff_k", "conv_diff_bdim_k": "conv_diff_bdim_k"
             "projbc_k": "projbc_k cfl", "bc_k": "bc_k", "div_k": "div_k",
             "gs_incr_mp_k": "gs_incr_k mp 4 colours",
             "incr_gs_mp_k": "incr_gs_k mp 4 colours norms",
-            "copy_scale_k": "copy_scale_k", "copy_scale6_k": "copy_scale6_k"}
+            "copy_scale_k": "copy_scale_k", "copy_scale6_k": "copy_scale6_k",
+            "conv_diff_jvp_k": "conv_diff_jvp_k"}
 # the paths of phases 6 and 7
-LATER_PATHS = {("circle", "3d"), ("circle-64", "3d"), ("foil", "3d"), ("pcg", "3d")}
+LATER_PATHS = {("circle", "3d"), ("circle-64", "3d"), ("foil", "3d"), ("pcg", "3d"),
+               ("ad-sphere", "3d"), ("ad-tgv", "3d")}
 # (configuration, engine) in the order phase 4 runs them
 MAIN_RUNS = [(c, e) for c in ("sphere", "tgv", "drag", "les", "ramp")
              for e in ("flat", "3d")] + [("sphere-mp", "flat"), ("sphere-s2", "flat"),
@@ -433,6 +469,19 @@ def kernel_cases(torch, st, fz, ps, shape, rng, dev, band):
         cases.append(("conv_diff_k", f"{scheme.__name__} per={''.join(map(str, per))}",
                       lambda sid=sid, per=per: st.conv_diff_k(u, nu, sid, per),
                       lambda scheme=scheme, per=per: st.conv_diff_plain(u, nu, scheme, per)))
+    # K12's tangent kernel, every scheme and periodic mask, against the plain
+    # version's derivative (`torch.func.jvp` of `conv_diff_plain`)
+    dnu = torch.tensor(-0.4, dtype=f32, device=dev)
+    for per in PER_MASKS:
+        for sid, scheme in enumerate(st.SCHEMES):
+            if per and per != (0, 1, 2) and sid:
+                continue                  # the other masks: quick (the kernel tests: all)
+            tag = f"{scheme.__name__}" + (f" per={''.join(map(str, per))}" if per else "")
+            cases.append(("conv_diff_jvp_k", tag,
+                          lambda sid=sid, per=per: st.conv_diff_jvp_k(u, u0, nu, dnu,
+                                                                      sid, per),
+                          lambda scheme=scheme, per=per: st.conv_diff_jvp_plain(
+                              u, u0, nu, dnu, scheme, per)))
     cases.append(("bdim_k", "", lambda: st.bdim_k(u, u0, f, V, mu0, mu1, 0.3),
                   lambda: st.bdim_plain(u, u0, f, V, mu0, mu1, 0.3)))
     cases.append(("mult_k", "", lambda: st.mult_k(x, lev.L, lev.D),
@@ -667,7 +716,8 @@ def phase_kernels(torch, np, wt, dev):
                       f"relative error {rel:.3e} > {tol:.0e}")
                 stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
             del got, want
-            if shape == fine or name in TIMED_AT.get(shape, ()):
+            if ((shape == fine or name in TIMED_AT.get(shape, ()))
+                    and (name != "conv_diff_jvp_k" or label in JVP_TIMED)):
                 ms, pms = median_ms(torch, kern, 20), median_ms(torch, plain, 4)
                 before = BEFORE_MS.get((shape, name, label))
                 print(f"phase3 time {name:16s} {label:24s} at {shape}: kernel "
@@ -1608,6 +1658,152 @@ def phase_utils(torch, wt, dev, run):
     return dict(lambda2_ms=lam_ms, lambda2_peak=lam_peak, meanflow_ms=mf_ms2)
 
 
+# ------------------------------------------------------------ phase 9
+AD_STEPS = 5
+AD_TGV_N = 64
+AD_TGV_RE = 1600.0          # `examples/tgv3d.py`'s Re = U/(κν)
+AD_FD_STEP = 0.01           # the central difference's step, relative to Re
+AD_FD_TOL = 0.1             # AD against that difference (`tests/test_diff.py`)
+# the kernels' d(F_x)/d(Re) against the plain versions' (`plain_ops()`),
+# relative; float32 rounding of the two runs parts them (2.07e-5 measured on
+# an NVIDIA H100 80GB HBM3 at 700 W, with every solve's iterations equal)
+AD_SPHERE_TOL = 5e-2
+
+
+def ad_runner(torch, sim, nu, steps: int, events=None):
+    """``steps`` steps of `mom_step_impl` from the state of ``sim`` with
+    viscosity ``nu``, dt and t carried as 0-d tensors (the differentiable
+    runner of `tests/test_diff.py`: dt's tangent flows through the CFL).
+    ``events``: a list that gets a pair of CUDA events around each step.
+    Returns ``(state, t)``."""
+    from waterlily_tpu_torch.models import flow as fl
+
+    cfg = sim.flow.cfg
+    state = dataclasses.replace(sim.flow.state, nu=nu)
+    dt = torch.tensor(sim.flow.dt[-1], dtype=cfg.dtype, device=state.u.device)
+    t = torch.zeros((), dtype=cfg.dtype, device=state.u.device)
+    for _ in range(steps):
+        if events is not None:
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+        state, dt_next, _, _ = fl.mom_step_impl(cfg, state, sim.levels, sim.masks, dt, t)
+        if events is not None:
+            b.record()
+            events.append((a, b))
+        t, dt = t + dt, dt_next
+    return state, t
+
+
+def check_counts(counts, path, tag: str) -> None:
+    for k, n in counts.items():
+        if k in PATH_KERNELS[path]:
+            check(n > 0, f"{tag}: kernel {k} was not launched")
+        else:
+            check(n == 0, f"{tag}: kernel {k} of another path was launched")
+
+
+def phase_ad(torch, wt, st, dev):
+    """Phase 9: forward-mode AD (`torch.func.jvp`) through `mom_step_impl`
+    on the 3d engine in float32.  (a) The 256³ sphere of phase 4a:
+    d(F_x)/d(Re) (Re = U R/ν, F the pressure + viscous force after
+    ``AD_STEPS`` steps): the primal run timed, the jvp timed with its launch
+    counts (K12 and its tangent kernel, K14, K15, K16: none plain), then the
+    jvp under `plain_ops()`: the derivatives within ``AD_SPHERE_TOL``,
+    every primal and tangent solve's iterations within one.  (b) The 64³
+    Taylor–Green vortex (periodic: K13): dKE/dRe against the kernels'
+    central difference within ``AD_FD_TOL``."""
+    from waterlily_tpu_torch.ops import multigrid as mg
+    from waterlily_tpu_torch.utils import metrics as mt
+
+    runs = {}
+    tag = f"phase9 ad-sphere {FINE}^3 [3d]"
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    sim = sphere_sim(torch, wt, FINE, dev, engine="3d")
+    check(sim.engine == "3d", f"{tag}: Simulation runs engine {sim.engine}")
+    re0 = torch.tensor(sim.L / sim.flow.nu, dtype=torch.float32, device=dev)
+    one = torch.ones_like(re0)
+
+    def force(re, events=None):
+        state, t = ad_runner(torch, sim, sim.L / re, AD_STEPS, events)
+        f = (mt.pressure_force(state.p, sim.body, t)
+             + mt.viscous_force(state.u, state.nu, sim.body, t))
+        return f[0]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        events = []
+        with mg.iteration_log() as log:
+            out = fn(events)
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for a, b in events]
+        return out, ms, torch.cuda.max_memory_allocated(), list(log)
+
+    f0, primal_ms, primal_peak, plog = timed(lambda ev: force(re0, ev))
+    st.reset_launch_counts()
+    (fj, dj), jvp_ms, jvp_peak, jlog = timed(
+        lambda ev: torch.func.jvp(lambda r: force(r, ev), (re0,), (one,)))
+    counts = st.launch_counts()
+    with st.plain_ops(), mg.iteration_log() as qlog:
+        fq, dq = torch.func.jvp(force, (re0,), (one,))
+    torch.cuda.synchronize()
+    check(st.launch_counts() == counts, f"{tag}: plain_ops() launched a kernel")
+    f0, fj, dj, fq, dq = (float(v) for v in (f0, fj, dj, fq, dq))
+    rel_d, rel_f = abs(dj - dq) / abs(dq), abs(fj - fq) / abs(fq)
+    pm, jm = statistics.mean(primal_ms[1:]), statistics.mean(jvp_ms[1:])
+    print(f"{tag}: Re {float(re0):.1f}, F_x after {AD_STEPS} steps {fj:.9e} (primal run "
+          f"{f0:.9e}); dF_x/dRe kernels {dj:.9e}, plain_ops() {dq:.9e}: rel {rel_d:.3e} "
+          f"(tol {AD_SPHERE_TOL:g}); F_x rel {rel_f:.3e}", flush=True)
+    print(f"{tag}: ms/step (steps 2-{AD_STEPS}, CUDA events) primal {pm:.3f}, jvp {jm:.3f} "
+          f"({jm / pm:.2f}x); per step primal {[round(t, 3) for t in primal_ms]}, jvp "
+          f"{[round(t, 3) for t in jvp_ms]}; peak {primal_peak / 2**30:.3f} GiB primal, "
+          f"{jvp_peak / 2**30:.3f} GiB jvp ({jvp_peak / primal_peak:.2f}x)", flush=True)
+    print(f"{tag}: solve iterations (primal, tangent per projection) kernels {jlog}, "
+          f"plain_ops() {qlog}, primal run {plog}; launch counts {counts}", flush=True)
+    check(all(math.isfinite(v) for v in (f0, fj, dj, fq, dq)), f"{tag}: not finite")
+    check(fj == f0 and jlog[0::2] == plog, f"{tag}: the jvp's primal is not the primal run's")
+    check(len(jlog) == len(qlog) == 4 * AD_STEPS
+          and all(abs(a - b) <= 1 for a, b in zip(jlog, qlog)),
+          f"{tag}: iteration counts differ by more than one")
+    check(rel_d <= AD_SPHERE_TOL, f"{tag}: dF/dRe of the kernels and of the plain "
+          f"versions differ by {rel_d:.3e} > {AD_SPHERE_TOL}")
+    check_counts(counts, ("ad-sphere", "3d"), tag)
+    runs[("ad-sphere", "3d")] = dict(counts=counts, primal_ms=pm, jvp_ms=jm,
+                                     primal_peak=primal_peak, jvp_peak=jvp_peak,
+                                     rel_d=rel_d, dF=dj)
+    del sim
+    torch.cuda.empty_cache()
+
+    tag = f"phase9 ad-tgv {AD_TGV_N}^3 [3d]"
+    sim = tgv_sim(torch, wt, AD_TGV_N, dev, engine="3d")
+    kappa = 2 * math.pi / AD_TGV_N
+    inner = (slice(1, -1),) * 3
+    re0 = torch.tensor(AD_TGV_RE, dtype=torch.float32, device=dev)
+
+    def ke(re):
+        state, _ = ad_runner(torch, sim, 1 / (kappa * re), AD_STEPS)
+        return mt.ke_field(state.u)[inner].double().sum()
+
+    st.reset_launch_counts()
+    (k0, dk), tgv_ms, tgv_peak, tlog = timed(
+        lambda ev: torch.func.jvp(ke, (re0,), (torch.ones_like(re0),)))
+    counts = st.launch_counts()
+    h = AD_FD_STEP * AD_TGV_RE
+    fd = (float(ke(re0 + h)) - float(ke(re0 - h))) / (2 * h)
+    rel = abs(float(dk) - fd) / abs(fd)
+    print(f"{tag}: KE after {AD_STEPS} steps {float(k0):.9f}; dKE/dRe AD {float(dk):.9e}, "
+          f"central difference (h = {h:g}) {fd:.9e}: rel {rel:.3e} (tol {AD_FD_TOL:g}); "
+          f"solve iterations {tlog}; launch counts {counts}", flush=True)
+    check(math.isfinite(float(dk)) and rel <= AD_FD_TOL,
+          f"{tag}: AD and the central difference differ by {rel:.3e}")
+    check_counts(counts, ("ad-tgv", "3d"), tag)
+    runs[("ad-tgv", "3d")] = dict(counts=counts, rel_fd=rel)
+    del sim
+    torch.cuda.empty_cache()
+    return runs
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -1660,8 +1856,10 @@ def main() -> int:
     runs[("pcg", "3d")] = pcg = phase_pcg(torch, wt, st, dev)
     phase_utils(torch, wt, dev, pcg)
     del pcg["sim"]
+    ad = phase_ad(torch, wt, st, dev)
+    runs.update(ad)
     check(set(runs) | {("launch", "tool")} == set(PATH_KERNELS),
-          "phase6-8: a path was not run")
+          "phase6-9: a path was not run")
     launches = {k: sum(r["counts"][k] for r in runs.values()) for k in KERNELS}
     check(all(n > 0 for n in launches.values()),
           f"a kernel was launched by no path: {launches}")
@@ -1674,7 +1872,8 @@ def main() -> int:
                 "host_us": host[HOST_ROW[k]]["host_us"],
                 "mul_host_us": host[HOST_ROW[k]]["mul_host_us"],
                 "tool_launches": cost["counts"][k],
-                "pcg_launches": pcg["counts"][k]}
+                "pcg_launches": pcg["counts"][k],
+                "ad_launches": sum(r["counts"][k] for r in ad.values())}
                for k, (_, src, rep, _, _) in KERNELS.items()]
     check(set(st.launch_counts()) == set(KERNELS),
           "the kernels table and the launch counts name different kernels")

@@ -15,10 +15,14 @@ multiply-adds in the kernels), nothing more.  The band-sparse BDIM: 2e-5.
 The mixed-precision smoothers round every bf16 operation where torch does
 and use no fused multiply-add, so x is held to 1e-5 and r to 2⁻⁸ (one bf16
 rounding that flips), both expected to be met exactly; their norms 1e-5.
-The copy probes: equal."""
+The copy probes: equal.  Forward-mode AD: K12's tangent kernel
+(`conv_diff_jvp_k`) and the rules of K12 and K14 against the derivative of
+their plain versions, 2e-5 of max|plain tangent|; every wrapper without a
+rule raises on a tangent, before it launches."""
 import numpy as np
 import pytest
 import torch
+import torch.autograd.forward_ad as fwAD
 
 import waterlily_tpu_torch as wt
 from waterlily_tpu_torch.ops import fused3d as fz
@@ -132,7 +136,7 @@ def test_launch_counts_and_routing(dev):
         ps.mult(lev, d["x"])
     assert st.launch_counts() == dict.fromkeys(st.launch_counts(), 0) | {
         "mult_k": 1, "gs_incr_k": 2}
-    assert len(st.launch_counts()) == 16
+    assert len(st.launch_counts()) == 17
     # float64 on the card takes the plain version; the wrapper refuses it
     assert not st.use_kernels(d["x"].double())
     with pytest.raises(TypeError):
@@ -664,10 +668,15 @@ def test_copy_scale_loop(dev):
     assert torch.equal(b, want)
 
 
-def wrapper_thunks(dev):
+def wrapper_thunks(dev, s=None):
     """Every wrapper, with its modes and both routes of the smoothers, as a
-    thunk on an 18^3 level that returns a tuple of tensors."""
+    thunk on an 18^3 level that returns a tuple of tensors.  ``s``: a 0-d
+    tensor every input field is multiplied by (under forward-mode AD, so
+    that each carries a tangent)."""
     d = inputs((18, 18, 18), 23, dev)
+    if s is not None:
+        d = {k: v * s if isinstance(v, torch.Tensor) else v for k, v in d.items()}
+        d["lev"] = ps.make_level(d["lev"].L * s)
     lev = ps.with_bf16(d["lev"])
     u, x, r, eps, L, D, iD = d["u"], d["x"], d["r"], d["eps"], lev.L, lev.D, lev.iD
     mom = [d[k] for k in ("u", "u0", "f", "V", "mu0", "mu1")]
@@ -717,6 +726,7 @@ def wrapper_thunks(dev):
         "div_k": lambda: (fz.div_k(u),),
         "copy_scale_k": lambda: tuple(probe.copy_scale_k([x], 1024)),
         "copy_scale6_k": lambda: tuple(probe.copy_scale_k(six)),
+        "conv_diff_jvp_k": lambda: (st.conv_diff_jvp_k(u, d["u0"], nu, nu, 0),),
     }
 
 
@@ -729,7 +739,7 @@ WRAPPER_CASES = ["conv_diff_k", "conv_diff_k per=012", "conv_diff_bdim_k",
                  "incr_gs_mp_k 0101 norms per-colour", "incr_gs_mp_k 10 cascade",
                  "gauss_sweeps_k xyz cascade", "gauss_sweeps_k z per-colour",
                  "bc_div_k", "projbc_k cfl exit", "bc_k", "div_k", "copy_scale_k",
-                 "copy_scale6_k"]
+                 "copy_scale6_k", "conv_diff_jvp_k"]
 
 
 @pytest.mark.parametrize("case", WRAPPER_CASES)
@@ -842,3 +852,155 @@ def test_custom_scheme_runs_plain(dev, engine):
     su = a.flow.u.abs().max()
     assert ((a.flow.u - b.flow.u).abs().max() <= 1e-6 * su).item()
     assert torch.isfinite(b.flow.p).all()
+
+
+# ---------------------------------------------------------------- forward-mode AD
+def ad_fields(shape, seed, dev):
+    """u and its tangent du, float32 on the card, made there."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((3,) + shape, generator=gen, device=dev),
+            torch.randn((3,) + shape, generator=gen, device=dev))
+
+
+def plain_jvp_of_conv_diff(u, du, nu, dnu, scheme, perdir):
+    return torch.func.jvp(lambda a, b: st.conv_diff_plain(a, b, scheme, perdir),
+                          (u, nu), (du, dnu))[1]
+
+
+# every periodic mask K12 takes, the walled one first
+ALL_PERDIRS = [()] + PERDIRS
+ALL_PERDIR_IDS = ["walls"] + PERDIR_IDS
+
+
+@pytest.mark.parametrize("shape", PER_SHAPES + [(258, 258, 258), (322, 130, 130)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("sid", [0, 1, 2], ids=["quick", "vanleer", "cds"])
+@pytest.mark.parametrize("perdir", ALL_PERDIRS, ids=ALL_PERDIR_IDS)
+def test_conv_diff_jvp_k(dev, shape, sid, perdir):
+    """K12's tangent kernel against `torch.func.jvp` of `conv_diff_plain`,
+    tangents in u and nu, at the test shapes, the 258³ fine level and the
+    drag grid."""
+    u, du = ad_fields(shape, 31 + sid, dev)
+    nu, dnu = torch.tensor(0.03, device=dev), torch.tensor(-0.4, device=dev)
+    st.reset_launch_counts()
+    got = st.conv_diff_jvp_k(u, du, nu, dnu, sid, perdir)
+    assert st.launch_counts()["conv_diff_jvp_k"] == 1
+    want = plain_jvp_of_conv_diff(u, du, nu, dnu, st.SCHEMES[sid], perdir)
+    assert rel_err(got, want) <= 2e-5
+
+
+@pytest.mark.parametrize("sid", [0, 1, 2], ids=["quick", "vanleer", "cds"])
+def test_conv_diff_jvp_k_uniform_stream(dev, sid):
+    """A uniform stream with a perturbed tangent: every median3 is a tie
+    (½ split) and every cross-stream upwind velocity is 0."""
+    shape = (34, 18, 18)
+    u = torch.zeros((3,) + shape, device=dev)
+    u[0] = 1.0
+    _, du = ad_fields(shape, 5, dev)
+    nu, dnu = torch.tensor(0.01, device=dev), torch.tensor(0.2, device=dev)
+    got = st.conv_diff_jvp_k(u, du, nu, dnu, sid)
+    assert rel_err(got, plain_jvp_of_conv_diff(u, du, nu, dnu, st.SCHEMES[sid], ())) <= 2e-5
+
+
+@pytest.mark.parametrize("mode", ["func", "forward_ad"])
+@pytest.mark.parametrize("perdir", [(), (0, 1, 2)], ids=["walls", "xyz"])
+def test_conv_diff_k_rule(dev, mode, perdir):
+    """`conv_diff_k` under AD: K12 for the primal, `conv_diff_jvp_k` for the
+    tangent (one launch each), against the plain version's derivative."""
+    shape = (26, 18, 10)
+    u, du = ad_fields(shape, 41, dev)
+    nu, dnu = torch.tensor(0.03, device=dev), torch.tensor(0.5, device=dev)
+    st.reset_launch_counts()
+    if mode == "func":
+        out, tan = torch.func.jvp(lambda a, b: st.conv_diff_k(a, b, 0, perdir),
+                                  (u, nu), (du, dnu))
+    else:
+        with fwAD.dual_level():
+            res = st.conv_diff_k(fwAD.make_dual(u, du), fwAD.make_dual(nu, dnu), 0, perdir)
+            out, tan = fwAD.unpack_dual(res)
+    n = st.launch_counts()
+    assert n["conv_diff_k"] == 1 and n["conv_diff_jvp_k"] == 1
+    want = torch.func.jvp(lambda a, b: st.conv_diff_plain(a, b, st.quick, perdir),
+                          (u, nu), (du, dnu))
+    assert rel_err(out, want[0]) <= 2e-5 and rel_err(tan, want[1]) <= 2e-5
+
+
+def bdim_ad_inputs(shape, dev):
+    d = inputs(shape, 43, dev)
+    e = inputs(shape, 44, dev)
+    prim = [d[k] for k in ("u", "u0", "f", "V", "mu0", "mu1")] + [
+        torch.tensor(0.3, device=dev)]
+    tans = [e[k] for k in ("u", "u0", "f", "V", "mu0", "mu1")] + [
+        torch.tensor(0.7, device=dev)]
+    return prim, tans
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(258, 258, 258)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("moments", [True, False], ids=["mu-tangent", "fields-only"])
+def test_bdim_k_rule(dev, shape, moments):
+    """K14's rule (K14 on the tangents, and again for the moments' tangents)
+    against `torch.func.jvp` of `bdim_plain`, dt's tangent included."""
+    prim, tans = bdim_ad_inputs(shape, dev)
+    if not moments:
+        tans[4], tans[5] = torch.zeros_like(tans[4]), torch.zeros_like(tans[5])
+    st.reset_launch_counts()
+    out, tan = torch.func.jvp(st.bdim_k, tuple(prim), tuple(tans))
+    assert st.launch_counts()["bdim_k"] == 3
+    want = torch.func.jvp(st.bdim_plain, tuple(prim), tuple(tans))
+    assert rel_err(out, want[0]) <= 2e-5 and rel_err(tan, want[1]) <= 2e-5
+    with fwAD.dual_level():
+        res = st.bdim_k(*(fwAD.make_dual(p, t) for p, t in zip(prim, tans)))
+        assert rel_err(fwAD.unpack_dual(res).tangent, want[1]) <= 2e-5
+
+
+NO_RULE = [c for c in WRAPPER_CASES if c.split()[0] not in ("conv_diff_k", "bdim_k")]
+
+
+@pytest.mark.parametrize("mode", ["func", "forward_ad"])
+@pytest.mark.parametrize("case", NO_RULE)
+def test_wrapper_without_rule_raises_on_a_tangent(dev, case, mode):
+    """Every wrapper without a forward-mode rule refuses a tangent with the
+    [ad] message, before it launches (a launch would drop the tangent)."""
+    one = torch.tensor(1.0, device=dev)
+    if mode == "func":
+        thunk = lambda s: wrapper_thunks(dev, s)[case]()[0]
+        st.reset_launch_counts()
+        with pytest.raises(RuntimeError, match=r"\[ad\]"):
+            torch.func.jvp(thunk, (one,), (one,))
+    else:
+        with fwAD.dual_level():
+            thunks = wrapper_thunks(dev, fwAD.make_dual(one, one))
+            st.reset_launch_counts()
+            with pytest.raises(RuntimeError, match=r"\[ad\]"):
+                thunks[case]()
+    assert sum(st.launch_counts().values()) == 0
+
+
+def test_step_jvp_runs_on_the_kernels(dev):
+    """d(u, p)/dν through `mom_step_impl` on the 3d engine in float32: the
+    kernels' run (K12 and its tangent, K14, K15, K16 launched, none
+    plain) against `plain_ops()`, 1e-3 of the tangents' max."""
+    sim = sphere(32, dev, engine="3d")
+    cfg, st0 = sim.flow.cfg, sim.flow.state
+    nu0, one = st0.nu.clone(), torch.ones((), device=dev)
+
+    def step(nu):
+        import dataclasses
+        from waterlily_tpu_torch.models import flow as fl
+        s = dataclasses.replace(st0, nu=nu)
+        s, dt, _, _ = fl.mom_step_impl(cfg, s, sim.levels, sim.masks,
+                                       torch.tensor(0.25, device=dev),
+                                       torch.tensor(0.0, device=dev))
+        return s.u, s.p, dt
+
+    st.reset_launch_counts()
+    got = torch.func.jvp(step, (nu0,), (one,))
+    n = st.launch_counts()
+    for k in ("conv_diff_k", "conv_diff_jvp_k", "bdim_k", "gs_incr_k", "mult_k"):
+        assert n[k] > 0, (k, n)
+    with st.plain_ops():
+        want = torch.func.jvp(step, (nu0,), (one,))
+    assert sum(st.launch_counts().values()) == sum(n.values())
+    for a, b in zip(got[1][:2], want[1][:2]):
+        assert rel_err(a, b) <= 1e-3

@@ -21,15 +21,25 @@ PyTorch's current stream (``torch.cuda.current_stream(dev).cuda_stream`` and
 ``torch._C._cuda_getCurrentRawStream(index)``), ``torch.empty_like`` of a
 level field, the checkout's validation of two fields (``_check`` where the
 checkout has it, ``_fits`` where it has that), the route query through
-ctypes and through the checkout's cache (where it has one), one launch of
-K16 straight through ctypes with ``c_void_p`` pointers and with ``int``
-pointers, and, where the library has the entry, the copy launched
+ctypes and through the checkout's cache (where it has one), the test of
+the forward-mode AD flag that every wrapper makes (where it has one), one
+launch of K16 straight through ctypes with ``c_void_p`` pointers and with
+``int`` pointers, and, where the library has the entry, the copy launched
 ``CALLS`` times from a C loop (``wlt_copy_scale_loop``): the host floor of a
 launch.
 
 The package is imported from the working directory, so run from the root of
 another checkout (with this file's path) it times that checkout's binding:
-a change and its parent are compared in turns on one card.  ``--save PATH``
+a change and its parent are compared in turns on one card.
+
+    PYTHONPATH=. python3 tools/launch_cost.py --against ROOT
+
+times every wrapper row of this checkout and of the checkout at ``ROOT``
+(its package imported under another name, as `tools/bandwidth_probe.py`'s
+``load_checkout`` does) in one process, in turns, ``ROUNDS`` rounds with
+the order swapped every round: each row's median ``host_us`` on each side
+and the median of the paired differences (this − other).  Separate
+processes move these figures by 20–40 %; turns in one process do not.  ``--save PATH``
 also writes each wrapper's outputs on these inputs (`torch.save`, on the
 CPU), so that two checkouts' outputs can be compared bit for bit.  Prints the card's
 name and power limit, one line per row and a JSON object of the rows; needs a
@@ -38,6 +48,7 @@ CUDA device and imports no JAX.
 from __future__ import annotations
 
 import ctypes
+import importlib
 import json
 import statistics
 import subprocess
@@ -46,6 +57,7 @@ import time
 
 LEVEL, TINY = (18, 18, 18), (8, 8, 8)
 CALLS, RUNS = 20, 7
+ROUNDS = 10
 UBC = (1.0, 0.25, -0.5)
 
 
@@ -167,6 +179,9 @@ def wrapper_cases(torch, np, st, fz, ps, probe, dev):
         ("copy_scale6_k", lambda: probe.copy_scale_k(a6, 256, out=b6),
          lambda: [torch.mul(p, 1.0000001, out=q) for p, q in zip(a6, b6)]),
     ]
+    if hasattr(st, "conv_diff_jvp_k"):     # K12's tangent (absent in older checkouts)
+        cases.insert(1, ("conv_diff_jvp_k", lambda: st.conv_diff_jvp_k(u, u0, nu, nu, 0),
+                         mul_level))
     return cases, dict(x=x, r=r, lev=lev, a8=a8, b8=b8, band=band)
 
 
@@ -191,6 +206,12 @@ def pieces(torch, st, lib, dev, t) -> dict:
     if hasattr(st, "_rule"):
         p["route from the cache"] = piece_us(
             lambda: st._rule("wlt_gs_incr_route", *shape, 4, 0))
+    if hasattr(st, "_no_tangent"):
+        # what every wrapper adds for forward-mode AD when none is active:
+        # the test of the flag, written out as the wrappers write it
+        peek, fwad = st._peek, st._fwad
+        p["AD flag test (no transform, no forward-AD level)"] = piece_us(
+            lambda: peek() is not None or fwad._current_level >= 0)
     s = torch.cuda.current_stream(dev).cuda_stream
     vp = ctypes.c_void_p
     p["K16 launch, ctypes, c_void_p pointers"] = chain_times(torch, lambda: lib.wlt_mult(
@@ -272,6 +293,35 @@ def run(device="cuda", save=None) -> dict:
                 c_loop_us=c_loop_us(torch, lib, t))
 
 
+def against(torch, np, root: str, dev) -> list[dict]:
+    """Every wrapper row of this checkout and of the one at ``root``, timed
+    in turns in one process (module docstring)."""
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from bandwidth_probe import load_checkout
+
+    kernels = {}
+    for label, pkg in (("this", "waterlily_tpu_torch"),
+                       ("other", load_checkout(root).__name__)):
+        mods = [importlib.import_module(f"{pkg}.ops.{m}")
+                for m in ("stencil3d", "fused3d", "poisson", "probe")]
+        mods[0]._lib()
+        cases, _ = wrapper_cases(torch, np, *mods, dev)
+        kernels[label] = {name: kern for name, kern, _ in cases}
+    names = [n for n in kernels["this"] if n in kernels["other"]]
+    times = {n: {"this": [], "other": []} for n in names}
+    for i in range(ROUNDS):
+        for label in ("this", "other") if i % 2 == 0 else ("other", "this"):
+            for n in names:
+                times[n][label].append(chain_times(torch, kernels[label][n])["host_us"])
+    return [dict(name=n, this_us=statistics.median(t["this"]),
+                 other_us=statistics.median(t["other"]),
+                 diff_us=statistics.median(a - b for a, b in zip(t["this"], t["other"])),
+                 this_runs=t["this"], other_runs=t["other"])
+            for n, t in times.items()]
+
+
 def report(res: dict) -> None:
     for r in res["rows"]:
         print(f"launch {r['name']:30s} host {r['host_us']:7.2f} us/call (enqueue "
@@ -294,6 +344,17 @@ def main(argv) -> int:
         return 2
     card = card_line()
     print(card, flush=True)
+    if argv[:1] == ["--against"]:
+        import numpy as np
+
+        rows = against(torch, np, argv[1], torch.device("cuda"))
+        for r in rows:
+            print(f"launch {r['name']:30s} host us/call this {r['this_us']:7.2f}, "
+                  f"other {r['other_us']:7.2f}; median of this - other "
+                  f"{r['diff_us']:+6.2f}", flush=True)
+        print(json.dumps({"device": torch.cuda.get_device_name(0), "card": card,
+                          "against": argv[1], "rows": rows}))
+        return 0
     res = run(save=argv[argv.index("--save") + 1] if "--save" in argv else None)
     report(res)
     line = json.dumps({"device": torch.cuda.get_device_name(0), "card": card, **res})

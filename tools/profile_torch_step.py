@@ -13,7 +13,11 @@ with and without bf16 smoothing) and ``moving`` (``bench.py``'s oscillating
 sphere at 128³, each step re-measured: ``sim_step(remeasure=True)``),
 ``pcg`` (the 256³ sphere with ``psolver="pcg"``, 3d engine only) and
 ``circle`` (``examples/circle.py`` at R = 64, 1,536×1,024, float32, 3d
-engine only: 2-D); the default runs the first three on both engines.  Each is built with
+engine only: 2-D) and ``ad`` (the 256³ sphere, 3d engine only: one
+`mom_step_impl` from the settled state, dt and t as 0-d tensors, profiled
+as it is and under `torch.func.jvp` in ν, so the primal and the
+forward-mode step read apart); the default runs the first three on both
+engines.  Each is built with
 ``Simulation`` as ``chip_smoke.py`` builds it, stepped ``WARM`` times, then
 ``STEPS`` steps run unprofiled (host clock around each ``sim_step`` up to a
 ``synchronize``) and ``STEPS`` more under ``torch.profiler``.  Printed per
@@ -83,6 +87,27 @@ def walls_ms(torch, fn) -> list[float]:
 def stepper(sim, udf, case: str):
     """One step of a case: re-measured for ``moving``."""
     return lambda: sim.sim_step(remeasure=case == "moving", udf=udf)
+
+
+def ad_steps(torch, sim):
+    """One `mom_step_impl` from the state of ``sim`` (dt and t as 0-d
+    tensors, the differentiable runner's form) as it is and under
+    `torch.func.jvp` in ν: two thunks."""
+    import dataclasses
+
+    from waterlily_tpu_torch.models import flow as fl
+
+    cfg, state = sim.flow.cfg, sim.flow.state
+    dt = torch.tensor(sim.flow.dt[-1], dtype=cfg.dtype, device=state.u.device)
+    t = torch.tensor(sim.time, dtype=cfg.dtype, device=state.u.device)
+
+    def step(nu):
+        s, dt_next, _, _ = fl.mom_step_impl(cfg, dataclasses.replace(state, nu=nu),
+                                            sim.levels, sim.masks, dt, t)
+        return s.u, s.p, dt_next
+
+    nu, one = state.nu, torch.ones_like(state.nu)
+    return (lambda: step(nu)), (lambda: torch.func.jvp(step, (nu,), (one,)))
 
 
 def profiled(torch, label: str, fn, note) -> None:
@@ -165,11 +190,19 @@ def main(argv) -> int:
         return 0
     for cfg in configs:
         engine, case = cfg.split(":")
-        sim, udf = cs.make_sim(torch, wt, case, size(case), dev, engine=engine)
+        sim, udf = cs.make_sim(torch, wt, "sphere" if case == "ad" else case,
+                               size(case), dev, engine=engine)
         step = stepper(sim, udf, case)
         for _ in range(WARM):
             step()
         torch.cuda.synchronize()
+        if case == "ad":
+            primal, jvp = ad_steps(torch, sim)
+            profiled(torch, f"{cfg} primal step", primal, lambda: "one mom_step_impl")
+            profiled(torch, f"{cfg} jvp step", jvp, lambda: "torch.func.jvp in nu")
+            del sim
+            torch.cuda.empty_cache()
+            continue
         if case == "moving":
             profiled(torch, f"{cfg} measure alone", sim.measure,
                      lambda: f"box {sim.flow.cfg.band_box}")

@@ -159,7 +159,7 @@ def measure_sdf(body: Body, shape: tuple[int, ...], t=0.0,
     """Signed distance at every cell center, ghosts zero (`measure_sdf!`,
     `Body.jl:74`)."""
     inner = tuple(n - 2 for n in shape)
-    t = torch.tensor(t, dtype=dtype, device=device)
+    t = torch.as_tensor(t, dtype=dtype, device=device)
     d = _measure_points(body, _interior_points(None, shape, dtype, device), t,
                         fastd2)[0]
     return grow(d.reshape(inner).to(dtype))
@@ -191,7 +191,7 @@ def measure_fill(body: Body, shape: tuple[int, ...], t=0.0, eps_k: float = 1.0,
     D = len(shape)
     inner = tuple(n - 2 for n in shape)
     band2 = float((2.0 + eps_k) ** 2)
-    t = torch.tensor(t, dtype=dtype, device=device)
+    t = torch.as_tensor(t, dtype=dtype, device=device)
     box = _box_slices(shape, band_box)
     sl = tuple(slice(1, n - 1) for n in shape) if box is None else box
     inner_b = tuple(s.stop - s.start for s in sl)

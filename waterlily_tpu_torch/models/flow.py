@@ -20,6 +20,18 @@ callable ``u0(i, x)`` (batched with `torch.func.vmap`); periodic directions
 ``perdir``; the convective outlet ``exit_bc`` on the x-high face; the
 multigrid solver, with ``mp_smooth`` (bf16 smoothing) on the flat engine,
 or an injected ``solve_fn`` (the PCG solver of ``psolver="pcg"``).
+
+Differentiable runs (the JAX package's `jax.jacfwd` through
+`mom_step_impl`): `torch.func.jvp` (and `torch.func.jacfwd` on the CPU's
+plain route) through `mom_step_impl` gives the forward-mode derivative of a
+step in any tensor it reads (``state.nu``, a body parameter through
+``V``/``mu0``/``mu1`` and the level stack, the initial field, ``dt``).  The
+pressure solve is `multigrid.solve_mg_implicit` with its exact implicit
+rule; on the card K12 and K14 have forward-mode rules of their own
+(`ops/stencil3d.py`).  ``dt`` and ``t0`` may be 0-d tensors, as the JAX
+runner carries ``dt``: its tangent then flows through `cfl`.  The flat
+engine (`models/flowflat.py`) is not differentiable (its kernels raise on a
+tangent), nor is `Simulation`'s host loop, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -51,7 +63,8 @@ ACCELERATE_CHUNK = 1 << 21
 class FlowState:
     """Fields of a flow (`Flow{D,T}`, `Flow.jl:114-131`): ``u0`` is the
     previous velocity, ``V``/``mu0``/``mu1`` the BDIM body velocity and
-    kernel moments, ``nu`` a 0-d tensor on the fields' device."""
+    kernel moments, ``nu`` a 0-d tensor on the fields' device (one that
+    carries a forward-mode tangent keeps it: `init_state`)."""
     u: torch.Tensor
     u0: torch.Tensor
     p: torch.Tensor
@@ -174,17 +187,20 @@ def project(u: torch.Tensor, p: torch.Tensor, levels, masks, dt_w: float,
     ``A x = div(u)`` warm-started from ``p·dt_w``, ``u_i -= L_i ∂_i x``,
     `BC!` at time ``t``, ``p = x/dt_w``.  ``solve_fn(levels, masks, x, z,
     tol, itmx, perdir)`` is the pressure-solver injection point (`pois_ctor`,
-    `src/WaterLily.jl:96-97`; default the multigrid solve).  Returns ``(u,
-    p, iters, stats)``."""
+    `src/WaterLily.jl:96-97`; default the multigrid solve with its implicit
+    forward-mode rule, `multigrid.solve_mg_implicit`, as `flow.py:388-394`
+    of the JAX package).  ``dt_w`` is a float or a 0-d tensor.  Returns
+    ``(u, p, iters, stats)``."""
     z = div_field(u)
     x = p * dt_w
     if solve_fn is not None:
         res = solve_fn(levels, masks, x, z, cfg.tol, cfg.itmx, cfg.perdir)
     else:
-        res = mg.solve_mg(levels, masks, x, z, tol=cfg.tol, itmx=cfg.itmx,
-                          smooth_it=cfg.smooth_it,
-                          fine_smooth_it=cfg.fine_smooth_it,
-                          fine_presmooth=cfg.fine_presmooth, perdir=cfg.perdir)
+        res = mg.solve_mg_implicit(levels, masks, x, z, tol=cfg.tol,
+                                   itmx=cfg.itmx, smooth_it=cfg.smooth_it,
+                                   fine_smooth_it=cfg.fine_smooth_it,
+                                   fine_presmooth=cfg.fine_presmooth,
+                                   perdir=cfg.perdir)
     x = res.x
     u = bc_vector(proj_correct(u, x, levels[0].L), cfg.ubc, t,
                   save_exit=cfg.exit_bc, perdir=cfg.perdir)
@@ -193,8 +209,10 @@ def project(u: torch.Tensor, p: torch.Tensor, levels, masks, dt_w: float,
 
 def cfl(u: torch.Tensor, nu, dt_max: float = 10.0) -> torch.Tensor:
     """New time step from the max outflow flux (`CFL`, `Flow.jl:234-244`),
-    a 0-d tensor on the device."""
-    return torch.clamp(1.0 / (cfl_max(u) + 5 * nu), max=dt_max)
+    a 0-d tensor on the device.  `torch.minimum` (not a clamp): at a tie its
+    derivative splits ½/½, as the JAX package's `jnp.minimum` does."""
+    dt = 1.0 / (cfl_max(u) + 5 * nu)
+    return torch.minimum(torch.full_like(dt, dt_max), dt)
 
 
 def _phase(state: FlowState, u_adv, u_into, f_t, dt, cfg: FlowCfg, udf=None):
@@ -216,7 +234,10 @@ def mom_step_impl(cfg: FlowCfg, state: FlowState, levels, masks, dt: float,
     convective outlet, projection (w=1), corrector advected by the projected
     u and forced at ``t1``, blend ½, `BC!`, projection (w=½), then the CFL
     limit.  ``dt`` and ``t0`` are host floats already rounded to
-    ``cfg.dtype``; ``udf(f, state, u_adv, t)`` returns the forced RHS;
+    ``cfg.dtype``, or 0-d tensors of ``cfg.dtype`` on the fields' device
+    (the differentiable runner's: a tangent of ``dt`` is kept, and a float
+    gives the same bits as before); ``udf(f, state, u_adv, t)`` returns the
+    forced RHS;
     ``solve_fn`` replaces the multigrid solve of both projections
     (`project`).  Returns ``(state', dt_next (0-d tensor), [iters1, iters2],
     [stats1, stats2])``."""
@@ -262,7 +283,7 @@ def init_state(cfg: FlowCfg, nu, device, u0=None) -> FlowState:
         u=u, u0=u, p=torch.zeros(shape, dtype=dtype, device=device),
         V=torch.zeros((D,) + shape, dtype=dtype, device=device), mu0=mu0,
         mu1=torch.zeros((D, D) + shape, dtype=dtype, device=device),
-        nu=torch.tensor(nu, dtype=dtype, device=device))
+        nu=torch.as_tensor(nu, dtype=dtype, device=device))
 
 
 class Flow:

@@ -28,7 +28,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "nvcc_path", "build", "load", "ptxas_report"]
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = (_PKG / "csrc" / "stencil3d.cu", _PKG / "csrc" / "fused3d.cu",
-           _PKG / "csrc" / "probe.cu")
+           _PKG / "csrc" / "probe.cu", _PKG / "csrc" / "convdiff_jvp.cu")
 _HEADERS = (_PKG / "csrc" / "stencil_common.cuh",
             _PKG / "csrc" / "convdiff_tile.cuh",
             _PKG / "csrc" / "rb_cascade.cuh")
@@ -49,6 +49,7 @@ _PP = ctypes.POINTER(ctypes.c_void_p)
 _SIGNATURES = {
     "wlt_error_string": (ctypes.c_char_p, [_I]),
     "wlt_conv_diff": (_I, [_P, _P, _P, _I64, _I64, _I64, _I, _I, _P]),
+    "wlt_conv_diff_jvp": (_I, [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _I, _P]),
     "wlt_bdim": (_I, [_P, _P, _P, _P, _P, _P, _F, _P, _I64, _I64, _I64, _P]),
     "wlt_mult": (_I, [_P, _P, _P, _P, _I64, _I64, _I64, _P]),
     "wlt_bdim_band": (_I, [_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _P,

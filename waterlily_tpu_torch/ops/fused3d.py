@@ -25,7 +25,9 @@ wrapper               replaces (TPU)
 As in `ops/stencil3d.py`, each kernel has a plain version (``*_plain``)
 beside it; a wrapper given a CPU tensor, or called inside
 `stencil3d.plain_ops()`, returns the plain version, and given a CUDA tensor
-launches the kernel or raises.  The call sites route through
+launches the kernel or raises.  None has a forward-mode rule: the flat
+engine is not differentiable, and each raises when an argument carries a
+tangent (`stencil3d._no_tangent`).  The call sites route through
 `stencil3d.use_kernels`.  Each launch adds one to the wrapper's entry in the
 shared `stencil3d.launch_counts()`.
 
@@ -45,9 +47,9 @@ from .bc import bc_vector
 from .grid import inside_mask, interior, shift, zero_ghost
 from .poisson import norms
 from .stencil3d import (BF16, F32, PER_COLOUR, SCHEMES, _bf16, _colours, _fits,
-                        _invalid, _launch, _lib, _mp_mult, _mp_sweeps,
-                        _rb_sweeps, _rule, _smoother_args, _stream,
-                        conv_diff_plain, mult_plain, plain_route)
+                        _fwad, _invalid, _launch, _lib, _mp_mult, _mp_sweeps,
+                        _no_tangent, _peek, _rb_sweeps, _rule, _smoother_args,
+                        _stream, conv_diff_plain, mult_plain, plain_route)
 
 __all__ = [
     "conv_diff_bdim_plain", "incr_gs_plain", "bc_div_plain", "projbc_plain",
@@ -76,10 +78,13 @@ def proj_correct(u: torch.Tensor, x: torch.Tensor, L: torch.Tensor) -> torch.Ten
 def cfl_max(u: torch.Tensor) -> torch.Tensor:
     """Max over the interior of the CFL summand
     ``Σ_i max(0, u_i(+e_i)) + max(0, −u_i)`` (`CFL`, `Flow.jl:234-244`), a
-    0-d tensor."""
+    0-d tensor.  `torch.maximum` with 0 (not a clamp): a zero velocity
+    component is a tie, where its derivative splits ½/½ as the JAX
+    package's `jnp.maximum(0.0, ·)` does; the values are the clamp's."""
+    zero = torch.zeros((), dtype=u.dtype, device=u.device)
     s = torch.zeros(u.shape[1:], dtype=u.dtype, device=u.device)
     for i in range(u.shape[0]):
-        s = s + torch.clamp(shift(u[i], i, 1), min=0.0) + torch.clamp(-u[i], min=0.0)
+        s = s + torch.maximum(shift(u[i], i, 1), zero) + torch.maximum(-u[i], zero)
     return torch.max(interior(s))
 
 
@@ -209,6 +214,8 @@ def conv_diff_bdim_k(u, u0, nu, dt: float, keep_base: float, scale: float,
     if not u.is_cuda or plain_route():
         return conv_diff_bdim_plain(u, u0, nu, dt, keep_base, scale,
                                     SCHEMES[scheme_id])
+    if _peek() is not None or _fwad._current_level >= 0:
+        _no_tangent("conv_diff_bdim_k", u, u0, nu, dt)
     shape = _field_args("conv_diff_bdim_k", u, u0=u0)
     if not 0 <= scheme_id < len(SCHEMES):
         raise ValueError(f"conv_diff_bdim_k: unknown scheme id {scheme_id}")
@@ -248,6 +255,8 @@ def _incr_gs_launch(x, r, eps, L, D, iD, colors, omega, want_norms=False,
     None) or on the one named (`PER_COLOUR`, `CASCADE`), which the kernel
     tests and the bench tool use to hold and time both routes."""
     name = "incr_gs_mp_k" if mp else "incr_gs_k"
+    if _peek() is not None or _fwad._current_level >= 0:
+        _no_tangent(name, x, r, eps, L, D, iD, omega)
     cdt = BF16 if mp else F32
     shape = _smoother_args(name, cdt, x, r, L, D, iD, eps)
     carr, ncol = _colours(name, colors)
@@ -283,6 +292,8 @@ def bc_div_k(u, ubc):
     """K8: `bc_div_plain` in one pass.  Returns ``(u_bc, div)``."""
     if not u.is_cuda or plain_route():
         return bc_div_plain(u, ubc)
+    if _peek() is not None or _fwad._current_level >= 0:
+        _no_tangent("bc_div_k", u)
     shape = _field_args("bc_div_k", u)
     ub = _ubc3(ubc)
     u_bc, div = torch.empty_like(u), torch.empty(shape, dtype=u.dtype, device=u.device)
@@ -297,6 +308,8 @@ def projbc_k(u, x, L, ubc, want_cfl: bool = False, save_exit: bool = False):
     ``(u_new, smax)``."""
     if not u.is_cuda or plain_route():
         return projbc_plain(u, x, L, ubc, want_cfl, save_exit)
+    if _peek() is not None or _fwad._current_level >= 0:
+        _no_tangent("projbc_k", u, x, L)
     shape = _field_args("projbc_k", u, x=x, L=L)
     ub = _ubc3(ubc)
     u_out = torch.empty_like(u)
@@ -312,6 +325,8 @@ def bc_k(u, ubc, save_exit: bool = False):
     """K10: `bc_plain` in one pass."""
     if not u.is_cuda or plain_route():
         return bc_plain(u, ubc, save_exit)
+    if _peek() is not None or _fwad._current_level >= 0:
+        _no_tangent("bc_k", u)
     shape = _field_args("bc_k", u)
     ub = _ubc3(ubc)
     u_bc = torch.empty_like(u)
@@ -324,6 +339,8 @@ def div_k(u):
     """K11: `div_plain` in one pass."""
     if not u.is_cuda or plain_route():
         return div_plain(u)
+    if _peek() is not None or _fwad._current_level >= 0:
+        _no_tangent("div_k", u)
     shape = _field_args("div_k", u)
     div = torch.empty(shape, dtype=u.dtype, device=u.device)
     _launch("div_k", _lib().wlt_div(u.data_ptr(), div.data_ptr(), *shape,

@@ -13,12 +13,24 @@ Periodic directions (``perdir``) reach every level: the coarse coefficients
 take the periodic zero-velocity BC (so each level's diagonal sees the wrap
 face), the smoothers and increments refresh periodic ghosts, the dense
 coarse pseudo-inverse is that of the periodic operator, and the solution's
-periodic ghosts are refreshed after the gauge.  The distributed branches and
-the implicit-JVP wrapper `solve_mg_implicit` (whose forward pass is
-`solve_mg`) are not ported yet (ROADMAP queue 1, [dist] and [ad]).
+periodic ghosts are refreshed after the gauge.  The distributed branches are
+not ported yet (ROADMAP queue 1, [dist]).
+
+`solve_mg_implicit` is `solve_mg` with the exact implicit forward-mode rule
+of the JAX package (`multigrid.py:365-417`): under `torch.func.jvp`,
+`jacfwd` or `torch.autograd.forward_ad` the tangent of ``A(L) x = z`` is
+the solve of ``A ẋ = ż − Ȧ(L̇, Ḋ)·x`` with the same multigrid and
+tolerance, warm-started from the warm start's tangent.  Differentiating
+through the host loop instead would give lagged tangents (the loop stops
+when the primal converges, `multigrid.py:371-376` of the JAX package).
+Both solves run inside `torch.autograd.Function` forwards, on plain tensors,
+so that on the card they launch the kernels (K15, K16, K13); `iteration_log`
+collects the iteration counts of the primal and tangent solves.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import NamedTuple
 
@@ -27,15 +39,16 @@ import torch
 
 from .bc import bc_vector, per_bc
 from .grid import grow, interior
-from .poisson import (_inside_ones, coarse_solve, dense_pinv, gauss_seidel_rb,
-                      increment, jacobi, make_level, norms, residual,
-                      stop_tolerances)
+from .poisson import (PoissonLevel, _inside_ones, _mult_raw, coarse_solve,
+                      dense_pinv, gauss_seidel_rb, increment, jacobi,
+                      make_level, norms, residual, stop_tolerances)
+from .stencil3d import ad_active
 
 __all__ = [
     "divisible", "coarsen_mask", "coarse_shape", "level_shapes",
     "restrict", "prolongate", "restrict_L", "make_mg", "update_mg",
-    "v_cycle", "solve_loop", "solve_mg", "canonical_gauge", "MGSolveResult",
-    "MIN_COARSE_CELLS",
+    "v_cycle", "solve_loop", "solve_mg", "solve_mg_implicit", "iteration_log",
+    "canonical_gauge", "MGSolveResult", "MIN_COARSE_CELLS",
 ]
 
 # interior-cell floor of the coarse levels on the flow path (the JAX
@@ -236,3 +249,164 @@ def canonical_gauge(x: torch.Tensor, iD: torch.Tensor) -> torch.Tensor:
     n_act = torch.sum(act)
     m = torch.sum(x * act) / torch.clamp(n_act, min=1.0)
     return torch.where(act > 0, x - m, x * (1.0 - inside))
+
+
+# ---------------------------------------------------------------- implicit JVP
+# the list that `iteration_log` collects into, or None
+_ITER_LOG = contextvars.ContextVar("waterlily_tpu_torch_mg_iteration_log",
+                                   default=None)
+
+
+@contextlib.contextmanager
+def iteration_log():
+    """Collect the iteration count of every solve of `solve_mg_implicit`
+    inside the block, in call order: under forward-mode AD each call adds
+    its primal solve's count, then its tangent solve's (one per tangent
+    under `jacfwd`); without AD the primal's alone."""
+    log: list[int] = []
+    token = _ITER_LOG.set(log)
+    try:
+        yield log
+    finally:
+        _ITER_LOG.reset(token)
+
+
+def _record(n: int) -> None:
+    log = _ITER_LOG.get()
+    if log is not None:
+        log.append(n)
+
+
+class _Spec:
+    """The non-tensor part of a `solve_mg_implicit` call: the coarsening
+    masks, the solver options, the layout of the flattened level stack, and
+    the primal solve's iterations and statistics once it has run."""
+
+    def __init__(self, masks, opts, layout):
+        self.masks, self.opts, self.layout = masks, opts, layout
+        self.iters, self.stats = 0, []
+
+
+def _flatten(levels) -> tuple[list, tuple]:
+    """The tensors of a level stack as one list (``L, D, iD`` a level, then
+    ``Ainv`` and the bf16 copies where a level has them) and its layout.
+    `torch.autograd.Function` unwraps only tensors passed as arguments of
+    their own: one left inside a `PoissonLevel` would stay wrapped under
+    `torch.func` and reach a kernel's ``data_ptr()``."""
+    flat, layout = [], []
+    for p in levels:
+        flat += [p.L, p.D, p.iD]
+        if p.Ainv is not None:
+            flat.append(p.Ainv)
+        if p.bf is not None:
+            flat += list(p.bf)
+        layout.append((p.Ainv is not None, p.bf is not None))
+    return flat, tuple(layout)
+
+
+def _unflatten(flat, layout):
+    levels, k = [], 0
+    for has_ainv, has_bf in layout:
+        L, D, iD = flat[k:k + 3]
+        k += 3
+        ainv = bf = None
+        if has_ainv:
+            ainv, k = flat[k], k + 1
+        if has_bf:
+            bf, k = tuple(flat[k:k + 3]), k + 3
+        levels.append(PoissonLevel(L, D, iD, ainv, bf))
+    return tuple(levels)
+
+
+def _loop_vmap(fn):
+    """A `vmap` rule that applies ``fn`` to each batch entry in turn (each
+    solve reads its norms back on the host, which a batched tensor cannot
+    do): what `torch.func.jacfwd` needs."""
+    def vmap(info, in_dims, *args):
+        outs = []
+        for b in range(info.batch_size):
+            outs.append(fn.apply(*(a if d is None else a.select(d, b)
+                                   for a, d in zip(args, in_dims))))
+        return tuple(torch.stack(o) for o in zip(*outs)), (0,) * len(outs[0])
+    return staticmethod(vmap)
+
+
+class _ImplicitSolve(torch.autograd.Function):
+    """`solve_mg` (forward) with the implicit rule (`jvp`): the tangent solve
+    `_TangentSolve`, a Function of its own so that it, too, runs on plain
+    tensors under `torch.func`."""
+
+    @staticmethod
+    def forward(x, z, spec, *flat):
+        res = solve_mg(_unflatten(flat, spec.layout), spec.masks, x, z, **spec.opts)
+        spec.iters, spec.stats = res.iters, res.stats
+        _record(res.iters)
+        return res.x, res.r
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, _, ctx.spec, *flat = inputs
+        # coefficients without a tangent come as None (not zeros): no Ȧx
+        ctx.set_materialize_grads(False)
+        ctx.save_for_forward(output[0], *flat)
+
+    @staticmethod
+    def jvp(ctx, dx0, dz, _spec, *dflat):
+        xs, *flat = ctx.saved_tensors
+        # the fine level's coefficient tangents; the coarse levels only
+        # precondition, so theirs do not enter
+        return _TangentSolve.apply(xs, dx0, dz, dflat[0], dflat[1], ctx.spec, *flat)
+
+
+_ImplicitSolve.vmap = _loop_vmap(_ImplicitSolve)
+
+
+class _TangentSolve(torch.autograd.Function):
+    """``A ẋ = ż − Ȧ(L̇, Ḋ)·x`` by `solve_mg` from the warm start ``ẋ0``;
+    ``None`` tangents are zeros.  ``A`` is linear in ``(L, D)``, so ``Ȧ·x``
+    is the operator of ``(L̇, Ḋ)`` applied to the solution (`_mult_raw`:
+    K16 on the card).  Ends in `canonical_gauge`, as the primal solve."""
+
+    @staticmethod
+    def forward(xs, dx0, dz, dL, dD, spec, *flat):
+        rhs = torch.zeros_like(xs) if dz is None else dz.contiguous()
+        if dL is not None or dD is not None:
+            dL = torch.zeros((xs.dim(),) + xs.shape, dtype=xs.dtype,
+                             device=xs.device) if dL is None else dL.contiguous()
+            dD = torch.zeros_like(xs) if dD is None else dD.contiguous()
+            rhs = rhs - _mult_raw(PoissonLevel(dL, dD, None), xs)
+        x0 = torch.zeros_like(xs) if dx0 is None else dx0.contiguous()
+        res = solve_mg(_unflatten(flat, spec.layout), spec.masks, x0, rhs, **spec.opts)
+        _record(res.iters)
+        return res.x, res.r
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+
+_TangentSolve.vmap = _loop_vmap(_TangentSolve)
+
+
+def solve_mg_implicit(levels, masks, x: torch.Tensor, z: torch.Tensor,
+                      tol: float = 2e-3, itmx: int = 32, smooth_it: int = 4,
+                      fine_smooth_it: int = 0, fine_presmooth: bool = True,
+                      perdir: tuple[int, ...] = ()) -> MGSolveResult:
+    """`solve_mg` with implicit forward-mode differentiation (the JAX
+    `solve_mg_implicit`, `multigrid.py:365-417`).  For ``A(L) x = z`` the
+    tangent is the exact implicit one, ``A ẋ = ż − Ȧ(L̇, Ḋ)·x``, solved with
+    the same multigrid, tolerance and options (`_TangentSolve`); the warm
+    start's tangent warm-starts it without biasing the result.  Without
+    forward-mode AD active this is `solve_mg` itself.  The result's
+    ``iters`` and ``stats`` are the primal solve's."""
+    opts = dict(tol=tol, itmx=itmx, smooth_it=smooth_it,
+                fine_smooth_it=fine_smooth_it, fine_presmooth=fine_presmooth,
+                perdir=perdir)
+    if not ad_active():
+        res = solve_mg(levels, masks, x, z, **opts)
+        _record(res.iters)
+        return res
+    flat, layout = _flatten(levels)
+    spec = _Spec(tuple(masks), opts, layout)
+    xs, r = _ImplicitSolve.apply(x, z, spec, *flat)
+    return MGSolveResult(xs, r, spec.iters, spec.stats)

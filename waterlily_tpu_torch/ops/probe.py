@@ -13,7 +13,8 @@ concatenated, six fields, an 8×8×8 field launched back to back).
 
 As in `ops/stencil3d.py`: `copy_scale_plain` is the plain version; the
 wrapper given CPU tensors returns it, given CUDA tensors it launches the
-kernel or raises; each launch adds one to ``copy_scale_k`` (one field) or
+kernel or raises (and raises when a field carries a forward-mode tangent,
+`stencil3d._no_tangent`); each launch adds one to ``copy_scale_k`` (one field) or
 ``copy_scale6_k`` (six) in `stencil3d.launch_counts()`.
 """
 from __future__ import annotations
@@ -23,7 +24,8 @@ from typing import Optional, Sequence
 
 import torch
 
-from .stencil3d import F32, _fits, _launch, _lib, _raw_stream, _stream
+from .stencil3d import (F32, _fits, _fwad, _launch, _lib, _no_tangent, _peek,
+                        _raw_stream, _stream)
 
 __all__ = ["SCALE", "copy_scale_plain", "copy_scale_k"]
 
@@ -52,6 +54,8 @@ def copy_scale_k(fields: Sequence[torch.Tensor], block: int = 256,
     a = fields[0]
     if not a.is_cuda:
         return copy_scale_plain(fields)
+    if _peek() is not None or _fwad._current_level >= 0:
+        _no_tangent("copy_scale_k", *fields)
     nf = len(fields)
     if nf != 1 and nf != 6:
         raise ValueError(f"copy_scale_k: takes 1 or 6 fields, got {nf}")

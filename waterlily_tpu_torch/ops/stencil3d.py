@@ -2,9 +2,10 @@
 PyTorch versions.
 
 Counterpart of `waterlily_tpu/ops/pallas3d.py`, with the band-sparse BDIM
-and the mixed-precision smoother of `waterlily_tpu/ops/pallas_flat.py`.  Six
-kernels (sources in `csrc/stencil3d.cu`, built with `nvcc` for `sm_90a` on
-first use, see `ops/_build.py`):
+and the mixed-precision smoother of `waterlily_tpu/ops/pallas_flat.py`, and
+K12's forward-mode derivative.  Seven kernels (sources in `csrc/stencil3d.cu`
+and, for `conv_diff_jvp_k`, `csrc/convdiff_jvp.cu`, built with `nvcc` for
+`sm_90a` on first use, see `ops/_build.py`):
 
 ================  ===========================================  ==================
 wrapper           replaces (TPU)                               JAX caller
@@ -19,6 +20,8 @@ wrapper           replaces (TPU)                               JAX caller
 `bdim_band_k`     `pallas_flat.py:665` `bdim_band`             `flowflat.bdim_flat`
 `gs_incr_k(mp)`   `pallas_flat.py:759,891` `gs_incr`,          `flat.jacobi_flat`,
                   `jacobi_incr` with ``mp=True``               `flat.gauss_seidel_rb_flat`
+`conv_diff_jvp_k` the forward-mode derivative of K12 (JAX      `jax.jvp` of
+                  differentiates `conv_diff3d_generic`)        `flow.conv_diff`
 ================  ===========================================  ==================
 
 `conv_diff_k` takes the periodic directions (``perdir``) as a mode: there
@@ -59,6 +62,19 @@ every product, sum and difference of the colour sweeps and of ``A·e`` are
 bf16, each operation rounded on its own in the order of the JAX body
 (`pallas_flat.py:814-861`); ``x`` and ``r`` stay float32.
 
+Forward-mode AD (`torch.func.jvp`, `jacfwd`, `torch.autograd.forward_ad`):
+on the card K12 and K14 have rules, `torch.autograd.Function` classes whose
+forward launches the kernel on the primal tensors and whose tangent is a
+kernel too (`conv_diff_jvp_k`; for K14, two launches of K14 itself, which is
+linear in its fields).  Each tangent is a Function of its own, so that under
+`torch.func` it, too, receives plain tensors that a kernel can read.  The
+pressure solve's rule (`multigrid.solve_mg_implicit`) launches K15, K16 and
+K13 on primal tensors only.  Every other wrapper raises when an argument
+carries a tangent (`_no_tangent`): a kernel would drop it.  The test is one
+check of whether any forward-AD level or functorch transform is active,
+before any tensor is looked at.  On the CPU the wrappers return the plain
+versions, which PyTorch differentiates itself.
+
 Unlike the Pallas path, the kernels write every cell with the plain formula:
 `conv_diff_k` defines the ghost rows of ``f`` (read by the BDIM gradient at
 the domain faces) and `gs_incr_k` leaves the ghosts of ``x`` and ``r`` as
@@ -72,6 +88,7 @@ import ctypes
 from typing import Callable, Optional, Sequence
 
 import torch
+from torch.autograd import forward_ad as _fwad
 
 from . import _build
 from .bc import per_bc
@@ -80,10 +97,10 @@ from .grid import index_sum_parity, inside_mask, shift, zero_ghost
 __all__ = [
     "use_kernels", "plain_route", "plain_ops", "launch_counts", "reset_launch_counts",
     "median3", "quick", "cds", "vanleer", "SCHEMES", "scheme_id",
-    "conv_diff_plain", "bdim_plain", "bdim_band_plain", "mult_plain",
-    "gs_incr_plain", "gauss_sweeps_plain",
-    "conv_diff_k", "bdim_k", "bdim_band_k", "mult_k", "gs_incr_k",
-    "gauss_sweeps_k",
+    "conv_diff_plain", "conv_diff_jvp_plain", "bdim_plain", "bdim_band_plain",
+    "mult_plain", "gs_incr_plain", "gauss_sweeps_plain",
+    "conv_diff_k", "conv_diff_jvp_k", "bdim_k", "bdim_band_k", "mult_k",
+    "gs_incr_k", "gauss_sweeps_k", "ad_active",
 ]
 
 # the wrappers routed to their plain versions: all of them inside
@@ -94,7 +111,7 @@ _LAUNCHES = {"conv_diff_k": 0, "bdim_k": 0, "mult_k": 0, "gs_incr_k": 0,
              "gauss_sweeps_k": 0, "conv_diff_bdim_k": 0, "incr_gs_k": 0,
              "bc_div_k": 0, "projbc_k": 0, "bc_k": 0, "div_k": 0,
              "bdim_band_k": 0, "gs_incr_mp_k": 0, "incr_gs_mp_k": 0,
-             "copy_scale_k": 0, "copy_scale6_k": 0}
+             "copy_scale_k": 0, "copy_scale6_k": 0, "conv_diff_jvp_k": 0}
 # the wrappers whose call sites pass their name to the gate
 _MP_NAMES = frozenset({"gs_incr_mp_k", "incr_gs_mp_k"})
 
@@ -248,6 +265,18 @@ def conv_diff_plain(u: torch.Tensor, nu, scheme: Callable,
             ri = ri + (phi - shift(phi, j, 1))
         out.append(ri)
     return torch.stack(out)
+
+
+def conv_diff_jvp_plain(u, du, nu, dnu, scheme: Callable,
+                        perdir: tuple[int, ...] = ()) -> torch.Tensor:
+    """The forward-mode derivative of `conv_diff_plain` in ``(u, nu)`` along
+    ``(du, dnu)``: ``J_conv(u)·du + ν·Δdu + dν·Δu`` with the plain version's
+    selections and PyTorch's ½ split of min/max at ties (`torch.func.jvp`;
+    the JAX package takes `jax.jvp` of its conv–diff)."""
+    nu = torch.as_tensor(nu, dtype=u.dtype, device=u.device)
+    dnu = torch.as_tensor(dnu, dtype=u.dtype, device=u.device)
+    return torch.func.jvp(lambda a, b: conv_diff_plain(a, b, scheme, perdir),
+                          (u, nu), (du, dnu))[1]
 
 
 def bdim_plain(u, u0, f, V, mu0, mu1, dt) -> torch.Tensor:
@@ -458,6 +487,38 @@ def _stream(t: torch.Tensor) -> int:
     return _raw_stream(t.get_device())
 
 
+# forward-mode AD: the functorch transform stack (None when no transform
+# is active) and the test of a functorch wrapper (a tensor under
+# `torch.func.jvp`, `jacfwd` or `vmap`, which has no storage)
+_peek = torch._C._functorch.peek_interpreter_stack
+_wrapped = torch._C._functorch.is_functorch_wrapped_tensor
+
+
+def ad_active() -> bool:
+    """Whether a functorch transform or a `torch.autograd.forward_ad` level is
+    active: the one check a wrapper makes before it looks at any tensor for
+    a tangent (`_no_tangent`).  Inside a rule's forward, under
+    `torch.func`, no transform is active and the tensors are plain.  The
+    wrappers write the test out: a call would cost them more than it."""
+    return _peek() is not None or _fwad._current_level >= 0
+
+
+def _no_tangent(name: str, *ts) -> None:
+    """Raise if a tensor of ``ts`` carries a forward-mode tangent, which the
+    kernel ``name`` would drop.  Called only when `ad_active`."""
+    level = _fwad._current_level
+    for t in ts:
+        if isinstance(t, torch.Tensor) and (
+                _wrapped(t) or (level >= 0 and _fwad.unpack_dual(t).tangent is not None)):
+            raise RuntimeError(
+                f"{name}: an argument carries a forward-mode tangent "
+                "(torch.func.jvp/jacfwd/vmap or torch.autograd.forward_ad), and this "
+                "kernel has no forward-mode rule ([ad]): a launch would drop it. "
+                "Differentiate the generic engine (models.flow.mom_step_impl, whose "
+                "conv-diff, BDIM and multigrid solve have rules, engine='3d'), or "
+                "the plain versions on the CPU; the flat engine is not differentiable")
+
+
 def _launch(name: str, err: int) -> None:
     """Count a launch of the wrapper ``name`` whose entry returned ``err``,
     or raise."""
@@ -528,9 +589,28 @@ def conv_diff_k(u: torch.Tensor, nu, scheme_id: int,
     """K12: conv–diff RHS of all three components, ``(3, Nx, Ny, Nz)`` f32,
     every cell written with the plain formula (`conv_diff_plain`), periodic
     in the directions of ``perdir``.  ``nu`` is a 0-d tensor read on the
-    card (no host sync) or a float."""
+    card (no host sync) or a float.  Under forward-mode AD the launch goes
+    through `_ConvDiffRule`: the tangent in ``u`` and ``nu`` is
+    `conv_diff_jvp_k`."""
     if not u.is_cuda:
         return conv_diff_plain(u, nu, SCHEMES[scheme_id], perdir)
+    if _peek() is not None or _fwad._current_level >= 0:
+        return _ConvDiffRule.apply(u, _scalar("conv_diff_k", nu, u.device),
+                                   scheme_id, perdir)
+    return _conv_diff_launch(u, nu, scheme_id, perdir)
+
+
+def _scalar(name: str, nu, dev) -> torch.Tensor:
+    """``nu`` as a float32 0-d tensor on ``dev`` (read there by the kernel)."""
+    nu = torch.as_tensor(nu, dtype=torch.float32, device=dev)
+    if nu.numel() != 1:
+        raise ValueError(f"{name}: nu must be a scalar")
+    return nu
+
+
+def _conv_diff_launch(u, nu, scheme_id, perdir):
+    """K12's launch (`conv_diff_k` on the card outside forward-mode AD, and
+    `_ConvDiffRule`'s forward)."""
     shape, dev = u.shape[1:], u.device
     if not (len(shape) == 3 and _fits(dev, F32, (3, *shape), u)):
         _invalid("conv_diff_k", tuple(shape), dev, ("u", u, F32, (3,)))
@@ -545,6 +625,65 @@ def conv_diff_k(u: torch.Tensor, nu, scheme_id: int,
         u.data_ptr(), nu.data_ptr(), out.data_ptr(), *shape, scheme_id, per,
         _stream(u)))
     return out
+
+
+def conv_diff_jvp_k(u: torch.Tensor, du: torch.Tensor, nu, dnu, scheme_id: int,
+                    perdir: tuple[int, ...] = ()) -> torch.Tensor:
+    """K12's tangent: `conv_diff_jvp_plain` in one launch (one thread per
+    cell and component, `csrc/convdiff_jvp.cu`); ``nu`` and ``dnu`` are 0-d
+    tensors read on the card or floats."""
+    if not u.is_cuda:
+        return conv_diff_jvp_plain(u, du, nu, dnu, SCHEMES[scheme_id], perdir)
+    if _peek() is not None or _fwad._current_level >= 0:
+        _no_tangent("conv_diff_jvp_k", u, du, nu, dnu)
+    shape, dev = u.shape[1:], u.device
+    if not (len(shape) == 3 and _fits(dev, F32, (3, *shape), u, du)):
+        _invalid("conv_diff_jvp_k", tuple(shape), dev, ("u", u, F32, (3,)),
+                 ("du", du, F32, (3,)))
+    if not 0 <= scheme_id < len(SCHEMES):
+        raise ValueError(f"conv_diff_jvp_k: unknown scheme id {scheme_id}")
+    per = _perdir("conv_diff_jvp_k", perdir)[0]
+    nu, dnu = _scalar("conv_diff_jvp_k", nu, dev), _scalar("conv_diff_jvp_k", dnu, dev)
+    out = torch.empty_like(u)
+    _launch("conv_diff_jvp_k", _lib().wlt_conv_diff_jvp(
+        u.data_ptr(), du.data_ptr(), nu.data_ptr(), dnu.data_ptr(), out.data_ptr(),
+        *shape, scheme_id, per, _stream(u)))
+    return out
+
+
+class _ConvDiffRule(torch.autograd.Function):
+    """K12 under forward-mode AD: the primal on K12, the tangent on
+    `conv_diff_jvp_k` (through `_ConvDiffTangent`, whose forward receives
+    plain tensors under `torch.func` too)."""
+
+    @staticmethod
+    def forward(u, nu, scheme_id, perdir):
+        if not u.is_cuda:      # the rule on the plain version (the CPU tests)
+            return conv_diff_plain(u, nu, SCHEMES[scheme_id], perdir)
+        return _conv_diff_launch(u, nu, scheme_id, perdir)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        u, nu, ctx.scheme_id, ctx.perdir = inputs
+        ctx.set_materialize_grads(False)    # an input without a tangent: None
+        ctx.save_for_forward(u, nu)
+
+    @staticmethod
+    def jvp(ctx, du, dnu, *_):
+        u, nu = ctx.saved_tensors
+        return _ConvDiffTangent.apply(u, du, nu, dnu, ctx.scheme_id, ctx.perdir)
+
+
+class _ConvDiffTangent(torch.autograd.Function):
+    @staticmethod
+    def forward(u, du, nu, dnu, scheme_id, perdir):
+        du = torch.zeros_like(u) if du is None else du.contiguous()
+        return conv_diff_jvp_k(u, du, nu, 0.0 if dnu is None else dnu, scheme_id,
+                               perdir)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
 
 
 def _bdim_args(name: str, u, u0, f, V, mu0, mu1):
@@ -566,6 +705,8 @@ def bdim_band_k(u, u0, f, V, mu0, mu1, dt: float, band: tuple[int, int],
     inside, which reads ``f*`` at neighbours in the rows next to it."""
     if not u.is_cuda:
         return bdim_band_plain(u, u0, f, V, mu0, mu1, dt, band, perdir)
+    if _peek() is not None or _fwad._current_level >= 0:
+        _no_tangent("bdim_band_k", u, u0, f, V, mu0, mu1, dt)
     shape = _bdim_args("bdim_band_k", u, u0, f, V, mu0, mu1)
     lo, hi = int(band[0]), int(band[1])
     if hi > lo and not 1 <= lo < hi <= shape[0] - 1:
@@ -578,23 +719,97 @@ def bdim_band_k(u, u0, f, V, mu0, mu1, dt: float, band: tuple[int, int],
     return out
 
 
-def bdim_k(u, u0, f, V, mu0, mu1, dt: float) -> torch.Tensor:
+def bdim_k(u, u0, f, V, mu0, mu1, dt) -> torch.Tensor:
     """K14: BDIM update with ``f* = u0 + dt·f − V`` fused in (`bdim_plain`);
-    ghosts keep ``u``."""
+    ghosts keep ``u``.  ``dt`` is a float or a 0-d tensor (read back once).
+    Under forward-mode AD the launch goes through `_BdimRule`."""
     if not u.is_cuda:
         return bdim_plain(u, u0, f, V, mu0, mu1, dt)
+    if _peek() is not None or _fwad._current_level >= 0:
+        return _BdimRule.apply(u, u0, f, V, mu0, mu1, dt)
+    return _bdim_launch(u, u0, f, V, mu0, mu1, float(dt))
+
+
+def _bdim_launch(u, u0, f, V, mu0, mu1, dt: float) -> torch.Tensor:
+    """K14's launch (`bdim_k` on the card outside forward-mode AD, and the
+    rule's launches through `_k14`)."""
     shape = _bdim_args("bdim_k", u, u0, f, V, mu0, mu1)
     out = torch.empty_like(u)
     _launch("bdim_k", _lib().wlt_bdim(
         u.data_ptr(), u0.data_ptr(), f.data_ptr(), V.data_ptr(), mu0.data_ptr(),
-        mu1.data_ptr(), float(dt), out.data_ptr(), *shape, _stream(u)))
+        mu1.data_ptr(), dt, out.data_ptr(), *shape, _stream(u)))
     return out
+
+
+def _k14(u, u0, f, V, mu0, mu1, dt: float) -> torch.Tensor:
+    """K14 on the card, its plain version on the CPU (where the tests hold
+    the rules)."""
+    if u.is_cuda:
+        return _bdim_launch(u, u0, f, V, mu0, mu1, dt)
+    return bdim_plain(u, u0, f, V, mu0, mu1, dt)
+
+
+class _BdimRule(torch.autograd.Function):
+    """K14 under forward-mode AD.  ``out = u + zg(½Σ_j μ1·δ_j f* + V + μ0·f*)``
+    with ``f* = u0 + dt·f − V`` is linear in ``(u, u0, f, V)`` for fixed
+    ``(μ0, μ1, dt)``, so its tangent is K14 itself (`_BdimTangent`):
+
+    1. K14 on the tangents, ``(u̇, u̇0 + ḋt·f, ḟ, V̇)`` with the primal
+       ``(μ0, μ1, dt)``: ``u̇ + zg(½Σμ1·δḟ* + V̇ + μ0·ḟ*)``, ``ḟ* = u̇0 +
+       ḋt·f + dt·ḟ − V̇`` (V̇ enters ḟ* and the ``+V`` term, as V does);
+    2. where ``μ0`` or ``μ1`` carries a tangent, K14 on step 1's result with
+       ``(u0 − V, f, 0)`` and ``(μ̇0, μ̇1)``: ``f*`` is the primal one and the
+       ``+V`` term is 0, so it adds ``zg(½Σμ̇1·δf* + μ̇0·f*)``.
+
+    The ghosts are step 1's ``u``: ``u̇``, as the primal's are ``u``.  ``dt``
+    reaches the launches as a host float of the primal, never of a
+    tangent."""
+
+    @staticmethod
+    def forward(u, u0, f, V, mu0, mu1, dt):
+        return _k14(u, u0, f, V, mu0, mu1, float(dt))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        u, u0, f, V, mu0, mu1, dt = inputs
+        ctx.dt = dt
+        # moments without a tangent come as None (not zeros): no launch 2
+        ctx.set_materialize_grads(False)
+        ctx.save_for_forward(u0, f, V, mu0, mu1)
+
+    @staticmethod
+    def jvp(ctx, du, du0, df, dV, dmu0, dmu1, ddt):
+        u0, f, V, mu0, mu1 = ctx.saved_tensors
+        return _BdimTangent.apply(u0, f, V, mu0, mu1, ctx.dt, du, du0, df, dV,
+                                  dmu0, dmu1, ddt)
+
+
+class _BdimTangent(torch.autograd.Function):
+    @staticmethod
+    def forward(u0, f, V, mu0, mu1, dt, du, du0, df, dV, dmu0, dmu1, ddt):
+        def tan(t, like):
+            return torch.zeros_like(like) if t is None else t.contiguous()
+        dt = float(dt)
+        a0 = tan(du0, u0)
+        if ddt is not None:
+            a0 = a0 + ddt * f
+        out = _k14(tan(du, u0), a0, tan(df, f), tan(dV, V), mu0, mu1, dt)
+        if dmu0 is None and dmu1 is None:
+            return out
+        return _k14(out, u0 - V, f, torch.zeros_like(V), tan(dmu0, mu0),
+                    tan(dmu1, mu1), dt)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
 
 
 def mult_k(x: torch.Tensor, L: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
     """K16: A·x with zero ghosts (`mult_plain`)."""
     if not x.is_cuda:
         return mult_plain(x, L, D)
+    if _peek() is not None or _fwad._current_level >= 0:
+        _no_tangent("mult_k", x, L, D)
     shape, dev = x.shape, x.device
     if not (len(shape) == 3 and _fits(dev, F32, shape, x, D)
             and _fits(dev, F32, (3, *shape), L)):
@@ -645,6 +860,8 @@ def _gs_incr_launch(x, r, L, D, iD, colors, omega, mp, route=None):
     or on the one named (`PER_COLOUR`, `CASCADE`), which the kernel tests
     use to hold both routes at any shape."""
     name = "gs_incr_mp_k" if mp else "gs_incr_k"
+    if _peek() is not None or _fwad._current_level >= 0:
+        _no_tangent(name, x, r, L, D, iD, omega)
     cdt = BF16 if mp else F32
     shape = _smoother_args(name, cdt, x, r, L, D, iD)
     carr, ncol = _colours(name, colors)
@@ -679,6 +896,8 @@ def gauss_sweeps_k(eps, r, L, iD, colors: Sequence[int],
 def _gauss_sweeps_launch(eps, r, L, iD, colors, perdir, route=None):
     """`gauss_sweeps_k` on the card, on the route the shape gives
     (``route`` None) or on the one named."""
+    if _peek() is not None or _fwad._current_level >= 0:
+        _no_tangent("gauss_sweeps_k", eps, r, L, iD)
     shape, dev = eps.shape, eps.device
     if not (len(shape) == 3 and _fits(dev, F32, shape, eps, r, iD)
             and _fits(dev, F32, (3, *shape), L)):

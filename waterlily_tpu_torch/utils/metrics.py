@@ -153,7 +153,7 @@ def nds_field(body: Body, shape: tuple[int, ...], t=0.0, dtype=torch.float32,
     """BDIM-masked surface normal n·K(d) at every interior cell centre
     (`nds`, `Metrics.jl:116-119`); ghosts zero.  Shape ``(D, *shape)``."""
     D = len(shape)
-    t = torch.tensor(t, dtype=dtype, device=device)
+    t = torch.as_tensor(t, dtype=dtype, device=device)
     d, n, _ = _measure_points(body, _interior_points(None, shape, dtype, device),
                               t, 1.0)
     vals = (n * kern(torch.clamp(d, -1.0, 1.0))[:, None]).T
