@@ -9,7 +9,8 @@ Phases (each prints its own lines; any failure exits non-zero):
 2. build the CUDA kernels of ``waterlily_tpu_torch/csrc`` with ``nvcc`` (one
    process a source, all started together); the
    compiler's report (``-Xptxas -v``) must show all 27 conv–diff
-   instantiations (K12: 3 schemes × 8 periodic masks, K1: 3 schemes), the 16
+   instantiations (K12: 3 schemes × 8 periodic masks, K1: 3 schemes), the 24
+   of K12's tangent tile (3 schemes × 8 masks), the 16
    of K7's tiled cascade (1–4 colours, with and without norms, float32 and
    bf16), the 8 of K15's (1–4 colours, float32 and bf16) and the 4 of K13's
    (1–4 colours) with no stack frame and no spills;
@@ -18,9 +19,9 @@ Phases (each prints its own lines; any failure exits non-zero):
    the bf16 smoothers with 0, 2 and 4 colours and with and without norms,
    K7 with 4, 2 and 3 colours and K6, K15, K13 and the bf16 K5 and K7 with
    4 colours on each of their routes, the tiled cascade and the per-colour
-   launches, where the shape allows it; K12's tangent kernel on every
-   periodic mask with quick and walled and xyz-periodic with the others,
-   against `torch.func.jvp` of the plain conv–diff)
+   launches, where the shape allows it; K12's tangent kernel with every
+   scheme on every periodic mask, against `torch.func.jvp` of the plain
+   conv–diff)
    against its plain PyTorch version in float32 on random inputs at the
    shapes the main paths give it (258³ fine level, 130³, 66³ and 18³ MG
    levels, a non-cubic (50, 34, 34) and an odd-interior (51, 34, 35)), and
@@ -29,8 +30,8 @@ Phases (each prints its own lines; any failure exits non-zero):
    the drag grid
    (322, 130, 130), K15, K13 and the bf16 K5 and K7 at 130³ too, and each
    of their times is printed beside the kernels they replaced
-   (``BEFORE_MS``: K12 and K1 one thread per (cell, component), K7, K15,
-   K13 and the bf16 K5 and K7 a launch per colour);
+   (``BEFORE_MS``: K12, K1 and K12's tangent one thread per (cell,
+   component), K7, K15, K13 and the bf16 K5 and K7 a launch per colour);
 4. the main paths at full width, each built with ``Simulation`` and stepped
    10 times with ``sim_step(remeasure=False)``, first with ``engine="flat"``
    (the fused engine, what ``"auto"`` picks on CUDA), then with
@@ -138,9 +139,12 @@ Phases (each prints its own lines; any failure exits non-zero):
    jvp's launch counts (K12 and its tangent kernel ``conv_diff_jvp_k``,
    K14, K15, K16; no other kernel, none plain), then the same jvp under
    ``plain_ops()``: the derivatives within ``AD_SPHERE_TOL`` and every
-   primal and tangent solve's iterations within one; and the 64³
+   primal and tangent solve's iterations within one, and the tangent
+   kernel's ms on the sphere's state beside the jvp step's; and the 64³
    Taylor–Green vortex (periodic: K13), dKE/dRe against the kernels'
-   central difference (h = 1 % of Re) within 10 %.
+   central difference (h = 1 % of Re) within 10 %, and its
+   `torch.func.jacfwd` (every rule once per batch entry) against its jvp
+   within 1e-6, with equal iteration counts, on the kernels.
 
 Before its last line it prints one JSON object with each kernel's launches
 (summed over the phase-4 runs a-g and i and the phase-6, 7 and 9 runs), error,
@@ -222,10 +226,10 @@ PER_MASKS = [tuple(j for j in range(3) if m >> j & 1) for m in range(8)]
 JVP_TIMED = ("quick", "vanleer", "cds", "quick per=012")
 # the redesigned kernels: timed at the drag grid too, beside `BEFORE_MS`
 REDESIGNED = ("conv_diff_k", "conv_diff_bdim_k", "incr_gs_k", "gs_incr_k",
-              "gauss_sweeps_k", "gs_incr_mp_k", "incr_gs_mp_k")
+              "gauss_sweeps_k", "gs_incr_mp_k", "incr_gs_mp_k", "conv_diff_jvp_k")
 # the shapes at which a redesigned kernel is timed besides 258^3: the
 # smoothers whose routes change with the level also at 130^3
-TIMED_AT = {DRAG_GRID: REDESIGNED + ("conv_diff_jvp_k",),
+TIMED_AT = {DRAG_GRID: REDESIGNED,
             (130,) * 3: ("gs_incr_k", "gauss_sweeps_k", "gs_incr_mp_k",
                          "incr_gs_mp_k")}
 # ms per call of the kernels that the redesigns replaced, on an NVIDIA H100
@@ -239,7 +243,9 @@ TIMED_AT = {DRAG_GRID: REDESIGNED + ("conv_diff_jvp_k",),
 # and periodic direction): from `tools/smoother_bench.py --smoke` run in the
 # parent commit's checkout (Jacobi, K15 with no colours, is unchanged).  The
 # bf16 K5 and K7 (a launch per colour): from `tools/smoother_bench.py
-# --smoke --mp` run in the parent commit's checkout
+# --smoke --mp` run in the parent commit's checkout.  K12's tangent (one
+# thread per (cell, component), every dual flux evaluated twice, cached
+# global reads): this script's phase 3 on the commit before its tile
 BEFORE_MS = {
     ((258,) * 3, "conv_diff_k", "quick"): 2.524,
     ((258,) * 3, "conv_diff_k", "vanleer"): 2.594,
@@ -305,6 +311,13 @@ BEFORE_MS = {
     (DRAG_GRID, "incr_gs_mp_k", "[0, 1, 0, 1] norms=True"): 0.3239,
     (DRAG_GRID, "incr_gs_mp_k", "[1, 0] norms=True"): 0.2410,
     (DRAG_GRID, "incr_gs_mp_k", "[0, 1, 0, 1] norms=False"): 0.3067,
+    ((258,) * 3, "conv_diff_jvp_k", "quick"): 3.293,
+    ((258,) * 3, "conv_diff_jvp_k", "vanleer"): 2.874,
+    ((258,) * 3, "conv_diff_jvp_k", "cds"): 1.798,
+    ((258,) * 3, "conv_diff_jvp_k", "quick per=012"): 3.291,
+    (DRAG_GRID, "conv_diff_jvp_k", "quick"): 1.155,
+    (DRAG_GRID, "conv_diff_jvp_k", "vanleer"): 0.995,
+    (DRAG_GRID, "conv_diff_jvp_k", "cds"): 0.627,
 }
 # the kernels each main path launches (engine x configuration)
 PATH_KERNELS = {
@@ -405,6 +418,7 @@ def nvcc_version(nvcc: str) -> str:
 # the tiled kernels held to no stack frame and no spills: the kernel's name
 # in the compiler's report and the number of its instantiations
 TILED = {"conv-diff": ("conv_diff_tile_kernel", 27),
+         "conv-diff tangent": ("conv_diff_jvp_tile_kernel", 24),
          "K7 cascade": ("incr_gs_tile_kernel", 16),
          "K15 cascade": ("gs_incr_tile_kernel", 8),
          "K13 cascade": ("gauss_sweeps_tile_kernel", 4)}
@@ -474,8 +488,6 @@ def kernel_cases(torch, st, fz, ps, shape, rng, dev, band):
     dnu = torch.tensor(-0.4, dtype=f32, device=dev)
     for per in PER_MASKS:
         for sid, scheme in enumerate(st.SCHEMES):
-            if per and per != (0, 1, 2) and sid:
-                continue                  # the other masks: quick (the kernel tests: all)
             tag = f"{scheme.__name__}" + (f" per={''.join(map(str, per))}" if per else "")
             cases.append(("conv_diff_jvp_k", tag,
                           lambda sid=sid, per=per: st.conv_diff_jvp_k(u, u0, nu, dnu,
@@ -1668,6 +1680,9 @@ AD_FD_TOL = 0.1             # AD against that difference (`tests/test_diff.py`)
 # relative; float32 rounding of the two runs parts them (2.07e-5 measured on
 # an NVIDIA H100 80GB HBM3 at 700 W, with every solve's iterations equal)
 AD_SPHERE_TOL = 5e-2
+# `torch.func.jacfwd` against `torch.func.jvp` of the same run, relative: the
+# same kernels, the batched plain ops may sum in another order
+AD_JACFWD_TOL = 1e-6
 
 
 def ad_runner(torch, sim, nu, steps: int, events=None):
@@ -1723,9 +1738,12 @@ def phase_ad(torch, wt, st, dev):
     check(sim.engine == "3d", f"{tag}: Simulation runs engine {sim.engine}")
     re0 = torch.tensor(sim.L / sim.flow.nu, dtype=torch.float32, device=dev)
     one = torch.ones_like(re0)
+    last = {}               # the primal run's final u, for the tangent kernel's time
 
     def force(re, events=None):
         state, t = ad_runner(torch, sim, sim.L / re, AD_STEPS, events)
+        if not st.ad_active():
+            last["u"] = state.u
         f = (mt.pressure_force(state.p, sim.body, t)
              + mt.viscous_force(state.u, state.nu, sim.body, t))
         return f[0]
@@ -1769,10 +1787,20 @@ def phase_ad(torch, wt, st, dev):
     check(rel_d <= AD_SPHERE_TOL, f"{tag}: dF/dRe of the kernels and of the plain "
           f"versions differ by {rel_d:.3e} > {AD_SPHERE_TOL}")
     check_counts(counts, ("ad-sphere", "3d"), tag)
+    # the tangent kernel on the primal run's final state (two launches a
+    # step), timed after the run's counts were read
+    u = last.pop("u")
+    du = torch.randn(u.shape, generator=torch.Generator(device=dev).manual_seed(SEED),
+                     device=dev)
+    nu = torch.tensor(sim.flow.nu, dtype=torch.float32, device=dev)
+    tan_ms = median_ms(torch, lambda: st.conv_diff_jvp_k(u, du, nu, one, 0), 20)
+    print(f"{tag}: tangent kernel conv_diff_jvp_k (quick, walls) on the run's final "
+          f"state {tan_ms:.4f} ms a call, {2 * tan_ms:.3f} ms a step "
+          f"({2 * tan_ms / jm:.1%} of the jvp step's {jm:.3f})", flush=True)
     runs[("ad-sphere", "3d")] = dict(counts=counts, primal_ms=pm, jvp_ms=jm,
                                      primal_peak=primal_peak, jvp_peak=jvp_peak,
-                                     rel_d=rel_d, dF=dj)
-    del sim
+                                     rel_d=rel_d, dF=dj, tangent_ms=tan_ms)
+    del sim, u, du
     torch.cuda.empty_cache()
 
     tag = f"phase9 ad-tgv {AD_TGV_N}^3 [3d]"
@@ -1798,7 +1826,22 @@ def phase_ad(torch, wt, st, dev):
     check(math.isfinite(float(dk)) and rel <= AD_FD_TOL,
           f"{tag}: AD and the central difference differ by {rel:.3e}")
     check_counts(counts, ("ad-tgv", "3d"), tag)
-    runs[("ad-tgv", "3d")] = dict(counts=counts, rel_fd=rel)
+    # the same derivative by `torch.func.jacfwd`: every rule, tangent and
+    # tangent solve once per batch entry (`stencil3d._loop_vmap`)
+    st.reset_launch_counts()
+    with mg.iteration_log() as flog:
+        dkf = float(torch.func.jacfwd(ke)(re0))
+    fcounts = st.launch_counts()
+    rel_j = abs(dkf - float(dk)) / abs(float(dk))
+    print(f"{tag}: jacfwd dKE/dRe {dkf:.9e} against the jvp's: rel {rel_j:.3e} "
+          f"(tol {AD_JACFWD_TOL:g}); solve iterations {list(flog)}; launch counts "
+          f"{fcounts}", flush=True)
+    check(math.isfinite(dkf) and rel_j <= AD_JACFWD_TOL,
+          f"{tag}: jacfwd and jvp differ by {rel_j:.3e}")
+    check(list(flog) == tlog, f"{tag}: jacfwd's solve iterations {list(flog)} "
+          f"are not the jvp's {tlog}")
+    check_counts(fcounts, ("ad-tgv", "3d"), f"{tag} jacfwd")
+    runs[("ad-tgv", "3d")] = dict(counts=counts, rel_fd=rel, rel_jacfwd=rel_j)
     del sim
     torch.cuda.empty_cache()
     return runs

@@ -10,7 +10,11 @@ on, checked on the CPU with the port's plain schemes:
    differenced with a shift equals `conv_diff_plain` (1e-6 of max: the same
    operations, a different association of the select);
 3. ``x / 6`` as a product with the rounded reciprocal and one residual
-   correction (the kernels' ``div6``) is the correctly rounded quotient.
+   correction (the kernels' ``div6``) is the correctly rounded quotient;
+4. identity 1 on duals (K12's tangent kernel selects the dual arguments
+   and evaluates the dual scheme once): the forward derivative of the
+   scheme at the selected arguments along the selected tangents is, bit for
+   bit, the selected derivative of the two branches.
 
 Inputs are random with ties and zeros mixed in, float32 and float64.
 """
@@ -120,3 +124,30 @@ def test_div6_is_the_correctly_rounded_quotient():
                           x.astype(np.float64) - 6.0 * q.astype(np.float64))
     got = (q.astype(np.float64) + e.astype(np.float64) * np.float64(r)).astype(np.float32)
     assert np.array_equal(got, x / np.float32(6.0))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("scheme", st.SCHEMES, ids=lambda s: s.__name__)
+def test_dual_scheme_of_selected_arguments_is_the_selected_dual_scheme(scheme, dtype):
+    rng = np.random.default_rng(3)
+    n = 100_000
+    fm2, fm1, fc, fp1, uadv = (ties_and_zeros(rng, (n,), dtype) for _ in range(5))
+    tm2, tm1, tc, tp1 = (torch.as_tensor(rng.standard_normal(n), dtype=dtype)
+                         for _ in range(4))
+
+    def dual(u, ut, c, ct, d, dt):
+        return torch.func.jvp(scheme, (u, c, d), (ut, ct, dt))
+
+    up_v, up_t = dual(fm2, tm2, fm1, tm1, fc, tc)
+    dn_v, dn_t = dual(fp1, tp1, fc, tc, fm1, tm1)
+    # the generic rule (upwind where uadv > 0) and the top slab's (upwind
+    # unless the flow comes from above)
+    for up in (uadv > 0, ~(uadv < 0)):
+        def w(a, b):
+            return torch.where(up, a, b)
+        got_v, got_t = dual(w(fm2, fp1), w(tm2, tp1), w(fm1, fc), w(tm1, tc),
+                            w(fc, fm1), w(tc, tm1))
+        assert torch.equal(got_v, w(up_v, dn_v))
+        assert torch.equal(got_t, w(up_t, dn_t))
+    # ties reach the min/max of every scheme but cds
+    assert (fm1 == fc).any() and (fm2 == fm1).any()

@@ -872,14 +872,16 @@ ALL_PERDIRS = [()] + PERDIRS
 ALL_PERDIR_IDS = ["walls"] + PERDIR_IDS
 
 
-@pytest.mark.parametrize("shape", PER_SHAPES + [(258, 258, 258), (322, 130, 130)],
+@pytest.mark.parametrize("shape", PER_SHAPES + TILE_SHAPES
+                         + [(258, 258, 258), (322, 130, 130)],
                          ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("sid", [0, 1, 2], ids=["quick", "vanleer", "cds"])
 @pytest.mark.parametrize("perdir", ALL_PERDIRS, ids=ALL_PERDIR_IDS)
 def test_conv_diff_jvp_k(dev, shape, sid, perdir):
     """K12's tangent kernel against `torch.func.jvp` of `conv_diff_plain`,
-    tangents in u and nu, at the test shapes, the 258³ fine level and the
-    drag grid."""
+    tangents in u and nu, at the test shapes, the tile shapes (ragged tiles,
+    fields below one tile, short x chunks), the 258³ fine level and the drag
+    grid."""
     u, du = ad_fields(shape, 31 + sid, dev)
     nu, dnu = torch.tensor(0.03, device=dev), torch.tensor(-0.4, device=dev)
     st.reset_launch_counts()
@@ -980,7 +982,13 @@ def test_wrapper_without_rule_raises_on_a_tangent(dev, case, mode):
 def test_step_jvp_runs_on_the_kernels(dev):
     """d(u, p)/dν through `mom_step_impl` on the 3d engine in float32: the
     kernels' run (K12 and its tangent, K14, K15, K16 launched, none
-    plain) against `plain_ops()`, 1e-3 of the tangents' max."""
+    plain) against `plain_ops()`, 1e-3 of the tangents' max; and
+    `torch.func.jacfwd` of the same step on the kernels (every rule and
+    tangent once per batch entry, `stencil3d._loop_vmap`) against the
+    kernels' jvp, 1e-6 of the tangents' max, with equal iteration counts
+    (a batched run may sum in another order, so not bit for bit)."""
+    from waterlily_tpu_torch.ops import multigrid as mg
+
     sim = sphere(32, dev, engine="3d")
     cfg, st0 = sim.flow.cfg, sim.flow.state
     nu0, one = st0.nu.clone(), torch.ones((), device=dev)
@@ -995,7 +1003,8 @@ def test_step_jvp_runs_on_the_kernels(dev):
         return s.u, s.p, dt
 
     st.reset_launch_counts()
-    got = torch.func.jvp(step, (nu0,), (one,))
+    with mg.iteration_log() as jlog:
+        got = torch.func.jvp(step, (nu0,), (one,))
     n = st.launch_counts()
     for k in ("conv_diff_k", "conv_diff_jvp_k", "bdim_k", "gs_incr_k", "mult_k"):
         assert n[k] > 0, (k, n)
@@ -1004,3 +1013,12 @@ def test_step_jvp_runs_on_the_kernels(dev):
     assert sum(st.launch_counts().values()) == sum(n.values())
     for a, b in zip(got[1][:2], want[1][:2]):
         assert rel_err(a, b) <= 1e-3
+    st.reset_launch_counts()
+    with mg.iteration_log() as flog:
+        jac = torch.func.jacfwd(step)(nu0)
+    m = st.launch_counts()
+    for k in ("conv_diff_k", "conv_diff_jvp_k", "bdim_k", "gs_incr_k", "mult_k"):
+        assert m[k] > 0, (k, m)
+    assert list(flog) == list(jlog)
+    for a, b in zip(jac, got[1]):
+        assert rel_err(a, b) <= 1e-6

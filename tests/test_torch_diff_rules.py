@@ -82,7 +82,9 @@ def _dmedian3(a, at, b, bt, c, ct):
 
 
 def _dscheme(sid, u, ut, c, ct, d, dt):
-    """`dscheme<SCHEME>` of `csrc/convdiff_jvp.cu`."""
+    """`dscheme<SCHEME>` of `csrc/convdiff_jvp.cu` (van Leer's quotient as
+    the kernel's product with one reciprocal differs from this division by
+    a rounding, within the card's 2e-5)."""
     if sid == 0:
         a, at = (5 * c + 2 * d - u) / 6, (5 * ct + 2 * dt - ut) / 6
         b, bt = 10 * c - 9 * u, 10 * ct - 9 * ut
@@ -103,8 +105,9 @@ def _dscheme(sid, u, ut, c, ct, d, dt):
 
 
 def _tflux(u, du, nu, dnu, i, j, sid, per):
-    """`tflux` of `csrc/convdiff_jvp.cu` at every cell: the tangent of the
-    flux of component i through each cell's lower j-face."""
+    """`face_tflux` of `csrc/convdiff_jvp.cu` at every cell, on the stencil
+    `tile_tflux` reads (or, at a periodic first slab, `tflux_per1`): the
+    tangent of the flux of component i through each cell's lower j-face."""
     n = u.shape[1 + j]
     k = torch.arange(n)
     periodic = j in per
@@ -140,10 +143,11 @@ def _tflux(u, du, nu, dnu, i, j, sid, per):
 
 
 def emulate_conv_diff_jvp(u, du, nu, dnu, sid, per):
-    """`conv_diff_jvp_kernel<SCHEME>` of `csrc/convdiff_jvp.cu` on the whole
-    grid: per component, the sum over j of the tangent flux through the
-    lower j-face minus that through the upper one (the next cell's lower,
-    wrapped)."""
+    """`conv_diff_jvp_tile_kernel<SCHEME, PER>` of `csrc/convdiff_jvp.cu` on
+    the whole grid: per component, the sum over j of the tangent flux
+    through the lower j-face minus that through the upper one (the next
+    cell's lower, wrapped: the kernel's carried x flux, shuffled z flux and
+    exchanged y flux)."""
     out = []
     for i in range(3):
         s = torch.zeros_like(u[i])
@@ -213,6 +217,26 @@ def test_conv_diff_rule_func_jvp(what, per):
         close(got[1], out[1])
 
 
+def test_conv_diff_rule_jacfwd():
+    """`torch.func.jacfwd` through K12's rule (a batch of two directions in
+    (u, nu): the rule and its tangent run once per batch entry,
+    `stencil3d._loop_vmap`) against `torch.func.jvp` along each."""
+    u, du = fields((7, 6, 5), 13)
+    du2 = torch.roll(du, 1, 1)
+    nu, dnu = torch.tensor(0.02, dtype=F64), torch.tensor(0.3, dtype=F64)
+    for sid, per in ((0, ()), (1, (0, 1, 2)), (2, (1,))):
+        def f(p):
+            return st._ConvDiffRule.apply(u + p[0] * du + p[1] * du2,
+                                          nu + p[0] * dnu, sid, per)
+
+        p0 = torch.zeros(2, dtype=F64)
+        jac = torch.func.jacfwd(f)(p0)
+        for k in range(2):
+            e = torch.zeros(2, dtype=F64)
+            e[k] = 1.0
+            close(jac[..., k], torch.func.jvp(f, (p0,), (e,))[1])
+
+
 def bdim_inputs(seed):
     rng = np.random.default_rng(seed)
 
@@ -241,6 +265,25 @@ def test_bdim_rule_func_jvp(keep):
     want = torch.func.jvp(st.bdim_plain, prim, tans)
     close(got[0], want[0])
     close(got[1], want[1])
+
+
+def test_bdim_rule_jacfwd():
+    """`torch.func.jacfwd` through K14's rule, a batch of two directions in
+    every argument (the moments' launch and dt's tangent included), against
+    `torch.func.jvp` along each."""
+    prim, tans = bdim_inputs(5)
+    _, tans2 = bdim_inputs(6)
+
+    def f(p):
+        return st._BdimRule.apply(*(a + p[0] * t + p[1] * t2
+                                    for a, t, t2 in zip(prim, tans, tans2)))
+
+    p0 = torch.zeros(2, dtype=F64)
+    jac = torch.func.jacfwd(f)(p0)
+    for k in range(2):
+        e = torch.zeros(2, dtype=F64)
+        e[k] = 1.0
+        close(jac[..., k], torch.func.jvp(f, (p0,), (e,))[1])
 
 
 def test_rules_skip_the_launches_of_absent_tangents(monkeypatch):

@@ -100,6 +100,38 @@ def test_conv_diff_plain_vs_jnp(scheme):
     compare(got, want[0], False, atol=1e-12)
 
 
+# the walled field, every direction periodic, and one periodic axis
+JVP_PERDIRS = [(), (0, 1, 2), (1,)]
+
+
+@pytest.mark.parametrize("perdir", JVP_PERDIRS, ids=["walls", "xyz", "y"])
+@pytest.mark.parametrize("scheme", SCHEMES, ids=SCHEME_IDS)
+def test_conv_diff_jvp_plain_vs_jax_jvp(scheme, perdir):
+    """K12's tangent as the port defines it (`conv_diff_jvp_plain`, the
+    forward derivative of `conv_diff_plain` that `conv_diff_jvp_k`
+    computes) against `jax.jvp` of the JAX package's conv–diff (its jnp
+    path in float64), tangents in u and nu, on the interior cells of a
+    non-cubic field whose values include ties and zero upwind velocities."""
+    import jax
+
+    rng = np.random.default_rng(7)
+    shape = (12, 10, 8)          # the shape of `test_conv_diff_plain_vs_jnp`
+    u = rng.standard_normal((3,) + shape)
+    pick = rng.random(u.shape) < 1 / 3
+    u[pick] = 0.5 * rng.integers(-2, 3, u.shape)[pick]
+    du = rng.standard_normal((3,) + shape)
+    nu, dnu = 0.03, -0.7
+    sj, stc = scheme
+    got = st.conv_diff_jvp_plain(torch.as_tensor(u), torch.as_tensor(du), nu, dnu,
+                                 stc, perdir)
+    # the scheme jitted: one compile per operand shape instead of one per
+    # operation (the same values in float64)
+    sjit = jax.jit(sj)
+    want = jax.jvp(lambda a, b: fl_j.conv_diff(a, sjit, b, perdir),
+                   (jnp.asarray(u), jnp.asarray(nu)), (jnp.asarray(du), jnp.asarray(dnu)))[1]
+    compare(got, want, True, atol=1e-12 * float(jnp.abs(want).max()))
+
+
 @pytest.mark.parametrize("name", ["bdim", "mult", "jacobi"])
 def test_plain_vs_jnp(name):
     d = fields((12, 10, 8), 1, np.float64)

@@ -38,8 +38,10 @@ times every wrapper row of this checkout and of the checkout at ``ROOT``
 (its package imported under another name, as `tools/bandwidth_probe.py`'s
 ``load_checkout`` does) in one process, in turns, ``ROUNDS`` rounds with
 the order swapped every round: each row's median ``host_us`` on each side
-and the median of the paired differences (this − other).  Separate
-processes move these figures by 20–40 %; turns in one process do not.  ``--save PATH``
+and the median of the paired differences (this − other), and the same for
+``enqueue_us`` (the host's own cost where the card is the slower side).
+Separate processes move these figures by 20–40 %; turns in one process do
+not.  ``--save PATH``
 also writes each wrapper's outputs on these inputs (`torch.save`, on the
 CPU), so that two checkouts' outputs can be compared bit for bit.  Prints the card's
 name and power limit, one line per row and a JSON object of the rows; needs a
@@ -310,15 +312,23 @@ def against(torch, np, root: str, dev) -> list[dict]:
         cases, _ = wrapper_cases(torch, np, *mods, dev)
         kernels[label] = {name: kern for name, kern, _ in cases}
     names = [n for n in kernels["this"] if n in kernels["other"]]
-    times = {n: {"this": [], "other": []} for n in names}
+    times = {n: {k: [] for k in ("this", "other", "this_enq", "other_enq")}
+             for n in names}
     for i in range(ROUNDS):
         for label in ("this", "other") if i % 2 == 0 else ("other", "this"):
             for n in names:
-                times[n][label].append(chain_times(torch, kernels[label][n])["host_us"])
+                got = chain_times(torch, kernels[label][n])
+                times[n][label].append(got["host_us"])
+                times[n][label + "_enq"].append(got["enqueue_us"])
+
+    def paired(a, b):
+        return statistics.median(x - y for x, y in zip(a, b))
     return [dict(name=n, this_us=statistics.median(t["this"]),
                  other_us=statistics.median(t["other"]),
-                 diff_us=statistics.median(a - b for a, b in zip(t["this"], t["other"])),
-                 this_runs=t["this"], other_runs=t["other"])
+                 diff_us=paired(t["this"], t["other"]),
+                 enqueue_diff_us=paired(t["this_enq"], t["other_enq"]),
+                 this_runs=t["this"], other_runs=t["other"],
+                 this_enqueue_runs=t["this_enq"], other_enqueue_runs=t["other_enq"])
             for n, t in times.items()]
 
 
@@ -351,7 +361,8 @@ def main(argv) -> int:
         for r in rows:
             print(f"launch {r['name']:30s} host us/call this {r['this_us']:7.2f}, "
                   f"other {r['other_us']:7.2f}; median of this - other "
-                  f"{r['diff_us']:+6.2f}", flush=True)
+                  f"{r['diff_us']:+6.2f}; enqueue alone {r['enqueue_diff_us']:+6.2f}",
+                  flush=True)
         print(json.dumps({"device": torch.cuda.get_device_name(0), "card": card,
                           "against": argv[1], "rows": rows}))
         return 0

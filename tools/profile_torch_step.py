@@ -38,10 +38,13 @@ and then times ``STEPS`` unprofiled steps of each in turns, ``ROUNDS``
 rounds with the order swapped every round: both walls of every round, their
 medians and the median of the paired differences (this − other).  No
 profile is taken in this mode.  ``moving`` steps re-measured in both (a
-checkout without the box measure re-measures densely).
+checkout without the box measure re-measures densely); ``ad`` times each
+checkout's jvp step (`torch.func.jvp` of one `mom_step_impl` in ν from its
+settled sphere).
 """
 from __future__ import annotations
 
+import importlib
 import statistics
 import sys
 import time
@@ -89,13 +92,15 @@ def stepper(sim, udf, case: str):
     return lambda: sim.sim_step(remeasure=case == "moving", udf=udf)
 
 
-def ad_steps(torch, sim):
-    """One `mom_step_impl` from the state of ``sim`` (dt and t as 0-d
-    tensors, the differentiable runner's form) as it is and under
-    `torch.func.jvp` in ν: two thunks."""
+def ad_steps(torch, sim, fl=None):
+    """One `mom_step_impl` (of the flow module ``fl``, this checkout's by
+    default) from the state of ``sim`` (dt and t as 0-d tensors, the
+    differentiable runner's form) as it is and under `torch.func.jvp` in ν:
+    two thunks."""
     import dataclasses
 
-    from waterlily_tpu_torch.models import flow as fl
+    if fl is None:
+        from waterlily_tpu_torch.models import flow as fl
 
     cfg, state = sim.flow.cfg, sim.flow.state
     dt = torch.tensor(sim.flow.dt[-1], dtype=cfg.dtype, device=state.u.device)
@@ -144,12 +149,16 @@ def against(torch, cs, pkgs: dict, configs, dev) -> None:
     and stepped in turns (module docstring)."""
     for cfg in configs:
         engine, case = cfg.split(":")
-        sims = {label: cs.make_sim(torch, wt, case, size(case), dev, engine=engine)
+        sims = {label: cs.make_sim(torch, wt, "sphere" if case == "ad" else case,
+                                   size(case), dev, engine=engine)
                 for label, wt in pkgs.items()}
         steps = {label: stepper(sim, udf, case) for label, (sim, udf) in sims.items()}
         for step in steps.values():
             for _ in range(WARM):
                 step()
+        if case == "ad":
+            steps = {label: ad_steps(torch, sims[label][0], importlib.import_module(
+                f"{wt.__name__}.models.flow"))[1] for label, wt in pkgs.items()}
         torch.cuda.synchronize()
         labels, walls = list(pkgs), {label: [] for label in pkgs}
         for i in range(ROUNDS):

@@ -42,7 +42,7 @@ from .grid import grow, interior
 from .poisson import (PoissonLevel, _inside_ones, _mult_raw, coarse_solve,
                       dense_pinv, gauss_seidel_rb, increment, jacobi,
                       make_level, norms, residual, stop_tolerances)
-from .stencil3d import ad_active
+from .stencil3d import _loop_vmap, ad_active
 
 __all__ = [
     "divisible", "coarsen_mask", "coarse_shape", "level_shapes",
@@ -316,19 +316,6 @@ def _unflatten(flat, layout):
             bf, k = tuple(flat[k:k + 3]), k + 3
         levels.append(PoissonLevel(L, D, iD, ainv, bf))
     return tuple(levels)
-
-
-def _loop_vmap(fn):
-    """A `vmap` rule that applies ``fn`` to each batch entry in turn (each
-    solve reads its norms back on the host, which a batched tensor cannot
-    do): what `torch.func.jacfwd` needs."""
-    def vmap(info, in_dims, *args):
-        outs = []
-        for b in range(info.batch_size):
-            outs.append(fn.apply(*(a if d is None else a.select(d, b)
-                                   for a, d in zip(args, in_dims))))
-        return tuple(torch.stack(o) for o in zip(*outs)), (0,) * len(outs[0])
-    return staticmethod(vmap)
 
 
 class _ImplicitSolve(torch.autograd.Function):

@@ -67,7 +67,9 @@ on the card K12 and K14 have rules, `torch.autograd.Function` classes whose
 forward launches the kernel on the primal tensors and whose tangent is a
 kernel too (`conv_diff_jvp_k`; for K14, two launches of K14 itself, which is
 linear in its fields).  Each tangent is a Function of its own, so that under
-`torch.func` it, too, receives plain tensors that a kernel can read.  The
+`torch.func` it, too, receives plain tensors that a kernel can read.  Under
+`vmap` (`jacfwd` batches the tangents) every rule and tangent runs once per
+batch entry (`_loop_vmap`), each run on plain tensors.  The
 pressure solve's rule (`multigrid.solve_mg_implicit`) launches K15, K16 and
 K13 on primal tensors only.  Every other wrapper raises when an argument
 carries a tangent (`_no_tangent`): a kernel would drop it.  The test is one
@@ -629,9 +631,9 @@ def _conv_diff_launch(u, nu, scheme_id, perdir):
 
 def conv_diff_jvp_k(u: torch.Tensor, du: torch.Tensor, nu, dnu, scheme_id: int,
                     perdir: tuple[int, ...] = ()) -> torch.Tensor:
-    """K12's tangent: `conv_diff_jvp_plain` in one launch (one thread per
-    cell and component, `csrc/convdiff_jvp.cu`); ``nu`` and ``dnu`` are 0-d
-    tensors read on the card or floats."""
+    """K12's tangent: `conv_diff_jvp_plain` in one launch (K12's tiles on
+    duals, `csrc/convdiff_jvp.cu`); ``nu`` and ``dnu`` are 0-d tensors read
+    on the card or floats."""
     if not u.is_cuda:
         return conv_diff_jvp_plain(u, du, nu, dnu, SCHEMES[scheme_id], perdir)
     if _peek() is not None or _fwad._current_level >= 0:
@@ -649,6 +651,23 @@ def conv_diff_jvp_k(u: torch.Tensor, du: torch.Tensor, nu, dnu, scheme_id: int,
         u.data_ptr(), du.data_ptr(), nu.data_ptr(), dnu.data_ptr(), out.data_ptr(),
         *shape, scheme_id, per, _stream(u)))
     return out
+
+
+def _loop_vmap(fn):
+    """A `vmap` rule that applies the Function ``fn`` to each batch entry in
+    turn, on plain contiguous tensors: a kernel cannot read a batched tensor,
+    and a solve reads its norms back on the host.  What `torch.func.jacfwd`
+    needs of a rule, whose tangents it batches."""
+    def vmap(info, in_dims, *args):
+        # a batched tensor's dim is an int; any other argument's is None or,
+        # for a tuple, a tuple of Nones
+        outs = [fn.apply(*(a.select(d, b).contiguous() if isinstance(d, int) else a
+                           for a, d in zip(args, in_dims)))
+                for b in range(info.batch_size)]
+        if isinstance(outs[0], torch.Tensor):
+            return torch.stack(outs), 0
+        return tuple(torch.stack(o) for o in zip(*outs)), (0,) * len(outs[0])
+    return staticmethod(vmap)
 
 
 class _ConvDiffRule(torch.autograd.Function):
@@ -684,6 +703,10 @@ class _ConvDiffTangent(torch.autograd.Function):
     @staticmethod
     def setup_context(ctx, inputs, output):
         pass
+
+
+_ConvDiffRule.vmap = _loop_vmap(_ConvDiffRule)
+_ConvDiffTangent.vmap = _loop_vmap(_ConvDiffTangent)
 
 
 def _bdim_args(name: str, u, u0, f, V, mu0, mu1):
@@ -802,6 +825,10 @@ class _BdimTangent(torch.autograd.Function):
     @staticmethod
     def setup_context(ctx, inputs, output):
         pass
+
+
+_BdimRule.vmap = _loop_vmap(_BdimRule)
+_BdimTangent.vmap = _loop_vmap(_BdimTangent)
 
 
 def mult_k(x: torch.Tensor, L: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
