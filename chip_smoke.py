@@ -144,14 +144,34 @@ Phases (each prints its own lines; any failure exits non-zero):
    Taylor–Green vortex (periodic: K13), dKE/dRe against the kernels'
    central difference (h = 1 % of Re) within 10 %, and its
    `torch.func.jacfwd` (every rule once per batch entry) against its jvp
-   within 1e-6, with equal iteration counts, on the kernels.
+   within 1e-6, with equal iteration counts, on the kernels;
+10. domain decomposition (`parallel.DistSimulation`, one worker thread a
+   shard, four shards on ``cuda:0``): (a) the 64³ sphere in float64 on a
+   (4,) mesh with the flat engine and on (2, 2) with the 3d engine, 5 steps
+   each against the same engine's single-device run on the card, u and p
+   within 1e-10 of max and equal ``pois_n`` (no kernel runs in float64:
+   this holds the exchange itself); (b) the 64³ float32 flat-engine sphere
+   on (4,) with the kernels against the same run under ``plain_ops()``,
+   after each of 5 steps, held to the phase-5 limits after step 5 (the
+   plain run launches nothing); (c) the 256³ sphere of 4a, 10 steps on (4,)
+   with the flat engine and on (2, 2) with the 3d engine, each beside the
+   same engine's single-device run in this process: ms/step (steps 3-10 by
+   CUDA events), peak memory, collectives and halo bytes per step, the
+   launches per step of K14, K11, K16 and K6 (``incr_gs_k`` without
+   colours, told from K7 by a tally of its calls) against
+   ``PATH_KERNELS[("sphere-dist", engine)]``, with K1, K7, K8 and K9 at 0;
+   u after step 10 within 1e-3·max|u| of the single-device run, iterations
+   within one per solve; (d) ``torch.cuda.device_count()``, and (c)'s flat
+   case on distinct cards when there are at least two (else a line that it
+   was skipped).
 
 Before its last line it prints one JSON object with each kernel's launches
-(summed over the phase-4 runs a-g and i and the phase-6, 7 and 9 runs), error,
+(summed over the phase-4 runs a-g and i and the phase-6, 7, 9 and 10 runs), error,
 times, bound, host µs per call, the launches of the 4h table
 (``tool_launches``, kept out of ``launches``), of the PCG run
-(``pcg_launches``) and of the AD runs (``ad_launches``, both in
-``launches``), and the card's name and power limit;
+(``pcg_launches``), of the AD runs (``ad_launches``) and of the 256³
+distributed runs (``dist_launches``, all three in ``launches``), and the
+card's name and power limit;
 the last line is ``{"ok": true, "device": {...}}``.  Needs no JAX and no
 network.
 """
@@ -366,6 +386,13 @@ PATH_KERNELS = {
                           "gs_incr_k"},
     ("ad-tgv", "3d"): {"conv_diff_k", "conv_diff_jvp_k", "bdim_k", "mult_k",
                        "gauss_sweeps_k"},
+    # phase 10, the 256³ sphere on four shards of the card: on the flat
+    # engine K14 on the whole shard, K11, K16 (the residuals and the
+    # replicated coarsest level's increment) and K6 (``incr_gs_k`` with no
+    # colours; K7 is told apart by `incr_gs_tally`); the 3d engine is plain
+    # under decomposition but for K16 on the replicated coarsest level
+    ("sphere-dist", "flat"): {"bdim_k", "div_k", "mult_k", "incr_gs_k"},
+    ("sphere-dist", "3d"): {"mult_k"},
     # `tools/launch_cost.py` calls every wrapper
     ("launch", "tool"): set(KERNELS),
 }
@@ -383,7 +410,8 @@ HOST_ROW = {"conv_diff_k": "conv_diff_k", "conv_diff_bdim_k": "conv_diff_bdim_k"
             "conv_diff_jvp_k": "conv_diff_jvp_k"}
 # the paths of phases 6 and 7
 LATER_PATHS = {("circle", "3d"), ("circle-64", "3d"), ("foil", "3d"), ("pcg", "3d"),
-               ("ad-sphere", "3d"), ("ad-tgv", "3d")}
+               ("ad-sphere", "3d"), ("ad-tgv", "3d"), ("sphere-dist", "flat"),
+               ("sphere-dist", "3d")}
 # (configuration, engine) in the order phase 4 runs them
 MAIN_RUNS = [(c, e) for c in ("sphere", "tgv", "drag", "les", "ramp")
              for e in ("flat", "3d")] + [("sphere-mp", "flat"), ("sphere-s2", "flat"),
@@ -1846,6 +1874,190 @@ def phase_ad(torch, wt, st, dev):
     torch.cuda.empty_cache()
     return runs
 
+# ------------------------------------------------------------ phase 10
+DIST_SMALL = 64
+DIST_STEPS = 5
+# the mesh of each engine, four shards on one card
+DIST_MESHES = {"flat": (4,), "3d": (2, 2)}
+# the kernels that must not run on the distributed flat engine (K7 is
+# `incr_gs_k` with colours: counted by `incr_gs_tally`)
+DIST_ABSENT = ("conv_diff_bdim_k", "bc_div_k", "projbc_k")
+
+
+@contextlib.contextmanager
+def incr_gs_tally(fz, tally):
+    """Count the calls of K6 (``incr_gs_k`` with no colours) and K7 (with
+    colours) apart while it runs, from every shard (one runs at a time):
+    they share one launch counter."""
+    launch = fz._incr_gs_launch
+
+    def tallied(x, r, eps, L, D, iD, colors, omega, want_norms=False, mp=False,
+                route=None):
+        tally["K7" if len(colors) else "K6"] += 1
+        return launch(x, r, eps, L, D, iD, colors, omega, want_norms, mp, route)
+
+    fz._incr_gs_launch = tallied
+    try:
+        yield tally
+    finally:
+        fz._incr_gs_launch = launch
+
+
+def dist_sphere(torch, wt, n: int, dev, dtype, engine: str):
+    """`sphere_sim` in ``dtype``."""
+    radius = n // 8
+    ctr = torch.tensor([n / 3, n / 2, n / 2], dtype=dtype, device=dev)
+    body = wt.AutoBody(lambda x, t: torch.sqrt(torch.sum((x - ctr) ** 2)) - radius)
+    return wt.Simulation((n, n, n), (1.0, 0.0, 0.0), radius, nu=radius / 1e3,
+                         body=body, dtype=dtype, device=dev, engine=engine)
+
+
+def rel_diff(torch, a, b) -> float:
+    """max|a − b| / max|b| of two fields (numpy or tensors)."""
+    a, b = torch.as_tensor(a).double(), torch.as_tensor(b).double()
+    return ((a - b).abs().max() / b.abs().max().clamp(min=1e-300)).item()
+
+
+def dist_run(torch, wt, st, fz, sim, mesh, engine: str, steps: int):
+    """``steps`` steps of a `DistSimulation` of ``sim`` with its own launch
+    counts, K6/K7 tally, collectives and peak memory; ms per step by CUDA
+    events."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    d = wt.DistSimulation(sim, mesh, engine=engine)
+    check(d.engine == engine, f"phase10: DistSimulation runs engine {d.engine}")
+    tally = collections.Counter()
+    d.comm.reset_counts()
+    st.reset_launch_counts()
+    with incr_gs_tally(fz, tally):
+        ms = step_events(torch, lambda: d.step_once(remeasure=False), steps)
+    counts = st.launch_counts()
+    return dict(d=d, ms=ms, counts=counts, tally=dict(tally),
+                comm=dict(d.comm.counts), halo=d.comm.halo_bytes,
+                peak=torch.cuda.max_memory_allocated())
+
+
+def phase_dist(torch, wt, st, dev):
+    """Phase 10 (module docstring).  Returns the 256³ runs' counts as
+    paths; the failures are collected and raised after every case
+    printed."""
+    import copy
+
+    from waterlily_tpu_torch.ops import fused3d as fz
+
+    ndev = torch.cuda.device_count()
+    print(f"phase10 torch.cuda.device_count() {ndev}", flush=True)
+    one_card = lambda shape: wt.make_mesh(shape, [dev] * math.prod(shape))
+    failures = []
+    # (a) the exchange itself, float64 (no kernel takes float64)
+    for engine, shape in DIST_MESHES.items():
+        ref = dist_sphere(torch, wt, DIST_SMALL, dev, torch.float64, engine)
+        d = wt.DistSimulation(copy.deepcopy(ref), one_card(shape), engine=engine)
+        st.reset_launch_counts()
+        for k in range(1, DIST_STEPS + 1):
+            ref.sim_step(remeasure=False)
+            d.step_once(remeasure=False)
+            du, dp = rel_diff(torch, d.u, ref.flow.u.cpu()), rel_diff(torch, d.p, ref.flow.p.cpu())
+            print(f"phase10a f64 {engine} {shape} step {k}: max|du|/max|u|={du:.3e}, "
+                  f"max|dp|/max|p|={dp:.3e}, pois_n {d.pois_n[-2:]} vs "
+                  f"{ref.pois_n[-2:]}", flush=True)
+        if not (du <= 1e-10 and dp <= 1e-10 and d.pois_n == ref.pois_n):
+            failures.append(f"(a) float64 {engine} on {shape} differs from one device")
+        if any(st.launch_counts().values()):
+            failures.append(f"(a) float64 {engine} launched a kernel")
+        d.close()
+        del ref, d
+    # (b) the kernels on every shard against their plain versions
+    base = dist_sphere(torch, wt, DIST_SMALL, dev, torch.float32, "flat")
+    k_run = wt.DistSimulation(copy.deepcopy(base), one_card((4,)), engine="flat")
+    p_run = wt.DistSimulation(base, one_card((4,)), engine="flat")
+    st.reset_launch_counts()
+    for step in range(1, DIST_STEPS + 1):
+        k_run.step_once(remeasure=False)
+        counts = st.launch_counts()
+        with st.plain_ops():
+            p_run.step_once(remeasure=False)
+        if st.launch_counts() != counts:
+            failures.append("(b) the plain_ops() run launched a kernel")
+        du = rel_diff(torch, k_run.u, p_run.u)
+        dp = rel_diff(torch, k_run.p, p_run.p)
+        print(f"phase10b f32 flat (4,) {DIST_SMALL}^3 step {step}, kernels vs "
+              f"plain_ops(): max|du|/max|u|={du:.3e}, max|dp|/max|p|={dp:.3e}, "
+              f"pois_n {k_run.pois_n[-2:]} vs {p_run.pois_n[-2:]}", flush=True)
+    print(f"phase10b launch counts {st.launch_counts()}", flush=True)
+    if not (du <= 1e-4 and dp <= 1e-3 and all(
+            abs(a - b) <= 1 for a, b in zip(k_run.pois_n, p_run.pois_n))):
+        failures.append("(b) the flat dist kernels differ from plain_ops() beyond "
+                        "the phase-5 limits")
+    if not all(st.launch_counts()[n] > 0 for n in PATH_KERNELS[("sphere-dist", "flat")]):
+        failures.append("(b) a kernel of the flat dist path did not launch")
+    k_run.close()
+    p_run.close()
+    del base, k_run, p_run
+    # (c) full width, four shards on one card, beside one device
+    runs = {}
+    for engine, shape in DIST_MESHES.items():
+        tag = f"phase10c sphere-dist {FINE}^3 [{engine}] on {shape}"
+        sim = sphere_sim(torch, wt, FINE, dev, engine=engine)
+        dsim = copy.deepcopy(sim)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        one_ms = step_events(torch, lambda: sim.sim_step(remeasure=False), STEPS)
+        one_peak = torch.cuda.max_memory_allocated()
+        u1, pois1 = sim.flow.u.cpu(), list(sim.pois_n)
+        del sim
+        r = dist_run(torch, wt, st, fz, dsim, one_card(shape), engine, STEPS)
+        d = r.pop("d")
+        ms, one = statistics.mean(r["ms"][2:]), statistics.mean(one_ms[2:])
+        print(f"{tag} ms/step (steps 3-{STEPS}, mean) {ms:.3f} against one device "
+              f"{one:.3f} ({ms / one:.2f}x); per step {[round(t, 3) for t in r['ms']]}",
+              flush=True)
+        print(f"{tag} max_memory_allocated {r['peak'] / 2**30:.3f} GiB against one "
+              f"device {one_peak / 2**30:.3f} GiB", flush=True)
+        ncoll = sum(r["comm"].values())
+        print(f"{tag} collectives per step {ncoll / STEPS:.1f} ({r['comm']} in "
+              f"{STEPS} steps), halo bytes per step {r['halo'] / STEPS:.0f} "
+              f"({r['halo'] / STEPS / 2**20:.2f} MiB)", flush=True)
+        per_step = {k: n / STEPS for k, n in r["counts"].items() if n}
+        print(f"{tag} launches per step {per_step}; K6 {r['tally'].get('K6', 0) / STEPS:.1f}, "
+              f"K7 {r['tally'].get('K7', 0) / STEPS:.1f}", flush=True)
+        du = rel_diff(torch, d.u, u1)
+        print(f"{tag} pois_n {d.pois_n} against one device {pois1}; u after step "
+              f"{STEPS}: max|du|/max|u|={du:.3e}", flush=True)
+        for k, n in r["counts"].items():
+            if k in PATH_KERNELS[("sphere-dist", engine)]:
+                if n == 0:
+                    failures.append(f"(c) {engine}: kernel {k} was not launched")
+            elif n:
+                failures.append(f"(c) {engine}: kernel {k} of another path was launched")
+        if engine == "flat" and (r["tally"].get("K7", 0) or not r["tally"].get("K6", 0)
+                                 or any(r["counts"][k] for k in DIST_ABSENT)):
+            failures.append("(c) flat: K1, K7, K8 or K9 ran, or K6 did not")
+        if not (du <= 1e-3 and len(d.pois_n) == len(pois1) and all(
+                abs(a - b) <= 1 for a, b in zip(d.pois_n, pois1))):
+            failures.append(f"(c) {engine}: u or the iterations differ from one device")
+        d.close()
+        del d, dsim, u1
+        runs[("sphere-dist", engine)] = dict(counts=r["counts"], ms_step=ms,
+                                             one_ms_step=one, peak=r["peak"],
+                                             collectives=ncoll / STEPS,
+                                             halo=r["halo"] / STEPS)
+    # (d) distinct cards
+    if ndev >= 2:
+        n = 4 if ndev >= 4 else 2
+        mesh = wt.make_mesh((n,), [torch.device("cuda", i) for i in range(n)])
+        r = dist_run(torch, wt, st, fz, sphere_sim(torch, wt, FINE, dev, engine="flat"),
+                     mesh, "flat", STEPS)
+        print(f"phase10d sphere-dist {FINE}^3 [flat] on {n} cards: ms/step "
+              f"{statistics.mean(r['ms'][2:]):.3f}, launches {r['counts']}", flush=True)
+        r.pop("d").close()
+    else:
+        print("phase10d skipped: the flat case on distinct cards needs at least 2 "
+              f"cards, this machine has {ndev}", flush=True)
+    check(not failures, f"phase10: {'; '.join(failures)}")
+    return runs
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -1901,8 +2113,10 @@ def main() -> int:
     del pcg["sim"]
     ad = phase_ad(torch, wt, st, dev)
     runs.update(ad)
+    dist = phase_dist(torch, wt, st, dev)
+    runs.update(dist)
     check(set(runs) | {("launch", "tool")} == set(PATH_KERNELS),
-          "phase6-9: a path was not run")
+          "phase6-10: a path was not run")
     launches = {k: sum(r["counts"][k] for r in runs.values()) for k in KERNELS}
     check(all(n > 0 for n in launches.values()),
           f"a kernel was launched by no path: {launches}")
@@ -1916,7 +2130,8 @@ def main() -> int:
                 "mul_host_us": host[HOST_ROW[k]]["mul_host_us"],
                 "tool_launches": cost["counts"][k],
                 "pcg_launches": pcg["counts"][k],
-                "ad_launches": sum(r["counts"][k] for r in ad.values())}
+                "ad_launches": sum(r["counts"][k] for r in ad.values()),
+                "dist_launches": sum(r["counts"][k] for r in dist.values())}
                for k, (_, src, rep, _, _) in KERNELS.items()]
     check(set(st.launch_counts()) == set(KERNELS),
           "the kernels table and the launch counts name different kernels")

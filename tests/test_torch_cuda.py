@@ -1022,3 +1022,88 @@ def test_step_jvp_runs_on_the_kernels(dev):
     assert list(flog) == list(jlog)
     for a, b in zip(jac, got[1]):
         assert rel_err(a, b) <= 1e-6
+
+
+# ---------------------------------------------------------- domain decomposition
+def dist_sphere(n, dev):
+    """`chip_smoke.sphere_sim` at n³ in float32 on the flat engine."""
+    radius = n // 8
+    ctr = torch.tensor([n / 3, n / 2, n / 2], dtype=torch.float32, device=dev)
+    body = wt.AutoBody(lambda x, t: torch.sqrt(torch.sum((x - ctr) ** 2)) - radius)
+    return wt.Simulation((n, n, n), (1.0, 0.0, 0.0), radius, nu=radius / 1e3,
+                         body=body, dtype=torch.float32, device=dev, engine="flat")
+
+
+class _IncrGsTally:
+    """Count K6 (``incr_gs_k`` with no colours) and K7 calls apart, from
+    every shard (one runs at a time)."""
+
+    def __init__(self):
+        import collections
+        self.counts = collections.Counter()
+
+    def __enter__(self):
+        self._launch = fz._incr_gs_launch
+
+        def tallied(x, r, eps, L, D, iD, colors, omega, want_norms=False, mp=False,
+                    route=None):
+            self.counts["K7" if len(colors) else "K6"] += 1
+            return self._launch(x, r, eps, L, D, iD, colors, omega, want_norms, mp,
+                                route)
+        fz._incr_gs_launch = tallied
+        return self.counts
+
+    def __exit__(self, *exc):
+        fz._incr_gs_launch = self._launch
+
+
+@pytest.mark.parametrize("n", [32, 64], ids=["34^3", "66^3"])
+def test_dist_flat_step_kernels_vs_plain(dev, n):
+    """A step of the x-decomposed flat engine on two shards of the card:
+    the kernels (K14, K11, K16, K6 on every shard) against the same step
+    under `plain_ops()`, to the phase-5 limits of `chip_smoke.py`; K14 and
+    K11 launch once per half step and shard, K1, K7, K8, K9, K12 and K15
+    never, and the plain step launches nothing."""
+    import copy
+
+    base = dist_sphere(n, dev)
+    mesh = wt.make_mesh((2,), [dev] * 2)
+    k = wt.DistSimulation(copy.deepcopy(base), mesh, engine="flat", timeout=60)
+    p = wt.DistSimulation(base, mesh, engine="flat", timeout=60)
+    st.reset_launch_counts()
+    with _IncrGsTally() as tally:
+        k.step_once(remeasure=False)
+    counts = st.launch_counts()
+    with st.plain_ops():
+        p.step_once(remeasure=False)
+    assert st.launch_counts() == counts
+    assert counts["bdim_k"] == 4 and counts["div_k"] == 4
+    assert counts["mult_k"] > 0 and tally["K6"] == counts["incr_gs_k"] > 0
+    assert tally["K7"] == 0
+    for name in ("conv_diff_bdim_k", "bc_div_k", "projbc_k", "conv_diff_k", "gs_incr_k",
+                 "bdim_band_k", "bc_k", "gauss_sweeps_k"):
+        assert counts[name] == 0, name
+    assert rel_err(torch.as_tensor(k.u), torch.as_tensor(p.u)) <= 1e-4
+    assert rel_err(torch.as_tensor(k.p), torch.as_tensor(p.p)) <= 1e-3
+    assert all(abs(a - b) <= 1 for a, b in zip(k.pois_n, p.pois_n))
+    k.close()
+    p.close()
+
+
+def test_dist_shards_on_their_own_streams(dev):
+    """Two shards each on a stream of its own exchange through events: two
+    steps equal the same steps on the current stream bit for bit."""
+    import copy
+
+    base = dist_sphere(32, dev)
+    mesh = wt.make_mesh((2,), [dev] * 2)
+    a = wt.DistSimulation(copy.deepcopy(base), mesh, engine="flat", timeout=60)
+    b = wt.DistSimulation(base, mesh, engine="flat", timeout=60,
+                          streams=[torch.cuda.Stream(dev), torch.cuda.Stream(dev)])
+    for _ in range(2):
+        a.step_once(remeasure=False)
+        b.step_once(remeasure=False)
+    assert np.array_equal(a.u, b.u) and np.array_equal(a.p, b.p)
+    assert a.pois_n == b.pois_n and a.sim.flow.dt == b.sim.flow.dt
+    a.close()
+    b.close()

@@ -16,8 +16,10 @@ sphere at 128³, each step re-measured: ``sim_step(remeasure=True)``),
 engine only: 2-D) and ``ad`` (the 256³ sphere, 3d engine only: one
 `mom_step_impl` from the settled state, dt and t as 0-d tensors, profiled
 as it is and under `torch.func.jvp` in ν, so the primal and the
-forward-mode step read apart); the default runs the first three on both
-engines.  Each is built with
+forward-mode step read apart) and ``dist`` (the 256³ sphere decomposed over
+four shards of the card, `DistSimulation`: (4,) on the flat engine, (2, 2)
+on the 3d engine; the note gives the collectives and halo bytes a step);
+the default runs the first three on both engines.  Each is built with
 ``Simulation`` as ``chip_smoke.py`` builds it, stepped ``WARM`` times, then
 ``STEPS`` steps run unprofiled (host clock around each ``sim_step`` up to a
 ``synchronize``) and ``STEPS`` more under ``torch.profiler``.  Printed per
@@ -87,9 +89,34 @@ def walls_ms(torch, fn) -> list[float]:
     return walls
 
 
+# the mesh of the ``dist`` case on each engine: four shards of the card
+DIST_MESHES = {"flat": (4,), "3d": (2, 2)}
+
+
 def stepper(sim, udf, case: str):
     """One step of a case: re-measured for ``moving``."""
     return lambda: sim.sim_step(remeasure=case == "moving", udf=udf)
+
+
+def dist_case(torch, wt, sim, engine: str, dev):
+    """The ``dist`` case: ``sim`` decomposed over `DIST_MESHES` on the card,
+    its step and a note of the collectives and halo bytes a step since the
+    last note."""
+    shape = DIST_MESHES[engine]
+    d = wt.DistSimulation(sim, wt.make_mesh(shape, [dev] * 4),
+                          engine=engine)
+
+    def note():
+        c = d.comm
+        steps = max(1, len(d.pois_n) // 2 - note.done)
+        out = (f"mesh {shape}, collectives a step {sum(c.counts.values()) / steps:.1f} "
+               f"{c.counts}, halo MiB a step {c.halo_bytes / steps / 2**20:.2f}, "
+               f"pois_n {d.pois_n[-2 * STEPS:]}")
+        note.done = len(d.pois_n) // 2
+        c.reset_counts()
+        return out
+    note.done = 0
+    return d, (lambda: d.step_once(remeasure=False)), note
 
 
 def ad_steps(torch, sim, fl=None):
@@ -199,12 +226,21 @@ def main(argv) -> int:
         return 0
     for cfg in configs:
         engine, case = cfg.split(":")
-        sim, udf = cs.make_sim(torch, wt, "sphere" if case == "ad" else case,
+        sim, udf = cs.make_sim(torch, wt, "sphere" if case in ("ad", "dist") else case,
                                size(case), dev, engine=engine)
         step = stepper(sim, udf, case)
+        if case == "dist":
+            sim, step, dist_note = dist_case(torch, wt, sim, engine, dev)
         for _ in range(WARM):
             step()
         torch.cuda.synchronize()
+        if case == "dist":
+            dist_note()
+            profiled(torch, cfg, step, dist_note)
+            sim.close()
+            del sim
+            torch.cuda.empty_cache()
+            continue
         if case == "ad":
             primal, jvp = ad_steps(torch, sim)
             profiled(torch, f"{cfg} primal step", primal, lambda: "one mom_step_impl")

@@ -9,9 +9,11 @@ callable initial or boundary velocity, a body force, the ``udf`` forcing
 hook (`utils.les` is the Smagorinsky LES) and mixed-precision smoothing,
 stepped by the generic engine (`models.flow`, ``engine="3d"``) or the fused
 flat engine (`models.flowflat`, ``engine="flat"``, what ``"auto"`` picks on
-CUDA in 3-D).  `utils` holds the metrics (forces, moments, vorticity, λ₂,
-running means), sampling, solver logs, npz and VTK checkpoints, tracer
-particles, isosurfaces and plots.  The hot 3-D stencils run as
+CUDA in 3-D), on one device or decomposed over a mesh of shards
+(`parallel.DistSimulation`, one worker thread a shard and ring halo
+exchanges; four shards may share one card).  `utils` holds the metrics
+(forces, moments, vorticity, λ₂, running means), sampling, solver logs,
+npz and VTK checkpoints, tracer particles, isosurfaces and plots.  The hot 3-D stencils run as
 hand-written CUDA kernels on the card (`ops.stencil3d`, `ops.fused3d`;
 `ops.probe` holds the bandwidth probes); the JAX package stays the
 reference every part is tested against.  Entry points run on the card
@@ -22,9 +24,10 @@ from .models import (AutoBody, Body, Flow, FlowCfg, FlowState,  # noqa: F401
                      NoBody, RigidMap, SetBody, cds, curvature, flowflat,
                      measure_fill, measure_sdf, quick, rotation, setmap,
                      vanleer)
-from .ops import (bc, fused3d, grid, mgflat, multigrid, poisson,  # noqa: F401
-                  probe, stencil3d)
+from .ops import (bc, dist, fused3d, grid, mgflat, multigrid,  # noqa: F401
+                  poisson, probe, stencil3d)
 from .ops.stencil3d import launch_counts, plain_ops, use_kernels  # noqa: F401
+from .parallel import DistSimulation, make_mesh  # noqa: F401
 from .simulation import Simulation, pcg_solve_fn  # noqa: F401
 from .utils import interp, io, les, log, mesh, metrics, pathlines, viz  # noqa: F401
 

@@ -18,7 +18,7 @@ from .utils.metrics import MeanFlow
 from .utils.pathlines import Particles
 
 __all__ = ["flow_state_from_numpy", "levels_from_numpy", "rigidmap_from_numpy",
-           "meanflow_from_numpy", "particles_from_numpy"]
+           "meanflow_from_numpy", "particles_from_numpy", "fields_from_blocked"]
 
 _FIELDS = ("u", "u0", "p", "V", "mu0", "mu1", "nu")
 
@@ -91,3 +91,25 @@ def particles_from_numpy(arrays: Mapping[str, np.ndarray], device,
                                          device=device),
                      generator=torch.Generator(device=device).manual_seed(seed),
                      life=life)
+
+
+# the tensor axes that lead the spatial ones, per field
+_LEADS = {"u": 1, "u0": 1, "p": 0, "V": 1, "mu0": 1, "mu1": 2}
+
+
+def fields_from_blocked(arrays: Mapping[str, np.ndarray], sizes: Sequence[int],
+                        device, dtype: torch.dtype) -> dict:
+    """Dense single-device tensors from a distributed run's fields in the
+    blocked layout (``np.asarray`` of the JAX `DistSimulation`'s
+    ``state.u``, ``state.p``, ...: the shards' padded blocks side by side),
+    through `parallel.dist.from_blocked` with the mesh extent per spatial
+    dim ``sizes``.  The keys name the fields (`FlowState`'s: ``u``, ``u0``,
+    ``p``, ``V``, ``mu0``, ``mu1``); the dense ``u`` and ``p`` restart a
+    port run through `DistSimulation.restore_fields`."""
+    from .parallel.dist import from_blocked
+
+    unknown = set(arrays) - set(_LEADS)
+    if unknown:
+        raise KeyError(f"fields_from_blocked: unknown fields {sorted(unknown)}")
+    return {k: _tensor(from_blocked(np.asarray(a), tuple(sizes), _LEADS[k]), device, dtype)
+            for k, a in arrays.items()}

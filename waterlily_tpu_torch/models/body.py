@@ -129,12 +129,13 @@ def _measure_points(body: Body, pts: torch.Tensor, t, fastd2: float):
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
-def _interior_points(i, shape, dtype, device, sl=None) -> torch.Tensor:
+def _interior_points(i, shape, dtype, device, sl=None, offset=None) -> torch.Tensor:
     """The points of component ``i`` (None: cell centres) on the interior,
-    or on the padded-index slices ``sl`` of it, one row each."""
+    or on the padded-index slices ``sl`` of it, one row each; ``offset``
+    maps a shard's local indices to global coordinates."""
     D = len(shape)
     sl = (slice(1, -1),) * D if sl is None else sl
-    coords = loc_grid(i, shape, dtype, device)[(slice(None),) + tuple(sl)]
+    coords = loc_grid(i, shape, dtype, device, offset)[(slice(None),) + tuple(sl)]
     return coords.reshape(D, -1).T
 
 
@@ -168,7 +169,7 @@ def measure_sdf(body: Body, shape: tuple[int, ...], t=0.0,
 def measure_fill(body: Body, shape: tuple[int, ...], t=0.0, eps_k: float = 1.0,
                  dtype=torch.float32, device="cuda",
                  perdir: tuple[int, ...] = (), exit_bc: bool = False,
-                 band_box=None):
+                 band_box=None, ctx=None):
     """Fill the BDIM arrays ``(V, mu0, mu1, sdf)`` from the body geometry
     (`measure!`, `Body.jl:28-51`).
 
@@ -187,23 +188,31 @@ def measure_fill(body: Body, shape: tuple[int, ...], t=0.0, eps_k: float = 1.0,
     `measure_fill(band_box=)` does (`body.py:168-325`).  The result equals
     the dense measure when the box covers every cell whose moments deviate
     from the far field; `Simulation.measure` widens the box until it
-    does."""
+    does.
+
+    Under domain decomposition (``ctx``) ``shape`` is the shard's local
+    padded shape: the body is measured at global coordinates, the BCs of μ0
+    and V take ring halos between shards, and the box is not used (as in
+    the JAX package, `body.py:218`)."""
+    from ..ops.dist import offsets
+
     D = len(shape)
     inner = tuple(n - 2 for n in shape)
     band2 = float((2.0 + eps_k) ** 2)
     t = torch.as_tensor(t, dtype=dtype, device=device)
-    box = _box_slices(shape, band_box)
+    off = None if ctx is None else offsets(ctx, shape)
+    box = None if ctx is not None else _box_slices(shape, band_box)
     sl = tuple(slice(1, n - 1) for n in shape) if box is None else box
     inner_b = tuple(s.stop - s.start for s in sl)
     paste = None if box is None else tuple(slice(s.start - 1, s.stop - 1)
                                            for s in box)
-    sig = _measure_points(body, _interior_points(None, shape, dtype, device, sl),
+    sig = _measure_points(body, _interior_points(None, shape, dtype, device, sl, off),
                           t, band2)[0].reshape(inner_b).to(dtype)
     in_band = sig**2 < band2
     mu0_c, mu1_c, V_c = [], [], []
     for i in range(D):
-        d, n, v = _measure_points(body, _interior_points(i, shape, dtype, device, sl),
-                                  t, band2)
+        d, n, v = _measure_points(body, _interior_points(i, shape, dtype, device, sl,
+                                                         off), t, band2)
         d = d.reshape(inner_b)
         n = n.T.reshape((D,) + inner_b)
         v = v.T.reshape((D,) + inner_b)
@@ -221,10 +230,10 @@ def measure_fill(body: Body, shape: tuple[int, ...], t=0.0, eps_k: float = 1.0,
         mu1_c.append(torch.stack([grow(m1[j]) for j in range(D)]))
         V_c.append(grow(vv))
     zeros = (0.0,) * D
-    mu0 = bc_vector(torch.stack(mu0_c).to(dtype), zeros, perdir=perdir)
+    mu0 = bc_vector(torch.stack(mu0_c).to(dtype), zeros, perdir=perdir, ctx=ctx)
     mu1 = torch.stack(mu1_c).to(dtype)
     V = bc_vector(torch.stack(V_c).to(dtype), zeros, save_exit=exit_bc,
-                  perdir=perdir)
+                  perdir=perdir, ctx=ctx)
     if paste is not None:   # far field: a positive out-of-band distance
         sig = _paste(torch.full(inner, band2**0.5 + 1.0, dtype=dtype, device=device),
                      paste, sig)

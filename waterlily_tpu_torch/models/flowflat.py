@@ -31,6 +31,18 @@ conditions (`_kernel_bc_ok`, ``plain`` in `_half_step`, `fuse_tail`):
   `bc_vector` and the CFL the plain `cfl_max`; with ``perdir`` the solve is
   `mgflat`'s periodic branch (K6, K13, no fused tail).
 
+Distributed over x (``ctx``, ``n_dist``: the per-shard step of
+`parallel.dist.DistSimulation`'s flat engine, `flowflat.py:71-345` of the
+JAX package under ``ctx``): no K1, K2, K8, K9 or K10 and no body band.  The
+conv–diff is the plain ring variant (`flow.conv_diff` with ``ctx``) with
+the flat ghost rule, `accelerate` takes global coordinates, ``f``'s x
+ghosts are ring-refreshed (edge ghosts kept) and K14 runs on the whole
+shard; `BC!` is the plain ring `bc_vector` (and the predictor's
+distributed `exitBC!`), the divergence K11, the solve `mgflat`'s
+distributed branch (K6, K16), the correction the plain `proj_correct` with
+the ring `bc_vector`, and the CFL a maximum over the shards.  The kernels
+read the ghost planes as given: the periodic x wrap is the ring's.
+
 Supported: D = 3 with what `models/flow.py` supports.
 """
 from __future__ import annotations
@@ -43,6 +55,7 @@ import torch
 from ..ops import fused3d as fz
 from ..ops import stencil3d as st
 from ..ops.bc import bc_vector, exit_bc
+from ..ops.dist import pmax_all, sync_scalar
 from ..ops.grid import zero_ghost
 from ..ops.mgflat import solve_mg_flat
 from .flow import (FlowCfg, FlowState, accelerate, bdim_update, conv_diff,
@@ -59,10 +72,10 @@ def flat_supported(cfg: FlowCfg) -> bool:
     return cfg.D == 3
 
 
-def _kernel_bc_ok(cfg: FlowCfg) -> bool:
+def _kernel_bc_ok(cfg: FlowCfg, ctx=None) -> bool:
     """The fused BC kernels (K8, K9, K10) cover a constant ``ubc`` with no
-    periodic direction (`flowflat.py:178-183`)."""
-    return not cfg.perdir and not callable(cfg.ubc)
+    periodic direction, on one device (`flowflat.py:178-183`)."""
+    return not cfg.perdir and not callable(cfg.ubc) and ctx is None
 
 
 def conv_diff_bdim(u, u0, nu, dt: float, keep_base: float, scale: float,
@@ -87,24 +100,30 @@ def bdim_band(u, u0, f, V, mu0, mu1, dt, band, perdir=()) -> torch.Tensor:
 
 
 def _half_step(u_adv, state: FlowState, cfg: FlowCfg, dt: float, f_t: float,
-               keep_base: float, scale: float, udf=None):
+               keep_base: float, scale: float, udf=None, ctx=None):
     """One momentum phase (`mom_predict!`/`mom_correct!`,
     `Flow.jl:190-210`): conv–diff → udf → accelerate (at time ``f_t``) →
     BDIM → interior scale.  Both phases advect the field they update
     (``u_adv`` is also the base field)."""
     u0 = state.u0
     plain = (udf is None and cfg.g is None and not callable(cfg.ubc)
-             and not cfg.perdir)
+             and not cfg.perdir and ctx is None)
     if not plain:
         # the flat engine's RHS is zero on ghosts (`conv_diff_flat`); the
         # udf and `accelerate` may write there, the BDIM does not update
         # ghosts
-        f = zero_ghost(conv_diff(u_adv, cfg.scheme, state.nu, cfg.perdir), 3)
+        f = zero_ghost(conv_diff(u_adv, cfg.scheme, state.nu, cfg.perdir, ctx), 3)
         u = u_adv if keep_base else scale_interior(u_adv, 0.0)
         if udf is not None:
             f = udf(f, dataclasses.replace(state, u=u), u_adv, f_t)
-        f = accelerate(f, f_t, cfg.g, cfg.ubc, cfg.dtype)
-        if cfg.band_x is not None:
+        f = accelerate(f, f_t, cfg.g, cfg.ubc, cfg.dtype, ctx)
+        if ctx is not None:
+            # K14 on the whole shard reads f's x ghosts: the ring's (the
+            # edge ghosts keep their own values)
+            f = sync_scalar(f, ctx, perdir=(0,) if 0 in cfg.perdir else (),
+                            lead=1, edge_zero=False)
+            u = bdim_update(u, u0, f, state.V, state.mu0, state.mu1, dt)
+        elif cfg.band_x is not None:
             u = bdim_band(u, u0, f, state.V, state.mu0, state.mu1, dt,
                           cfg.band_x, cfg.perdir)
         else:
@@ -136,40 +155,42 @@ def _half_step(u_adv, state: FlowState, cfg: FlowCfg, dt: float, f_t: float,
     return u if scale == 1.0 else scale_interior(u, scale)
 
 
-def _bc_div(u, u0, dt: float, t1: float, cfg: FlowCfg, predictor: bool):
+def _bc_div(u, u0, dt: float, t1: float, cfg: FlowCfg, predictor: bool,
+            ctx=None):
     """`BC!` at time ``t1`` and the projection RHS: one K8 pass, or with the
-    exit, periodic directions or a callable ``ubc`` `BC!` (K10, or the plain
-    `bc_vector`), the predictor's `exitBC!`, then K11
+    exit, periodic directions, a callable ``ubc`` or ``ctx`` `BC!` (K10, or
+    the plain `bc_vector`), the predictor's `exitBC!`, then K11
     (`flowflat.py:316-330`).  Returns ``(u, z)``."""
     kern = st.use_kernels(u[0])
-    if _kernel_bc_ok(cfg) and not cfg.exit_bc:
+    if _kernel_bc_ok(cfg, ctx) and not cfg.exit_bc:
         return fz.bc_div_k(u, cfg.ubc) if kern else fz.bc_div_plain(u, cfg.ubc)
-    if not _kernel_bc_ok(cfg):
-        u = bc_vector(u, cfg.ubc, t1, save_exit=cfg.exit_bc, perdir=cfg.perdir)
+    if not _kernel_bc_ok(cfg, ctx):
+        u = bc_vector(u, cfg.ubc, t1, save_exit=cfg.exit_bc, perdir=cfg.perdir,
+                      ctx=ctx)
     else:
         u = (fz.bc_k if kern else fz.bc_plain)(u, cfg.ubc, save_exit=True)
     if cfg.exit_bc and predictor:
-        u = exit_bc(u, u0, dt)
+        u = exit_bc(u, u0, dt, ctx)
     return u, (fz.div_k(u) if kern else fz.div_plain(u))
 
 
 def _project_flat(u, p, z, levels, masks, dt_w: float, t1: float,
-                  cfg: FlowCfg, want_cfl: bool = False):
+                  cfg: FlowCfg, want_cfl: bool = False, ctx=None, n_dist: int = 0):
     """`mom_project!` (`Flow.jl:223-232`) with the divergence ``z`` from
     `_bc_div`: the `solve_mg_flat` solve warm-started from ``p·dt_w``, then
     the correction + `BC!` (K9, with the CFL max when ``want_cfl``; plain
-    ops at time ``t1`` with ``perdir`` or a callable ``ubc``).  Returns
-    ``(u, p, iters, stats, smax)``."""
+    ops at time ``t1`` with ``perdir``, a callable ``ubc`` or ``ctx``, the
+    CFL max over the shards).  Returns ``(u, p, iters, stats, smax)``."""
     res = solve_mg_flat(levels, masks, p * dt_w, z, tol=cfg.tol,
                         itmx=cfg.itmx, smooth_it=cfg.smooth_it,
                         fine_smooth_it=cfg.fine_smooth_it,
                         fine_presmooth=cfg.fine_presmooth, perdir=cfg.perdir,
-                        mp=cfg.mp_smooth)
+                        mp=cfg.mp_smooth, ctx=ctx, n_dist=n_dist)
     L = levels[0].L
-    if not _kernel_bc_ok(cfg):
+    if not _kernel_bc_ok(cfg, ctx):
         u = bc_vector(fz.proj_correct(u, res.x, L), cfg.ubc, t1,
-                      save_exit=cfg.exit_bc, perdir=cfg.perdir)
-        out = (u, fz.cfl_max(u)) if want_cfl else u
+                      save_exit=cfg.exit_bc, perdir=cfg.perdir, ctx=ctx)
+        out = (u, pmax_all(fz.cfl_max(u), ctx)) if want_cfl else u
     elif st.use_kernels(u[0]):
         out = fz.projbc_k(u, res.x, L, cfg.ubc, want_cfl, cfg.exit_bc)
     else:
@@ -179,21 +200,28 @@ def _project_flat(u, p, z, levels, masks, dt_w: float, t1: float,
 
 
 def mom_step_flat_impl(cfg: FlowCfg, state: FlowState, levels, masks,
-                       dt: float, t0: float = 0.0, udf=None):
+                       dt: float, t0: float = 0.0, udf=None, ctx=None,
+                       n_dist: int = 0):
     """One time step (`mom_step!`, `Flow.jl:156-167`) on the flat engine's
     fused passes; same contract as `flow.mom_step_impl`: ``dt`` and ``t0``
     host floats rounded to ``cfg.dtype``, ``udf`` the forcing hook, returns
-    ``(state', dt_next (0-d tensor), [iters1, iters2], [stats1, stats2])``."""
+    ``(state', dt_next (0-d tensor), [iters1, iters2], [stats1, stats2])``.
+    ``ctx``/``n_dist``: the step of one shard of a flow decomposed over x
+    (no ``udf``: ROADMAP [dist-2])."""
+    if ctx is not None and udf is not None:
+        raise NotImplementedError("the distributed flat engine takes no udf "
+                                  "([dist-2])")
     t1 = t0 + dt
     state = dataclasses.replace(state, u0=state.u)
     # predictor (`Flow.jl:157-161`)
-    u = _half_step(state.u0, state, cfg, dt, t0, 0.0, 1.0, udf)
-    u, z = _bc_div(u, state.u0, dt, t1, cfg, predictor=True)
-    u, p, n1, s1, _ = _project_flat(u, state.p, z, levels, masks, dt, t1, cfg)
+    u = _half_step(state.u0, state, cfg, dt, t0, 0.0, 1.0, udf, ctx)
+    u, z = _bc_div(u, state.u0, dt, t1, cfg, True, ctx)
+    u, p, n1, s1, _ = _project_flat(u, state.p, z, levels, masks, dt, t1, cfg,
+                                    ctx=ctx, n_dist=n_dist)
     # corrector (`Flow.jl:163-165`)
-    u = _half_step(u, state, cfg, dt, t1, 1.0, 0.5, udf)
-    u, z = _bc_div(u, state.u0, dt, t1, cfg, predictor=False)
+    u = _half_step(u, state, cfg, dt, t1, 1.0, 0.5, udf, ctx)
+    u, z = _bc_div(u, state.u0, dt, t1, cfg, False, ctx)
     u, p, n2, s2, smax = _project_flat(u, p, z, levels, masks, 0.5 * dt, t1,
-                                       cfg, want_cfl=True)
+                                       cfg, want_cfl=True, ctx=ctx, n_dist=n_dist)
     dt_next = torch.clamp(1.0 / (smax + 5 * state.nu), max=10.0)
     return dataclasses.replace(state, u=u, p=p), dt_next, [n1, n2], [s1, s2]

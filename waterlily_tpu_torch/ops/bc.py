@@ -35,17 +35,18 @@ def eval_points(f, pts: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def bc_field(ubc, i: int, shape: tuple[int, ...], j: int, idx: int, t, dtype,
-             device) -> torch.Tensor | float:
+             device, offset=None) -> torch.Tensor | float:
     """Boundary value of component ``i`` on the slab ``idx`` of direction
     ``j`` (`bc_field`, the JAX package evaluates the whole face grid and
     slices; here only the slab's face points are evaluated).  A constant
     tuple gives its float; a callable gives a tensor of the slab's shape
-    (extent 1 along ``j``) at time ``t``."""
+    (extent 1 along ``j``) at time ``t``.  ``offset`` maps a shard's local
+    indices to global coordinates (`dist.offsets`)."""
     if not callable(ubc):
         return float(ubc[i])
     idx %= shape[j]
     sshape = shape[:j] + (1,) + shape[j + 1:]
-    coords = loc_grid(i, sshape, dtype, device)
+    coords = loc_grid(i, sshape, dtype, device, offset)
     coords[j] += idx                      # loc_grid counted the slab from 0
     t = torch.as_tensor(t, dtype=dtype, device=device)
     pts = coords.reshape(len(shape), -1).T
@@ -53,7 +54,7 @@ def bc_field(ubc, i: int, shape: tuple[int, ...], j: int, idx: int, t, dtype,
 
 
 def bc_vector(u: torch.Tensor, ubc, t=0.0, save_exit: bool = False,
-              perdir: tuple[int, ...] = ()) -> torch.Tensor:
+              perdir: tuple[int, ...] = (), ctx=None) -> torch.Tensor:
     """Apply domain BCs to a vector field ``u`` of shape ``(D, *Ng)``
     (`src/core.jl:199-224`).
 
@@ -61,34 +62,61 @@ def bc_vector(u: torch.Tensor, ubc, t=0.0, save_exit: bool = False,
     ``u_g = U_g + (u − U)|neighbour`` for the tangential components (a copy
     of the neighbour for a constant spec, where ``U_g − U`` cancels),
     periodic wrap for the directions in ``perdir``; ``save_exit`` keeps the
-    ``i=0`` exit plane.  The (i, j) loop order and slab update order match
+    ``i=0`` exit plane.  The slab update order of each component matches
     the JAX `bc_vector`, so corner ghosts agree bitwise.  ``t`` matters for
-    a callable spec only."""
+    a callable spec only.
+
+    Under domain decomposition (``ctx``) each sharded direction first
+    fetches the ring halos of every component in one exchange (they are the
+    periodic BC when the ring wraps), and the physical Dirichlet/Neumann
+    writes apply only on the shards owning that boundary."""
+    from .dist import edge_hi, edge_lo, offsets, ring_pair, sharded
+
     D, shape = u.shape[0], tuple(u.shape[1:])
     u = u.clone()
+    off = None if ctx is None else offsets(ctx, shape)
 
     def U(i, j, idx):
-        return bc_field(ubc, i, shape, j, idx, t, u.dtype, u.device)
+        return bc_field(ubc, i, shape, j, idx, t, u.dtype, u.device, off)
 
-    for i in range(D):
-        ui = u[i]
-        for j in range(D):
-            n = shape[j]
+    for j in range(D):
+        n = shape[j]
+        ring = sharded(ctx, j)
+        if ring:
+            # every component's halos, after its updates in the dims before j
+            lo_h, hi_h = ring_pair(ctx, u, 1 + j, j, n - 2, 1)
+        lo_r = ring and not edge_lo(ctx, j)
+        hi_r = ring and not edge_hi(ctx, j)
+        for i in range(D):
+            ui = u[i]
             if j in perdir:
-                slab(ui, j, 0).copy_(slab(ui, j, n - 2))
-                slab(ui, j, n - 1).copy_(slab(ui, j, 1))
+                slab(ui, j, 0).copy_(lo_h[i] if ring else slab(ui, j, n - 2))
+                slab(ui, j, n - 1).copy_(hi_h[i] if ring else slab(ui, j, 1))
             elif i == j:  # normal component: Dirichlet
-                _set(slab(ui, j, 0), U(i, j, 0))
-                if not (save_exit and i == 0):
+                if lo_r:
+                    slab(ui, j, 0).copy_(lo_h[i])
+                else:
+                    _set(slab(ui, j, 0), U(i, j, 0))
+                if hi_r:
+                    slab(ui, j, n - 1).copy_(hi_h[i])
+                elif not (save_exit and i == 0):
                     _set(slab(ui, j, n - 1), U(i, j, n - 1))
-                _set(slab(ui, j, 1), U(i, j, 1))
-            elif callable(ubc):  # tangential: u_g = U_g + (u - U)|neighbour
-                slab(ui, j, 0).copy_(U(i, j, 0) + slab(ui, j, 1) - U(i, j, 1))
-                slab(ui, j, n - 1).copy_(U(i, j, n - 1) + slab(ui, j, n - 2)
-                                         - U(i, j, n - 2))
-            else:  # tangential, constant spec: u_g = u at the neighbour
-                slab(ui, j, 0).copy_(slab(ui, j, 1))
-                slab(ui, j, n - 1).copy_(slab(ui, j, n - 2))
+                if not lo_r:
+                    _set(slab(ui, j, 1), U(i, j, 1))
+            else:  # tangential: u_g = U_g + (u - U)|neighbour
+                if lo_r:
+                    slab(ui, j, 0).copy_(lo_h[i])
+                elif callable(ubc):
+                    slab(ui, j, 0).copy_(U(i, j, 0) + slab(ui, j, 1) - U(i, j, 1))
+                else:  # constant spec: u_g = u at the neighbour
+                    slab(ui, j, 0).copy_(slab(ui, j, 1))
+                if hi_r:
+                    slab(ui, j, n - 1).copy_(hi_h[i])
+                elif callable(ubc):
+                    slab(ui, j, n - 1).copy_(U(i, j, n - 1) + slab(ui, j, n - 2)
+                                             - U(i, j, n - 2))
+                else:
+                    slab(ui, j, n - 1).copy_(slab(ui, j, n - 2))
     return u
 
 
@@ -114,24 +142,45 @@ def per_bc(a: torch.Tensor, perdir: tuple[int, ...], lead: int = 0) -> torch.Ten
     return a
 
 
-def exit_bc(u: torch.Tensor, u_old: torch.Tensor, dt) -> torch.Tensor:
+def exit_bc(u: torch.Tensor, u_old: torch.Tensor, dt, ctx=None) -> torch.Tensor:
     """1-D convective outlet on the ``i=0`` exit plane plus the mass-flux
     correction (`exitBC!`, `src/core.jl:226-233`): the exit plane of ``u``
     takes ``u_old``'s convected by the mean inflow ``u_in`` over ``dt``,
     shifted so that its mean equals ``u_in``.  Run at construction
     (`exitBC!(u,u,0)`, `Flow.jl:141`) and, with ``exit_bc=True``, after the
-    predictor's `BC!` of every step (`Flow.jl:160`)."""
+    predictor's `BC!` of every step (`Flow.jl:160`).
+
+    Distributed (``ctx``): the inflow and exit plane means are sums over
+    the shards owning those planes (`dist.psum_all`) over the global plane's
+    cell count, and the exit update applies on the high-edge shards of
+    dim 0."""
+    from .dist import edge_hi, edge_lo, global_inside_count, psum_all
+
     D = u.shape[0]
     inner = (slice(1, -1),) * (D - 1)
     exit_ix = (0, slice(-1, None)) + inner
     prev_ix = (0, slice(-2, -1)) + inner
     in_ix = (0, slice(1, 2)) + inner
-    u_in = torch.mean(u[in_ix])
+    if ctx is None:
+        u_in = torch.mean(u[in_ix])
+        ue = u_old[exit_ix]
+        new = ue - u_in * dt * (ue - u_old[prev_ix])
+        new = new - (torch.mean(new) - u_in)
+        u = u.clone()
+        u[exit_ix] = new
+        return u
+    # the global transverse interior count (the plane excludes dim 0)
+    count = global_inside_count(ctx, u.shape[1:]) // ((u.shape[1] - 2) * ctx.sizes[0])
+    lo0, hi0 = edge_lo(ctx, 0), edge_hi(ctx, 0)
+    zero = torch.zeros((), dtype=u.dtype, device=u.device)
+    u_in = psum_all(torch.sum(u[in_ix]) if lo0 else zero, ctx) / count
     ue = u_old[exit_ix]
     new = ue - u_in * dt * (ue - u_old[prev_ix])
-    new = new - (torch.mean(new) - u_in)
+    corr = psum_all(torch.sum(new) if hi0 else zero, ctx) / count - u_in
+    if not hi0:
+        return u
     u = u.clone()
-    u[exit_ix] = new
+    u[exit_ix] = new - corr
     return u
 
 

@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = [
-    "shift", "interior", "set_interior", "grow", "slab",
+    "shift", "interior", "set_interior", "grow", "slab", "set_slab",
     "loc_grid", "index_sum_parity", "inside_mask", "zero_ghost",
 ]
 
@@ -76,19 +76,35 @@ def slab(a: torch.Tensor, axis: int, idx: int) -> torch.Tensor:
     return a.narrow(axis, idx % a.shape[axis], 1)
 
 
+def set_slab(a: torch.Tensor, axis: int, idx: int, values) -> torch.Tensor:
+    """Copy of ``a`` with the hyperplane at ``axis``/``idx`` set to
+    ``values`` (a tensor that broadcasts to the slab, or a number)."""
+    out = a.clone()
+    s = slab(out, axis, idx)
+    if isinstance(values, torch.Tensor):
+        s.copy_(values)
+    else:
+        s.fill_(values)
+    return out
+
+
 def loc_grid(i: int | None, shape: tuple[int, ...], dtype: torch.dtype,
-             device: torch.device | str) -> torch.Tensor:
+             device: torch.device | str, offset=None) -> torch.Tensor:
     """World coordinates of every grid point, shape ``(D, *shape)``.
 
     ``i`` is the 0-based face component (``None`` for cell centers); with
     0-based index ``I`` the coordinate is ``I - 0.5 - 0.5*δ_{di}`` in dim
-    ``d`` (`loc(i,I,T)`, `src/core.jl:177-178`)."""
+    ``d`` (`loc(i,I,T)`, `src/core.jl:177-178`).  ``offset`` (per dim)
+    shifts a shard's local indices to global ones under domain
+    decomposition (`dist.offsets`)."""
     D = len(shape)
     coords = []
     for d in range(D):
         view = [1] * D
         view[d] = shape[d]
         c = torch.arange(shape[d], dtype=dtype, device=device).reshape(view) - 0.5
+        if offset is not None and offset[d]:
+            c = c + offset[d]
         if i is not None and d == i:
             c = c - 0.5
         coords.append(c.expand(shape))

@@ -40,10 +40,12 @@ import torch
 
 from . import fused3d as fz
 from . import stencil3d as st
-from .bc import per_bc
+from .dist import sync_scalar
 from .grid import zero_ghost
-from .multigrid import MGSolveResult, prolongate, restrict, solve_loop
-from .poisson import PoissonLevel, coarse_solve, jacobi, norms, with_bf16
+from .multigrid import (MGSolveResult, gathered_correction, prolongate, restrict,
+                        solve_loop)
+from .poisson import (PoissonLevel, coarse_solve, dist_sweeps, jacobi, norms,
+                      null_space_fix, with_bf16)
 
 __all__ = ["solve_mg_flat", "mp_applies", "mp_levels", "FLAT_MIN_CELLS"]
 
@@ -95,24 +97,28 @@ def _colors(p: PoissonLevel, it: int) -> list[int]:
     return [(1 - Dim - k0) % 2 for k0 in range(1, it + 1)]
 
 
-def _increment(p: PoissonLevel, x, r, eps, omega, perdir):
-    """`increment!` as K6, the periodic ghosts of ``eps`` refreshed
-    first."""
-    return _incr_gs(p, x, r, per_bc(eps, perdir), [], omega)
+def _increment(p: PoissonLevel, x, r, eps, omega, perdir, ctx=None):
+    """`increment!` as K6, the periodic (or halo) ghosts of ``eps``
+    refreshed first."""
+    return _incr_gs(p, x, r, sync_scalar(eps, ctx, perdir), [], omega)
 
 
-def _jacobi(p: PoissonLevel, x, r, perdir, mp=False):
+def _jacobi(p: PoissonLevel, x, r, perdir, mp=False, ctx=None):
     """One Jacobi pre-smooth: K15 (no colours) on a non-periodic level, K6
-    on ``eps = r·iD`` with ``perdir``."""
+    on ``eps = r·iD`` with ``perdir`` or ``ctx``."""
     if mp and p.bf is not None:
         return _gs_incr(p, x, r, [], 1.0)
-    if not perdir:
+    if not perdir and ctx is None:
         return jacobi(p, x, r, it=1, omega=1.0)
-    return _increment(p, x, r, zero_ghost(r * p.iD), 1.0, perdir)
+    return _increment(p, x, r, zero_ghost(r * p.iD), 1.0, perdir, ctx)
 
 
-def _gauss_seidel_rb(p: PoissonLevel, x, r, it, omega, perdir):
-    """The periodic red-black smoother: K13's colour sweeps, then K6."""
+def _gauss_seidel_rb(p: PoissonLevel, x, r, it, omega, perdir, ctx=None):
+    """The periodic red-black smoother: K13's colour sweeps, then K6; on a
+    distributed level (``ctx``) `poisson.dist_sweeps`, then K6."""
+    if ctx is not None:
+        eps = dist_sweeps(p, r, _colors(p, it), perdir, ctx)
+        return _increment(p, x, r, eps, omega, perdir, ctx)
     eps = zero_ghost(r * p.iD)
     if st.use_kernels(x):
         eps = st.gauss_sweeps_k(eps, r, p.L, p.iD, _colors(p, it), perdir)
@@ -121,9 +127,12 @@ def _gauss_seidel_rb(p: PoissonLevel, x, r, it, omega, perdir):
     return _increment(p, x, r, eps, omega, perdir)
 
 
-def _coarse_solve(p: PoissonLevel, x, r, it, omega, perdir, mp=False):
+def _coarse_solve(p: PoissonLevel, x, r, it, omega, perdir, mp=False, ctx=None):
     """`poisson.coarse_solve`, its periodic smoother `_gauss_seidel_rb`, its
-    mixed-precision smoother `_gs_incr`."""
+    mixed-precision smoother `_gs_incr`; a distributed level's smoother
+    under ``ctx``."""
+    if ctx is not None:
+        return _gauss_seidel_rb(p, x, r, it, omega, perdir, ctx)
     if mp and p.bf is not None and p.Ainv is None:
         return _gs_incr(p, x, r, _colors(p, it), omega)
     if perdir and p.Ainv is None:
@@ -133,41 +142,70 @@ def _coarse_solve(p: PoissonLevel, x, r, it, omega, perdir, mp=False):
 
 def _v_cycle_flat(levels, masks, x: torch.Tensor, r: torch.Tensor, omega,
                   smooth_it: int = 4, l: int = 0, presmooth: bool = True,
-                  perdir: tuple[int, ...] = (), mp: bool = False):
+                  perdir: tuple[int, ...] = (), mp: bool = False, ctx=None,
+                  n_dist: int = 0):
     """One V-cycle level step (`Vcycle!`, `MultiLevelPoisson.jl:88-101`):
     Jacobi pre-smooth, restrict, recurse, smooth the coarse level
     (`coarse_solve`), prolongate.  Below the fine level the increment
     follows (K6); at the fine level it is deferred: returns
-    ``(x, r, eps)`` for the caller's tail."""
+    ``(x, r, eps)`` for the caller's tail.  Under ``ctx`` the levels below
+    ``n_dist`` are distributed and level ``n_dist − 1`` is the coarse-grid
+    gather (module docstring)."""
     fine, coarse = levels[l], levels[l + 1]
     c = masks[l]
     if presmooth or l > 0:
-        x, r = _jacobi(fine, x, r, perdir, mp)
-    rc = restrict(r, c)
-    xc = torch.zeros_like(rc)
-    if l + 1 < len(levels) - 1:
-        xc, rc = _v_cycle_flat(levels, masks, xc, rc, omega, smooth_it, l + 1,
-                               perdir=perdir, mp=mp)
-    xc, rc = _coarse_solve(coarse, xc, rc, smooth_it, omega, perdir, mp)
-    eps = prolongate(xc, c)
+        x, r = _jacobi(fine, x, r, perdir, mp, ctx)
+    if ctx is not None and l == n_dist - 1:
+        eps = gathered_correction(levels, masks, r, omega, l, smooth_it, perdir, ctx)
+    else:
+        rc = restrict(r, c)
+        xc = torch.zeros_like(rc)
+        if l + 1 < len(levels) - 1:
+            xc, rc = _v_cycle_flat(levels, masks, xc, rc, omega, smooth_it,
+                                   l + 1, perdir=perdir, mp=mp, ctx=ctx,
+                                   n_dist=n_dist)
+        xc, rc = _coarse_solve(coarse, xc, rc, smooth_it, omega, perdir, mp, ctx)
+        eps = prolongate(xc, c)
     if l == 0:
         return x, r, eps
-    return _increment(fine, x, r, eps, omega, perdir)
+    return _increment(fine, x, r, eps, omega, perdir, ctx)
+
+
+def _residual_dist(p: PoissonLevel, x, z, perdir, ctx):
+    """The entry residual of a distributed solve: ``z − A·x`` with A·x K16
+    on the halo-synced ``x`` (`residual_flat` under ``ctx``), the
+    null-space fixes over the global interior."""
+    xs = sync_scalar(x, ctx, perdir)
+    ax = st.mult_k(xs, p.L, p.D) if st.use_kernels(xs) else st.mult_plain(xs, p.L, p.D)
+    return null_space_fix(zero_ghost(torch.where(p.iD == 0, 0.0, z - ax)), ctx)
 
 
 def solve_mg_flat(levels, masks, x: torch.Tensor, z: torch.Tensor,
                   tol: float = 2e-3, itmx: int = 32, smooth_it: int = 4,
                   fine_smooth_it: int = 0, fine_presmooth: bool = True,
                   perdir: tuple[int, ...] = (),
-                  mp: bool = False) -> MGSolveResult:
+                  mp: bool = False, ctx=None, n_dist: int = 0) -> MGSolveResult:
     """Multigrid solve with the fused fine tail (`solve_mg_flat`,
     `mgflat.py:254-349`): per iteration a V-cycle with the fine increment
     deferred, then one `incr_gs` of that increment and the fine red-black
     smooth, whose in-kernel ``(L1, Linf)`` feed the stop rule.  With
     ``perdir`` the increment, the periodic smooth and `poisson.norms`
-    instead.  ``mp`` (where `mp_applies`) needs the stack of `mp_levels`."""
+    instead.  ``mp`` (where `mp_applies`) needs the stack of `mp_levels`.
+    ``ctx``/``n_dist`` (``n_dist >= 1``): the x-decomposed solve of one
+    shard (module docstring), with no fused tail and no mixed precision."""
     p = levels[0]
     it_fine = fine_smooth_it or smooth_it
+    if ctx is not None:
+        def iterate_dist(x, r, omega):
+            x, r, eps = _v_cycle_flat(levels, masks, x, r, omega, smooth_it,
+                                      presmooth=fine_presmooth, perdir=perdir,
+                                      ctx=ctx, n_dist=n_dist)
+            x, r = _increment(p, x, r, eps, omega, perdir, ctx)
+            x, r = _gauss_seidel_rb(p, x, r, it_fine, omega, perdir, ctx)
+            return x, r, torch.stack(norms(r, ctx))
+
+        return solve_loop(p, x, z, tol, itmx, iterate_dist, perdir, ctx,
+                          _residual_dist)
     mp = mp_applies(mp, x.dtype, perdir)
     if mp and p.bf is None:
         raise ValueError("solve_mg_flat: mp=True needs the bf16 coefficient "

@@ -13,8 +13,15 @@ Periodic directions (``perdir``) reach every level: the coarse coefficients
 take the periodic zero-velocity BC (so each level's diagonal sees the wrap
 face), the smoothers and increments refresh periodic ghosts, the dense
 coarse pseudo-inverse is that of the periodic operator, and the solution's
-periodic ghosts are refreshed after the gauge.  The distributed branches are
-not ported yet (ROADMAP queue 1, [dist]).
+periodic ghosts are refreshed after the gauge.
+
+Distributed (``ctx``, ``n_dist``; `ops/dist.py`): the levels below
+``n_dist`` hold each shard's local block (`make_mg_dist`, ghosts from the
+ring BC) and smooth with halo-refreshed ghosts; at level ``n_dist − 1`` the
+V-cycle gathers the residual, runs the coarser levels replicated on every
+shard with the single-device code, and slices the correction back
+(`v_cycle`); the norms, means and the gauge are sums over the shards.
+`dist_n_levels` decides where the split stops.
 
 `solve_mg_implicit` is `solve_mg` with the exact implicit forward-mode rule
 of the JAX package (`multigrid.py:365-417`): under `torch.func.jvp`,
@@ -37,7 +44,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .bc import bc_vector, per_bc
+from .bc import bc_vector
+from .dist import gather_scalar, psum_all, slice_local, sync_scalar
 from .grid import grow, interior
 from .poisson import (PoissonLevel, _inside_ones, _mult_raw, coarse_solve,
                       dense_pinv, gauss_seidel_rb, increment, jacobi,
@@ -47,8 +55,8 @@ from .stencil3d import _loop_vmap, ad_active
 __all__ = [
     "divisible", "coarsen_mask", "coarse_shape", "level_shapes",
     "restrict", "prolongate", "restrict_L", "make_mg", "update_mg",
-    "v_cycle", "solve_loop", "solve_mg", "solve_mg_implicit", "iteration_log",
-    "canonical_gauge", "MGSolveResult", "MIN_COARSE_CELLS",
+    "dist_n_levels", "make_mg_dist", "v_cycle", "solve_loop", "solve_mg",
+    "solve_mg_implicit", "iteration_log", "canonical_gauge", "MGSolveResult", "MIN_COARSE_CELLS",
 ]
 
 # interior-cell floor of the coarse levels on the flow path (the JAX
@@ -119,12 +127,12 @@ def prolongate(b: torch.Tensor, c: tuple[bool, ...]) -> torch.Tensor:
 
 
 def restrict_L(Lf: torch.Tensor, c: tuple[bool, ...],
-               perdir: tuple[int, ...] = ()) -> torch.Tensor:
+               perdir: tuple[int, ...] = (), ctx=None) -> torch.Tensor:
     """Restrict face coefficients (`restrictL`, `MultiLevelPoisson.jl:10-26,
     42-47`): the face-normal direction keeps the fine face at the pair start
     and is halved when coarsened; tangential coarsened directions pair-sum;
     boundary faces come from the zero-velocity vector BC (periodic in
-    ``perdir``)."""
+    ``perdir``; ring halos between shards under ``ctx``)."""
     D = Lf.shape[0]
     comps = []
     for i in range(D):
@@ -140,7 +148,7 @@ def restrict_L(Lf: torch.Tensor, c: tuple[bool, ...],
         if c[i]:
             a = a / 2
         comps.append(grow(a))
-    return bc_vector(torch.stack(comps), (0.0,) * D, perdir=perdir)
+    return bc_vector(torch.stack(comps), (0.0,) * D, perdir=perdir, ctx=ctx)
 
 
 def make_mg(mu0: torch.Tensor, maxlevels: int = 10, min_cells: int = 0,
@@ -164,25 +172,104 @@ def update_mg(masks, mu0: torch.Tensor, perdir: tuple[int, ...] = ()):
     return tuple(new)
 
 
+def dist_n_levels(global_shape: tuple[int, ...], sizes: tuple[int, ...],
+                  maxlevels: int = 10, min_cells: int = 0):
+    """Level shapes and masks plus the length of the distributed prefix: a
+    level stays distributed while every split dim keeps an even split with
+    at least 2 interior cells a shard; the coarser levels, and always the
+    coarsest (its dense solve must see the global grid, as on one device),
+    are replicated (the coarse-grid gather)."""
+    shapes, masks = level_shapes(global_shape, maxlevels, min_cells)
+
+    def dist_ok(shape):
+        for d, k in enumerate(sizes):
+            if k > 1:
+                n = shape[d] - 2
+                if n % k != 0 or n // k < 2:
+                    return False
+        return True
+
+    n_dist = 0
+    for sh in shapes:
+        if not dist_ok(sh):
+            break
+        n_dist += 1
+    return shapes, masks, min(n_dist, len(shapes) - 1)
+
+
+def make_mg_dist(mu0_local: torch.Tensor, ctx, masks, n_dist: int,
+                 perdir: tuple[int, ...] = ()):
+    """The level stack of one shard from its local-block ``mu0``: the levels
+    below ``n_dist`` are local blocks (ghosts from the ring zero-velocity
+    BC), the tail is built from the gathered global coefficients with the
+    single-device code and replicated on every shard, the coarsest with its
+    dense pseudo-inverse (`update!`, `MultiLevelPoisson.jl:79-86`)."""
+    D = mu0_local.shape[0]
+    levels = [make_level(mu0_local)]
+    L = mu0_local
+    distributed = True
+    for idx, c in enumerate(masks):
+        if distributed and idx + 1 >= n_dist:
+            # the transition: gather the fine coefficients and restore the
+            # global ghost convention
+            Lg = torch.stack([gather_scalar(L[i], ctx) for i in range(D)])
+            L = bc_vector(Lg, (0.0,) * D, perdir=perdir)
+            distributed = False
+        L = restrict_L(L, c, perdir, ctx if distributed else None)
+        levels.append(make_level(L))
+    if not distributed:
+        levels[-1] = dense_pinv(levels[-1], perdir)
+    return tuple(levels)
+
+
 def v_cycle(levels, masks, x: torch.Tensor, r: torch.Tensor, omega,
             l: int = 0, smooth_it: int = 4, presmooth: bool = True,
-            perdir: tuple[int, ...] = ()):
+            perdir: tuple[int, ...] = (), ctx=None, n_dist: int = 0):
     """One V-cycle (`Vcycle!`, `MultiLevelPoisson.jl:88-101`): Jacobi
     pre-smooth, restrict the residual, recurse, coarse solve, prolongate and
-    increment."""
+    increment.
+
+    Distributed (``ctx``): the levels below ``n_dist`` are local blocks
+    smoothed with halo refreshes; at level ``n_dist − 1`` the residual is
+    gathered, the coarser levels run replicated with the single-device code
+    and the correction is sliced back (the JAX transition always smooths
+    first, `multigrid.py:189-201`)."""
     fine, coarse = levels[l], levels[l + 1]
     c = masks[l]
+    if ctx is not None and l == n_dist - 1:
+        x, r = jacobi(fine, x, r, it=1, omega=1.0, perdir=perdir, ctx=ctx)
+        eps = gathered_correction(levels, masks, r, omega, l, smooth_it, perdir, ctx)
+        return increment(fine, x, r, eps, omega, perdir, ctx)
+    here = ctx if l < n_dist else None
     if presmooth or l > 0:
-        x, r = jacobi(fine, x, r, it=1, omega=1.0, perdir=perdir)
+        x, r = jacobi(fine, x, r, it=1, omega=1.0, perdir=perdir, ctx=here)
     rc = restrict(r, c)
     xc = torch.zeros_like(rc)
     if l + 1 < len(levels) - 1:
         xc, rc = v_cycle(levels, masks, xc, rc, omega, l + 1, smooth_it,
-                         perdir=perdir)
+                         perdir=perdir, ctx=ctx, n_dist=n_dist)
     xc, rc = coarse_solve(coarse, xc, rc, it=smooth_it, omega=omega,
-                          perdir=perdir)
+                          perdir=perdir,
+                          ctx=ctx if l + 1 < n_dist else None)
     eps = prolongate(xc, c)
-    return increment(fine, x, r, eps, omega, perdir)
+    return increment(fine, x, r, eps, omega, perdir, here)
+
+
+def gathered_correction(levels, masks, r: torch.Tensor, omega, l: int,
+                        smooth_it: int, perdir: tuple[int, ...], ctx) -> torch.Tensor:
+    """The coarse-grid gather at the last distributed level ``l``: the
+    residual gathered and restricted, the coarser levels (replicated on
+    every shard) smoothed with the single-device code, and this shard's
+    block of the prolongated correction."""
+    c = masks[l]
+    rc = restrict(gather_scalar(r, ctx), c)
+    xc = torch.zeros_like(rc)
+    if l + 1 < len(levels) - 1:
+        xc, rc = v_cycle(levels, masks, xc, rc, omega, l + 1, smooth_it,
+                         perdir=perdir)
+    xc, rc = coarse_solve(levels[l + 1], xc, rc, it=smooth_it, omega=omega,
+                          perdir=perdir)
+    return slice_local(prolongate(xc, c), ctx)
 
 
 class MGSolveResult(NamedTuple):
@@ -193,18 +280,22 @@ class MGSolveResult(NamedTuple):
 
 
 def solve_loop(p, x: torch.Tensor, z: torch.Tensor, tol: float, itmx: int,
-               iterate, perdir: tuple[int, ...] = ()) -> MGSolveResult:
+               iterate, perdir: tuple[int, ...] = (), ctx=None,
+               resid=residual) -> MGSolveResult:
     """The outer iteration of `solver!` (`MultiLevelPoisson.jl:108-128`): a
     do-while of ``iterate(x, r, omega) -> (x, r, norms)`` (``norms`` the
     device 2-vector ``(L1, Linf)`` of the new residual, read back once per
     iteration), adaptive ω ∈ [0.2, 1] (×0.9 when the L1 norm did not drop,
     ×1.02 when it did) and the dual-norm stop ``L1 < tol/10·N`` ∧
     ``Linf < tol``, then `canonical_gauge` on the fine level ``p`` and the
-    periodic ghost refresh of the solution."""
+    periodic ghost refresh of the solution.  ``resid(p, x, z, perdir,
+    ctx)`` is the entry residual.  Under ``ctx`` the norms are global and
+    the same on every shard, bit for bit, so every shard takes the same
+    path; the solution's ghosts are halo-refreshed."""
     npdt = np.dtype(str(x.dtype).replace("torch.", ""))
-    r1tol, rinf_tol = stop_tolerances(x, tol)
-    r = residual(p, x, z, perdir)
-    r1, rinf = torch.stack(norms(r)).tolist()     # one device→host read
+    r1tol, rinf_tol = stop_tolerances(x, tol, ctx)
+    r = resid(p, x, z, perdir, ctx)
+    r1, rinf = torch.stack(norms(r, ctx)).tolist()     # one device→host read
     omega = npdt.type(1.0)
     stats = [(rinf, r1, float(omega))]
     n = 0
@@ -218,36 +309,40 @@ def solve_loop(p, x: torch.Tensor, z: torch.Tensor, tol: float, itmx: int,
         r1 = rnew
         n += 1
         stats.append((rinf, r1, float(omega)))
-    x = per_bc(canonical_gauge(x, p.iD), perdir)
+    x = sync_scalar(canonical_gauge(x, p.iD, ctx), ctx, perdir)
     return MGSolveResult(x, r, n, stats)
 
 
 def solve_mg(levels, masks, x: torch.Tensor, z: torch.Tensor,
              tol: float = 2e-3, itmx: int = 32, smooth_it: int = 4,
              fine_smooth_it: int = 0, fine_presmooth: bool = True,
-             perdir: tuple[int, ...] = ()) -> MGSolveResult:
+             perdir: tuple[int, ...] = (), ctx=None,
+             n_dist: int = 0) -> MGSolveResult:
     """Multigrid pressure solve (`solver!`, `MultiLevelPoisson.jl:108-128`):
-    `solve_loop` over a V-cycle plus the fine red-black smooth."""
+    `solve_loop` over a V-cycle plus the fine red-black smooth; distributed
+    with ``ctx`` and ``n_dist >= 1`` (`v_cycle`)."""
     p = levels[0]
+    fine_ctx = ctx if n_dist > 0 else None
 
     def iterate(x, r, omega):
         x, r = v_cycle(levels, masks, x, r, omega, 0, smooth_it,
-                       presmooth=fine_presmooth, perdir=perdir)
+                       presmooth=fine_presmooth, perdir=perdir, ctx=ctx,
+                       n_dist=n_dist)
         x, r = gauss_seidel_rb(p, x, r, it=fine_smooth_it or smooth_it,
-                               omega=omega, perdir=perdir)
-        return x, r, torch.stack(norms(r))
+                               omega=omega, perdir=perdir, ctx=fine_ctx)
+        return x, r, torch.stack(norms(r, fine_ctx))
 
-    return solve_loop(p, x, z, tol, itmx, iterate, perdir)
+    return solve_loop(p, x, z, tol, itmx, iterate, perdir, fine_ctx)
 
 
-def canonical_gauge(x: torch.Tensor, iD: torch.Tensor) -> torch.Tensor:
+def canonical_gauge(x: torch.Tensor, iD: torch.Tensor, ctx=None) -> torch.Tensor:
     """Pin the pressure representative (JAX `canonical_gauge`): active
     interior cells (iD ≠ 0) get zero mean, dead interior cells get zero,
-    ghosts keep their values."""
+    ghosts keep their values; the mean is global under ``ctx``."""
     inside = _inside_ones(x)
     act = torch.where(iD != 0, inside, 0.0)
-    n_act = torch.sum(act)
-    m = torch.sum(x * act) / torch.clamp(n_act, min=1.0)
+    n_act = psum_all(torch.sum(act), ctx)
+    m = psum_all(torch.sum(x * act), ctx) / torch.clamp(n_act, min=1.0)
     return torch.where(act > 0, x - m, x * (1.0 - inside))
 
 
@@ -378,14 +473,22 @@ _TangentSolve.vmap = _loop_vmap(_TangentSolve)
 def solve_mg_implicit(levels, masks, x: torch.Tensor, z: torch.Tensor,
                       tol: float = 2e-3, itmx: int = 32, smooth_it: int = 4,
                       fine_smooth_it: int = 0, fine_presmooth: bool = True,
-                      perdir: tuple[int, ...] = ()) -> MGSolveResult:
+                      perdir: tuple[int, ...] = (), ctx=None,
+                      n_dist: int = 0) -> MGSolveResult:
     """`solve_mg` with implicit forward-mode differentiation (the JAX
     `solve_mg_implicit`, `multigrid.py:365-417`).  For ``A(L) x = z`` the
     tangent is the exact implicit one, ``A ẋ = ż − Ȧ(L̇, Ḋ)·x``, solved with
     the same multigrid, tolerance and options (`_TangentSolve`); the warm
     start's tangent warm-starts it without biasing the result.  Without
     forward-mode AD active this is `solve_mg` itself.  The result's
-    ``iters`` and ``stats`` are the primal solve's."""
+    ``iters`` and ``stats`` are the primal solve's.  Single-device: under
+    ``ctx`` it raises (the JAX `solve_mg_implicit(ctx, n_dist)`,
+    `multigrid.py:365`, is ROADMAP [dist-2]); the distributed step calls
+    `solve_mg`."""
+    if ctx is not None:
+        raise NotImplementedError(
+            "solve_mg_implicit runs on one device: the distributed implicit "
+            "tangent solve is not ported ([dist-2]); call solve_mg(ctx=, n_dist=)")
     opts = dict(tol=tol, itmx=itmx, smooth_it=smooth_it,
                 fine_smooth_it=fine_smooth_it, fine_presmooth=fine_presmooth,
                 perdir=perdir)

@@ -19,6 +19,14 @@ colour sweeps then the increment, as in the JAX `poisson.py:134,163-172`;
 without it both are K15.  `pcg` and `solve` are the standalone
 Jacobi-preconditioned conjugate-gradient solver that ``psolver="pcg"``
 injects in place of the multigrid one; its A·x is K16 as well.
+
+Under domain decomposition (``ctx``, `ops/dist.py`) each op refreshes the
+ghosts of the field it reads by ring halos (`dist.sync_scalar`), the means
+and norms are sums and maxima over the shards, and the red-black colours
+carry the shard's global parity (`dist.parity_shift`).  Under ``ctx`` these
+ops are plain PyTorch, as the JAX gate `pallas3d.use_pallas(a, ctx)` keeps
+the 3d engine's kernels to one device; the flat engine's solve
+(`ops/mgflat.py`) keeps its kernels under ``ctx``.
 """
 from __future__ import annotations
 
@@ -29,11 +37,13 @@ import torch
 
 from . import stencil3d as st
 from .bc import per_bc
-from .grid import grow, interior, shift, zero_ghost
+from .dist import (global_inside_count, parity_shift, pmax_all, psum_all,
+                   sync_scalar)
+from .grid import grow, index_sum_parity, inside_mask, interior, shift, zero_ghost
 
 __all__ = [
     "PoissonLevel", "make_level", "with_bf16", "set_diag", "mult", "residual",
-    "increment",
+    "null_space_fix", "increment",
     "jacobi", "gauss_seidel_rb", "norms", "dense_pinv",
     "coarse_solve", "pcg", "solve", "stop_tolerances",
 ]
@@ -75,58 +85,64 @@ def with_bf16(p: PoissonLevel) -> PoissonLevel:
     return p._replace(bf=tuple(t.to(torch.bfloat16) for t in (p.L, p.D, p.iD)))
 
 
-def _mult_raw(p: PoissonLevel, x: torch.Tensor) -> torch.Tensor:
-    """A·x on the interior, zero ghosts (`mult`, `Poisson.jl:70-76`); the
-    K16 kernel for 3-D float32 CUDA fields."""
-    if st.use_kernels(x):
+def _mult_raw(p: PoissonLevel, x: torch.Tensor, ctx=None) -> torch.Tensor:
+    """A·x on the interior, zero ghosts (`mult`, `Poisson.jl:70-76`), the
+    ghosts of ``x`` taken as they are; the K16 kernel for 3-D float32 CUDA
+    fields on one device."""
+    if ctx is None and st.use_kernels(x):
         return st.mult_k(x, p.L, p.D)
     return st.mult_plain(x, p.L, p.D)
 
 
 def mult(p: PoissonLevel, x: torch.Tensor,
-         perdir: tuple[int, ...] = ()) -> torch.Tensor:
-    """A·x with the periodic ghosts of ``x`` refreshed first (`mult!`,
-    `Poisson.jl:63-68`)."""
-    return _mult_raw(p, per_bc(x, perdir))
+         perdir: tuple[int, ...] = (), ctx=None) -> torch.Tensor:
+    """A·x with the periodic (or halo) ghosts of ``x`` refreshed first
+    (`mult!`, `Poisson.jl:63-68`)."""
+    return _mult_raw(p, sync_scalar(x, ctx, perdir), ctx)
 
 
 def _inside_ones(x: torch.Tensor) -> torch.Tensor:
     return zero_ghost(torch.ones_like(x))
 
 
+def null_space_fix(r: torch.Tensor, ctx=None) -> torch.Tensor:
+    """Remove the interior mean of a residual whose ghosts and dead cells
+    are zero, unless it is within 2·eps of zero (`Poisson.jl:92-98`); the
+    mean is over the global interior under ``ctx``."""
+    s = psum_all(torch.sum(r), ctx) / global_inside_count(ctx, tuple(r.shape))
+    eps2 = 2 * torch.finfo(r.dtype).eps
+    return r - torch.where(torch.abs(s) <= eps2, 0.0, s) * _inside_ones(r)
+
+
 def residual(p: PoissonLevel, x: torch.Tensor, z: torch.Tensor,
-             perdir: tuple[int, ...] = ()) -> torch.Tensor:
+             perdir: tuple[int, ...] = (), ctx=None) -> torch.Tensor:
     """r = z - A·x with the two null-space fixes of `Poisson.jl:92-98`:
     r = 0 where iD == 0, and the interior mean removed unless it is within
-    2·eps of zero."""
-    r = torch.where(p.iD == 0, 0.0, z - mult(p, x, perdir))
-    r = zero_ghost(r)
-    n_inside = math.prod(n - 2 for n in x.shape)
-    s = torch.sum(r) / n_inside
-    eps2 = 2 * torch.finfo(x.dtype).eps
-    r = r - torch.where(torch.abs(s) <= eps2, 0.0, s) * _inside_ones(x)
-    return r
+    2·eps of zero (`null_space_fix`)."""
+    r = torch.where(p.iD == 0, 0.0, z - mult(p, x, perdir, ctx))
+    return null_space_fix(zero_ghost(r), ctx)
 
 
 def increment(p: PoissonLevel, x: torch.Tensor, r: torch.Tensor,
-              eps: torch.Tensor, omega=1.0, perdir: tuple[int, ...] = ()):
+              eps: torch.Tensor, omega=1.0, perdir: tuple[int, ...] = (),
+              ctx=None):
     """x += ω·eps, r -= ω·A·eps on the interior (`increment!`,
-    `Poisson.jl:100-104`), the periodic ghosts of ``eps`` refreshed
-    first."""
-    eps = per_bc(eps, perdir)
-    r = r - omega * _mult_raw(p, eps)
+    `Poisson.jl:100-104`), the periodic (or halo) ghosts of ``eps``
+    refreshed first."""
+    eps = sync_scalar(eps, ctx, perdir)
+    r = r - omega * _mult_raw(p, eps, ctx)
     x = x + omega * zero_ghost(eps)
     return x, r
 
 
 def jacobi(p: PoissonLevel, x: torch.Tensor, r: torch.Tensor, it: int = 1,
-           omega=1.0, perdir: tuple[int, ...] = ()):
+           omega=1.0, perdir: tuple[int, ...] = (), ctx=None):
     """Jacobi smoother (`Jacobi!`, `Poisson.jl:111-114`); the K15 kernel
     with no colours for 3-D float32 CUDA fields, the plain increment with
-    ``perdir``."""
+    ``perdir`` or ``ctx``."""
     for _ in range(it):
-        if perdir:
-            x, r = increment(p, x, r, zero_ghost(r * p.iD), omega, perdir)
+        if perdir or ctx is not None:
+            x, r = increment(p, x, r, zero_ghost(r * p.iD), omega, perdir, ctx)
         elif st.use_kernels(x):
             x, r = st.gs_incr_k(x, r, p.L, p.D, p.iD, [], omega)
         else:
@@ -135,15 +151,20 @@ def jacobi(p: PoissonLevel, x: torch.Tensor, r: torch.Tensor, it: int = 1,
 
 
 def gauss_seidel_rb(p: PoissonLevel, x: torch.Tensor, r: torch.Tensor,
-                    it: int = 4, omega=1.0, perdir: tuple[int, ...] = ()):
+                    it: int = 4, omega=1.0, perdir: tuple[int, ...] = (),
+                    ctx=None):
     """Red-black Gauss-Seidel smoother (`GaussSeidelRB!`,
     `Poisson.jl:141-148`): sweep ``k0`` updates the interior cells whose
     1-based index sum has parity ``(k0+1) % 2``, i.e. 0-based parity
     ``(1 - Dim - k0) % 2``; then the increment.  The K15 kernel for 3-D
     float32 CUDA fields; with ``perdir`` the colour sweeps (K13, each after
-    a periodic ghost refresh) then the increment."""
+    a periodic ghost refresh) then the increment; with ``ctx`` `dist_sweeps`
+    then the increment."""
     Dim = p.L.shape[0]
     colors = [(1 - Dim - k0) % 2 for k0 in range(1, it + 1)]
+    if ctx is not None:
+        eps = dist_sweeps(p, r, colors, perdir, ctx)
+        return increment(p, x, r, eps, omega, perdir, ctx)
     if perdir:
         eps = zero_ghost(r * p.iD)
         if st.use_kernels(x):
@@ -154,6 +175,22 @@ def gauss_seidel_rb(p: PoissonLevel, x: torch.Tensor, r: torch.Tensor,
     if st.use_kernels(x):
         return st.gs_incr_k(x, r, p.L, p.D, p.iD, colors, omega)
     return st.gs_incr_plain(x, r, p.L, p.D, p.iD, colors, omega)
+
+
+def dist_sweeps(p: PoissonLevel, r: torch.Tensor, colors, perdir, ctx):
+    """The red-black colour sweeps of a distributed level (the JAX
+    `gauss_seidel_rb` and `gauss_seidel_rb_flat` under ``ctx``), plain
+    PyTorch: ``eps = r·iD`` with zero ghosts, then per colour a halo refresh
+    of ``eps`` and the update of the interior cells whose global index-sum
+    parity is the colour."""
+    shape = tuple(r.shape)
+    par = (index_sum_parity(shape, r.device) + parity_shift(ctx, shape)) % 2
+    inside = inside_mask(shape, r.device)
+    eps = zero_ghost(r * p.iD)
+    for c in colors:
+        eps = sync_scalar(eps, ctx, perdir)
+        eps = torch.where((par == c) & inside, st._gauss(r, eps, p.L, p.iD), eps)
+    return eps
 
 
 # interior-cell cap for the dense coarse solve (`poisson._DENSE_COARSE_MAX`)
@@ -186,23 +223,25 @@ def dense_pinv(p: PoissonLevel, perdir: tuple[int, ...] = ()) -> PoissonLevel:
 
 
 def coarse_solve(p: PoissonLevel, x: torch.Tensor, r: torch.Tensor,
-                 it: int = 4, omega=1.0, perdir: tuple[int, ...] = ()):
+                 it: int = 4, omega=1.0, perdir: tuple[int, ...] = (), ctx=None):
     """Coarsest-level solve: ``eps = A⁺ r`` when the level carries ``Ainv``
-    (then a full, unrelaxed increment), else red-black GS sweeps.  The
-    matvec is multiply + sum, not a matmul, as in the JAX package."""
+    (then a full, unrelaxed increment; a replicated level), else red-black
+    GS sweeps (distributed under ``ctx``).  The matvec is multiply + sum,
+    not a matmul, as in the JAX package."""
     if p.Ainv is None:
-        return gauss_seidel_rb(p, x, r, it, omega, perdir)
+        return gauss_seidel_rb(p, x, r, it, omega, perdir, ctx)
     inner = tuple(d - 2 for d in r.shape)
     ri = interior(r).reshape(-1)
     eps = grow(torch.sum(p.Ainv * ri[None, :], dim=1).reshape(inner))
     return increment(p, x, r, eps, 1.0, perdir)
 
 
-def norms(r: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def norms(r: torch.Tensor, ctx=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(L1, Linf) of the residual as device scalars; ghosts are zero so the
-    full-tensor reductions equal the interior ones (`Poisson.jl:188-191`)."""
+    full-tensor reductions equal the interior ones (`Poisson.jl:188-191`).
+    A sum and a max over the shards under ``ctx``."""
     a = torch.abs(r)
-    return torch.sum(a), torch.max(a)
+    return psum_all(torch.sum(a), ctx), pmax_all(torch.max(a), ctx)
 
 
 def _pdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -241,12 +280,13 @@ def pcg(p: PoissonLevel, x: torch.Tensor, r: torch.Tensor, it: int = 6,
     return x, r
 
 
-def stop_tolerances(x: torch.Tensor, tol: float) -> tuple[float, float]:
+def stop_tolerances(x: torch.Tensor, tol: float, ctx=None) -> tuple[float, float]:
     """The dual-norm stop ``L1 < tol/10·N_inside`` ∧ ``Linf < tol``
     (`Poisson.jl:194`) as host floats rounded to ``x``'s dtype, so that a
-    comparison with a norm read back from the device is the dtype's."""
+    comparison with a norm read back from the device is the dtype's;
+    ``N_inside`` is the global interior count under ``ctx``."""
     npdt = torch.empty((), dtype=x.dtype).numpy().dtype.type
-    return (float(npdt((tol / 10.0) * math.prod(n - 2 for n in x.shape))),
+    return (float(npdt((tol / 10.0) * global_inside_count(ctx, tuple(x.shape)))),
             float(npdt(tol)))
 
 

@@ -240,16 +240,17 @@ def _phi_slabs(u, f, i, j, scheme, nu, perdir=()):
 
 
 def conv_diff_plain(u: torch.Tensor, nu, scheme: Callable,
-                    perdir: tuple[int, ...] = ()) -> torch.Tensor:
+                    perdir: tuple[int, ...] = (), slabs=None) -> torch.Tensor:
     """Convective + diffusive momentum RHS (`conv_diff!`, `Flow.jl:38-62`):
     the jnp body of the JAX `conv_diff`.
 
     Per (component i, direction j) the flux
     ``Φ = uadv·λ(upwind stencil of u_i) − ν ∂u_i/∂x_j`` is evaluated with
     roll shifts, fixed at the first interior slab and at the top ghost slab
-    (`_phi_slabs`: ϕuL/ϕuR, or ϕuP in the directions of ``perdir``);
-    ``r_i = Σ_j Φ − Φ(+e_j)``.  Every cell is defined, ghosts included, with
-    roll-wrap reads."""
+    (`_phi_slabs`: ϕuL/ϕuR, or ϕuP in the directions of ``perdir``; the
+    pairs that ``slabs`` maps to their two fluxes take those: a shard's
+    ring variant, `flow._ring_slabs`); ``r_i = Σ_j Φ − Φ(+e_j)``.  Every
+    cell is defined, ghosts included, with roll-wrap reads."""
     D = u.shape[0]
     out = []
     for i in range(D):
@@ -261,7 +262,8 @@ def conv_diff_plain(u: torch.Tensor, nu, scheme: Callable,
             up = scheme(shift(f, j, -2), shift(f, j, -1), f)
             dn = scheme(shift(f, j, 1), f, shift(f, j, -1))
             phi = uadv * torch.where(uadv > 0, up, dn) - nu * (f - shift(f, j, -1))
-            phi_lo, phi_hi = _phi_slabs(u, f, i, j, scheme, nu, perdir)
+            phi_lo, phi_hi = ((slabs or {}).get((i, j))
+                              or _phi_slabs(u, f, i, j, scheme, nu, perdir))
             phi[_slab_ix(j, 1)] = phi_lo
             phi[_slab_ix(j, n - 1)] = phi_hi
             ri = ri + (phi - shift(phi, j, 1))

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..models.body import Body, _interior_points, _measure_points, kern
+from ..ops.dist import psum_all
 from ..ops.grid import grow, loc_grid, shift
 
 __all__ = [
@@ -149,36 +150,45 @@ def _grid_sum(a: torch.Tensor) -> torch.Tensor:
 
 
 def nds_field(body: Body, shape: tuple[int, ...], t=0.0, dtype=torch.float32,
-              device="cuda") -> torch.Tensor:
+              device="cuda", offset=None) -> torch.Tensor:
     """BDIM-masked surface normal n·K(d) at every interior cell centre
-    (`nds`, `Metrics.jl:116-119`); ghosts zero.  Shape ``(D, *shape)``."""
+    (`nds`, `Metrics.jl:116-119`); ghosts zero.  Shape ``(D, *shape)``.
+    ``offset`` shifts a shard's local indices to global coordinates under
+    domain decomposition."""
     D = len(shape)
     t = torch.as_tensor(t, dtype=dtype, device=device)
-    d, n, _ = _measure_points(body, _interior_points(None, shape, dtype, device),
-                              t, 1.0)
+    d, n, _ = _measure_points(body, _interior_points(None, shape, dtype, device,
+                                                     offset=offset), t, 1.0)
     vals = (n * kern(torch.clamp(d, -1.0, 1.0))[:, None]).T
     vals = vals.reshape((D,) + tuple(k - 2 for k in shape)).to(dtype)
     return torch.stack([grow(vals[i]) for i in range(D)])
 
 
-def pressure_force(p: torch.Tensor, body: Body, t=0.0) -> torch.Tensor:
+def pressure_force(p: torch.Tensor, body: Body, t=0.0, offset=None,
+                   ctx=None) -> torch.Tensor:
     """∮ p n dS over the body (`pressure_force`, `Metrics.jl:126-133`), a
-    float64 ``(D,)`` tensor on ``p``'s device."""
-    nds = nds_field(body, tuple(p.shape), t, p.dtype, p.device)
-    return _grid_sum(p[None] * nds)
+    float64 ``(D,)`` tensor on ``p``'s device; summed over the shards under
+    ``ctx`` (``offset``: the shard's, `dist.offsets`)."""
+    nds = nds_field(body, tuple(p.shape), t, p.dtype, p.device, offset)
+    return psum_all(_grid_sum(p[None] * nds), ctx)
 
 
-def viscous_force(u: torch.Tensor, nu, body: Body, t=0.0) -> torch.Tensor:
+def viscous_force(u: torch.Tensor, nu, body: Body, t=0.0, offset=None,
+                  ctx=None) -> torch.Tensor:
     """−∮ 2ν S·n dS (`viscous_force`, `Metrics.jl:147-154`), a float64
-    ``(D,)`` tensor on ``u``'s device."""
-    nds = nds_field(body, tuple(u.shape[1:]), t, u.dtype, u.device)
+    ``(D,)`` tensor on ``u``'s device; under decomposition ``u``'s ghosts
+    must hold halo values (a stepped state's do)."""
+    nds = nds_field(body, tuple(u.shape[1:]), t, u.dtype, u.device, offset)
     df = -2.0 * nu * torch.einsum("ij...,j...->i...", strain_field(u), nds)
-    return _grid_sum(df)
+    return psum_all(_grid_sum(df), ctx)
 
 
 def total_force(sim) -> torch.Tensor:
     """Pressure + viscous force on the body of a `Simulation`
-    (`total_force`, `Metrics.jl:160`)."""
+    (`total_force`, `Metrics.jl:160`); a `DistSimulation` sums its shards'
+    (`DistSimulation.total_force`)."""
+    if hasattr(sim, "shards"):
+        return sim.total_force()
     st = sim.flow.state
     return (pressure_force(st.p, sim.body, sim.time)
             + viscous_force(st.u, st.nu, sim.body, sim.time))
@@ -192,33 +202,38 @@ def _cross_field(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.linalg.cross(a, b, dim=0)
 
 
-def _rel_coords(shape, x0, dtype, device) -> torch.Tensor:
+def _rel_coords(shape, x0, dtype, device, offset=None) -> torch.Tensor:
     D = len(shape)
-    x = loc_grid(None, tuple(shape), dtype, device)
+    x = loc_grid(None, tuple(shape), dtype, device, offset)
     return x - torch.as_tensor(x0, dtype=dtype, device=device).reshape((D,) + (1,) * D)
 
 
-def pressure_moment(x0, p: torch.Tensor, body: Body, t=0.0) -> torch.Tensor:
+def pressure_moment(x0, p: torch.Tensor, body: Body, t=0.0, offset=None,
+                    ctx=None) -> torch.Tensor:
     """∮ p (x − x0)×n dS (`pressure_moment`, `Metrics.jl:166-173`), a
     float64 tensor on ``p``'s device: ``(1,)`` in 2-D, ``(3,)`` in 3-D."""
-    nds = nds_field(body, tuple(p.shape), t, p.dtype, p.device)
-    rel = _rel_coords(p.shape, x0, p.dtype, p.device)
-    return _grid_sum(p[None] * _cross_field(rel, nds))
+    nds = nds_field(body, tuple(p.shape), t, p.dtype, p.device, offset)
+    rel = _rel_coords(p.shape, x0, p.dtype, p.device, offset)
+    return psum_all(_grid_sum(p[None] * _cross_field(rel, nds)), ctx)
 
 
-def viscous_moment(x0, u: torch.Tensor, nu, body: Body, t=0.0) -> torch.Tensor:
+def viscous_moment(x0, u: torch.Tensor, nu, body: Body, t=0.0, offset=None,
+                   ctx=None) -> torch.Tensor:
     """−∮ 2ν (x − x0)×(S·n) dS (`viscous_moment`, `Metrics.jl:179-190`), a
     float64 tensor on ``u``'s device."""
     sp = tuple(u.shape[1:])
-    nds = nds_field(body, sp, t, u.dtype, u.device)
+    nds = nds_field(body, sp, t, u.dtype, u.device, offset)
     Sn = torch.einsum("ij...,j...->i...", strain_field(u), nds)
-    rel = _rel_coords(sp, x0, u.dtype, u.device)
-    return _grid_sum(-2.0 * nu * _cross_field(rel, Sn))
+    rel = _rel_coords(sp, x0, u.dtype, u.device, offset)
+    return psum_all(_grid_sum(-2.0 * nu * _cross_field(rel, Sn)), ctx)
 
 
 def total_moment(x0, sim) -> torch.Tensor:
     """Pressure + viscous moment about ``x0`` on the body of a `Simulation`
-    (`total_moment`, `Metrics.jl:195-197`)."""
+    (`total_moment`, `Metrics.jl:195-197`); a `DistSimulation` sums its
+    shards'."""
+    if hasattr(sim, "shards"):
+        return sim.total_moment(x0)
     st = sim.flow.state
     return (pressure_moment(x0, st.p, sim.body, sim.time)
             + viscous_moment(x0, st.u, st.nu, sim.body, sim.time))
