@@ -161,7 +161,10 @@ Phases (each prints its own lines; any failure exits non-zero):
    colours, told from K7 by a tally of its calls) against
    ``PATH_KERNELS[("sphere-dist", engine)]``, with K1, K7, K8 and K9 at 0;
    u after step 10 within 1e-3·max|u| of the single-device run, iterations
-   within one per solve; (d) ``torch.cuda.device_count()``, and (c)'s flat
+   within one per solve; then one more flat step in which the arguments of
+   the last fine-level call of K14, K11, K16 and K6 by an inner shard
+   (both x ghosts from the ring) are kept, and each kernel is held against
+   its plain version on them at its phase-3 tolerance; (d) ``torch.cuda.device_count()``, and (c)'s flat
    case on distinct cards when there are at least two (else a line that it
    was skipped).
 
@@ -187,6 +190,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 SEED = 0
@@ -1882,6 +1886,9 @@ DIST_MESHES = {"flat": (4,), "3d": (2, 2)}
 # the kernels that must not run on the distributed flat engine (K7 is
 # `incr_gs_k` with colours: counted by `incr_gs_tally`)
 DIST_ABSENT = ("conv_diff_bdim_k", "bc_div_k", "projbc_k")
+# the shard of the (4,) mesh whose kernel calls 10c replays: an inner one,
+# both of its x ghosts from the ring (`ShardPool` names its threads)
+DIST_SHARD_THREAD = "waterlily-shard-1"
 
 
 @contextlib.contextmanager
@@ -1901,6 +1908,64 @@ def incr_gs_tally(fz, tally):
         yield tally
     finally:
         fz._incr_gs_launch = launch
+
+
+@contextlib.contextmanager
+def shard_calls(st, fz, shape, calls):
+    """While it runs, keep in ``calls`` a copy of the arguments of the last
+    call that the shard of ``DIST_SHARD_THREAD`` makes of each kernel of the
+    flat dist path on fields of its fine ``shape`` (of `incr_gs_k`, K6: no
+    colours), beside the kernel's wrapper and its plain version."""
+    wrappers = {"bdim_k": (st, st.bdim_plain), "div_k": (fz, fz.div_plain),
+                "mult_k": (st, st.mult_plain), "incr_gs_k": (fz, fz.incr_gs_plain)}
+    saved = {name: getattr(mod, name) for name, (mod, _) in wrappers.items()}
+
+    def keeper(name, fn, plain):
+        def kept(*args):
+            if (threading.current_thread().name == DIST_SHARD_THREAD
+                    and tuple(args[0].shape[-3:]) == shape
+                    and (name != "incr_gs_k" or not len(args[6]))):
+                calls[name] = (fn, plain, tuple(
+                    a.clone() if hasattr(a, "clone") else a for a in args))
+            return fn(*args)
+        return kept
+
+    for name, (mod, plain) in wrappers.items():
+        setattr(mod, name, keeper(name, saved[name], plain))
+    try:
+        yield calls
+    finally:
+        for name, (mod, _) in wrappers.items():
+            setattr(mod, name, saved[name])
+
+
+def dist_shard_check(torch, st, fz, d, stats) -> list:
+    """10c's replay (module docstring): one more step of the flat `d`, then
+    each kept kernel call against its plain version; the failures."""
+    calls, failures = {}, []
+    with shard_calls(st, fz, tuple(d.local_shape), calls):
+        d.step_once(remeasure=False)
+    for name in sorted(PATH_KERNELS[("sphere-dist", "flat")]):
+        if name not in calls:
+            failures.append(f"(c) flat: shard 1 made no fine-level {name} call")
+            continue
+        kern, plain, args = calls[name]
+        got, want = kern(*args), plain(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        tols = KERNELS[name][0]
+        for k, (a, b) in enumerate(zip(got, want)):
+            tol = tols[k] if isinstance(tols, tuple) else tols
+            err = (a - b).abs().max().item()
+            rel = err / max(b.abs().max().item(), 1e-30)
+            print(f"phase10c {name:10s} shard 1 of (4,) {tuple(args[0].shape)} out{k} "
+                  f"max|d|={err:.3e} rel={rel:.3e} tol={tol:.1e}", flush=True)
+            if not (bool(torch.isfinite(a).all()) and rel <= tol):
+                failures.append(f"(c) flat: {name} on shard 1 output {k}: relative "
+                                f"error {rel:.3e} > {tol:.0e} or non-finite")
+            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+    return failures
 
 
 def dist_sphere(torch, wt, n: int, dev, dtype, engine: str):
@@ -1938,10 +2003,10 @@ def dist_run(torch, wt, st, fz, sim, mesh, engine: str, steps: int):
                 peak=torch.cuda.max_memory_allocated())
 
 
-def phase_dist(torch, wt, st, dev):
+def phase_dist(torch, wt, st, dev, stats):
     """Phase 10 (module docstring).  Returns the 256³ runs' counts as
     paths; the failures are collected and raised after every case
-    printed."""
+    printed.  The shard replay's errors join ``stats`` (phase 3's)."""
     import copy
 
     from waterlily_tpu_torch.ops import fused3d as fz
@@ -2037,6 +2102,8 @@ def phase_dist(torch, wt, st, dev):
         if not (du <= 1e-3 and len(d.pois_n) == len(pois1) and all(
                 abs(a - b) <= 1 for a, b in zip(d.pois_n, pois1))):
             failures.append(f"(c) {engine}: u or the iterations differ from one device")
+        if engine == "flat":
+            failures += dist_shard_check(torch, st, fz, d, stats)
         d.close()
         del d, dsim, u1
         runs[("sphere-dist", engine)] = dict(counts=r["counts"], ms_step=ms,
@@ -2113,7 +2180,7 @@ def main() -> int:
     del pcg["sim"]
     ad = phase_ad(torch, wt, st, dev)
     runs.update(ad)
-    dist = phase_dist(torch, wt, st, dev)
+    dist = phase_dist(torch, wt, st, dev, stats)
     runs.update(dist)
     check(set(runs) | {("launch", "tool")} == set(PATH_KERNELS),
           "phase6-10: a path was not run")

@@ -1098,8 +1098,8 @@ def test_dist_shards_on_their_own_streams(dev):
     base = dist_sphere(32, dev)
     mesh = wt.make_mesh((2,), [dev] * 2)
     a = wt.DistSimulation(copy.deepcopy(base), mesh, engine="flat", timeout=60)
-    b = wt.DistSimulation(base, mesh, engine="flat", timeout=60,
-                          streams=[torch.cuda.Stream(dev), torch.cuda.Stream(dev)])
+    b = wt.DistSimulation(base, mesh, engine="flat", timeout=60)
+    b.pool.streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
     for _ in range(2):
         a.step_once(remeasure=False)
         b.step_once(remeasure=False)

@@ -285,7 +285,7 @@ def test_worker_exception_reaches_the_caller():
 
 
 def test_missed_rendezvous_raises_within_its_limit():
-    comm, pool = _pool(4, 1.0)
+    comm, pool = _pool(4, 0.25)
     try:
         def fn(r):
             if r == 1:

@@ -93,10 +93,6 @@ def particles_from_numpy(arrays: Mapping[str, np.ndarray], device,
                      life=life)
 
 
-# the tensor axes that lead the spatial ones, per field
-_LEADS = {"u": 1, "u0": 1, "p": 0, "V": 1, "mu0": 1, "mu1": 2}
-
-
 def fields_from_blocked(arrays: Mapping[str, np.ndarray], sizes: Sequence[int],
                         device, dtype: torch.dtype) -> dict:
     """Dense single-device tensors from a distributed run's fields in the
@@ -106,10 +102,10 @@ def fields_from_blocked(arrays: Mapping[str, np.ndarray], sizes: Sequence[int],
     dim ``sizes``.  The keys name the fields (`FlowState`'s: ``u``, ``u0``,
     ``p``, ``V``, ``mu0``, ``mu1``); the dense ``u`` and ``p`` restart a
     port run through `DistSimulation.restore_fields`."""
-    from .parallel.dist import from_blocked
+    from .parallel.dist import _LEAD, from_blocked
 
-    unknown = set(arrays) - set(_LEADS)
+    unknown = set(arrays) - set(_LEAD)
     if unknown:
         raise KeyError(f"fields_from_blocked: unknown fields {sorted(unknown)}")
-    return {k: _tensor(from_blocked(np.asarray(a), tuple(sizes), _LEADS[k]), device, dtype)
+    return {k: _tensor(from_blocked(np.asarray(a), tuple(sizes), _LEAD[k]), device, dtype)
             for k, a in arrays.items()}

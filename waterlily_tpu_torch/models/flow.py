@@ -54,7 +54,7 @@ from ..ops.bc import apply_vector, bc_vector, eval_points, exit_bc
 from ..ops.dist import (edge_hi, edge_lo, fetch_hi, fetch_lo, offsets,
                         pmax_all, sharded, sync_vector)
 from ..ops.fused3d import cfl_max, div_field, proj_correct
-from ..ops.grid import interior, set_interior, shift, slab, zero_ghost
+from ..ops.grid import interior, set_interior, shift, slab
 from ..ops.stencil3d import cds, median3, quick, vanleer
 
 __all__ = [
@@ -250,14 +250,7 @@ def bdim_update(u, u0, f, V, mu0, mu1, dt, ctx=None) -> torch.Tensor:
     that straddle shards; edge ghosts keep their values), in plain
     PyTorch."""
     if ctx is not None:
-        fp = sync_vector(u0 + dt * f - V, ctx)
-        terms = []
-        for i in range(u.shape[0]):
-            mu_ddn = torch.zeros_like(fp[i])
-            for j in range(u.shape[0]):
-                mu_ddn = mu_ddn + mu1[i, j] * (shift(fp[i], j, 1) - shift(fp[i], j, -1))
-            terms.append(0.5 * mu_ddn + V[i] + mu0[i] * fp[i])
-        return u + zero_ghost(torch.stack(terms), u.shape[0])
+        return st.bdim_apply(u, sync_vector(u0 + dt * f - V, ctx), V, mu0, mu1)
     if st.use_kernels(u[0]):
         return st.bdim_k(u, u0, f, V, mu0, mu1, dt)
     return st.bdim_plain(u, u0, f, V, mu0, mu1, dt)

@@ -283,15 +283,14 @@ class ShardPool:
     its job, runs it in its turn (`Communicator.take_turn`), in a copy of
     the caller's `contextvars` context (so that `stencil3d.plain_ops()` and
     the like reach the shards) and, on CUDA, under the shard's stream
-    (``streams``, else the thread's current stream), ordered after the
-    caller's current stream and before it.  The workers are daemon threads;
-    `close` stops them."""
+    (``streams``: None, the thread's current stream, or a list of one CUDA
+    stream a shard, set before `run`), ordered after the caller's current
+    stream and before it.  The workers are daemon threads; `close` stops
+    them."""
 
-    def __init__(self, comm: Communicator, streams=None):
+    def __init__(self, comm: Communicator):
         self.comm = comm
-        self.streams = None if streams is None else list(streams)
-        if self.streams is not None and len(self.streams) != comm.n:
-            raise ValueError(f"{len(self.streams)} streams for {comm.n} shards")
+        self.streams = None
         self._queues = [queue.SimpleQueue() for _ in range(comm.n)]
         self._threads = [threading.Thread(target=self._work, args=(r,), daemon=True,
                                           name=f"waterlily-shard-{r}")

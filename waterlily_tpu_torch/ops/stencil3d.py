@@ -287,8 +287,12 @@ def bdim_plain(u, u0, f, V, mu0, mu1, dt) -> torch.Tensor:
     """BDIM update (`BDIM!`, `Flow.jl:176-180`): ``f* = u0 + dt·f − V``, then
     ``u_i += ½Σ_j μ1[i,j](f*_i(+e_j) − f*_i(−e_j)) + V_i + μ0_i·f*_i`` on
     interior faces; ghosts keep ``u``."""
+    return bdim_apply(u, u0 + dt * f - V, V, mu0, mu1)
+
+
+def bdim_apply(u, fp, V, mu0, mu1) -> torch.Tensor:
+    """The BDIM update of `bdim_plain` from a given ``f* = fp``."""
     D = u.shape[0]
-    fp = u0 + dt * f - V
     terms = []
     for i in range(D):
         mu_ddn = torch.zeros_like(fp[i])

@@ -48,8 +48,7 @@ from ..models import flowflat as ff
 from ..models.body import NoBody, measure_fill
 from ..ops import _build
 from ..ops import multigrid as mg
-from ..ops.dist import (DEFAULT_TIMEOUT, Communicator, ShardPool, make_ctx,
-                        offsets)
+from ..ops.dist import DEFAULT_TIMEOUT, Communicator, ShardPool, make_ctx
 from ..simulation import ENGINES, Simulation, _as_dtype
 from ..utils import metrics as mt
 
@@ -160,13 +159,13 @@ class DistSimulation:
     and at least the finest multigrid level must stay distributable.
     ``engine`` is "auto", "flat" (a 3-D flow split over x only) or "3d".
     ``timeout`` is the seconds a shard waits at a rendezvous before it
-    raises; ``streams`` (one CUDA stream a shard, optional) runs each
-    shard's work on its own stream.  ``psolver="pcg"`` and a ``udf`` are
-    not ported ([dist-2]).  The wrapped ``sim`` keeps the time-step and
-    iteration history; its fields are the ones it was built with."""
+    raises.  ``psolver="pcg"`` and a ``udf`` are not ported ([dist-2]).
+    The wrapped ``sim`` keeps the time-step and iteration history; its
+    fields are the ones it was built with.  ``pool.streams`` (one CUDA
+    stream a shard) runs each shard's work on a stream of its own."""
 
     def __init__(self, sim: Simulation, mesh: Mesh, engine: str = "auto",
-                 timeout: float = DEFAULT_TIMEOUT, streams=None):
+                 timeout: float = DEFAULT_TIMEOUT):
         if sim.psolver == "pcg":
             raise NotImplementedError("DistSimulation: psolver='pcg' under domain "
                                       "decomposition is not ported ([dist-2])")
@@ -204,7 +203,7 @@ class DistSimulation:
         if any(d.type == "cuda" for d in mesh.devices):
             _build.load()      # build the kernels once, here, not in every worker
         self.comm = Communicator(mesh.shape, mesh.devices, timeout)
-        self.pool = ShardPool(self.comm, streams)
+        self.pool = ShardPool(self.comm)
         weakref.finalize(self, self.pool.close)
         self.local_shape = tuple((n - 2) // k + 2 for n, k in zip(cfg.shape, self.sizes))
         self.shards = [Shard(make_ctx(self.axes, self.sizes, self.local_shape,
@@ -409,14 +408,13 @@ class DistSimulation:
         def one(rank):
             sh = self.shards[rank]
             st, ctx = sh.state, sh.ctx
-            off = offsets(ctx, tuple(st.p.shape))
             body = self.sim.body
-            f = (mt.pressure_force(st.p, body, t, off, ctx)
-                 + mt.viscous_force(st.u, st.nu, body, t, off, ctx))
+            f = (mt.pressure_force(st.p, body, t, ctx)
+                 + mt.viscous_force(st.u, st.nu, body, t, ctx))
             if x0 is None:
                 return f
-            return (mt.pressure_moment(x0, st.p, body, t, off, ctx)
-                    + mt.viscous_moment(x0, st.u, st.nu, body, t, off, ctx))
+            return (mt.pressure_moment(x0, st.p, body, t, ctx)
+                    + mt.viscous_moment(x0, st.u, st.nu, body, t, ctx))
         return self.pool.run(one)[0]
 
     def total_force(self) -> torch.Tensor:

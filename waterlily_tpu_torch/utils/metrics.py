@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..models.body import Body, _interior_points, _measure_points, kern
-from ..ops.dist import psum_all
+from ..ops.dist import offsets, psum_all
 from ..ops.grid import grow, loc_grid, shift
 
 __all__ = [
@@ -164,21 +164,25 @@ def nds_field(body: Body, shape: tuple[int, ...], t=0.0, dtype=torch.float32,
     return torch.stack([grow(vals[i]) for i in range(D)])
 
 
-def pressure_force(p: torch.Tensor, body: Body, t=0.0, offset=None,
-                   ctx=None) -> torch.Tensor:
+def _offset(ctx, shape):
+    """A shard's global index offset (`dist.offsets`); None on one device."""
+    return None if ctx is None else offsets(ctx, tuple(shape))
+
+
+def pressure_force(p: torch.Tensor, body: Body, t=0.0, ctx=None) -> torch.Tensor:
     """∮ p n dS over the body (`pressure_force`, `Metrics.jl:126-133`), a
-    float64 ``(D,)`` tensor on ``p``'s device; summed over the shards under
-    ``ctx`` (``offset``: the shard's, `dist.offsets`)."""
-    nds = nds_field(body, tuple(p.shape), t, p.dtype, p.device, offset)
+    float64 ``(D,)`` tensor on ``p``'s device; under ``ctx`` each shard's
+    integral at global coordinates, summed over the shards."""
+    nds = nds_field(body, tuple(p.shape), t, p.dtype, p.device, _offset(ctx, p.shape))
     return psum_all(_grid_sum(p[None] * nds), ctx)
 
 
-def viscous_force(u: torch.Tensor, nu, body: Body, t=0.0, offset=None,
-                  ctx=None) -> torch.Tensor:
+def viscous_force(u: torch.Tensor, nu, body: Body, t=0.0, ctx=None) -> torch.Tensor:
     """−∮ 2ν S·n dS (`viscous_force`, `Metrics.jl:147-154`), a float64
     ``(D,)`` tensor on ``u``'s device; under decomposition ``u``'s ghosts
     must hold halo values (a stepped state's do)."""
-    nds = nds_field(body, tuple(u.shape[1:]), t, u.dtype, u.device, offset)
+    nds = nds_field(body, tuple(u.shape[1:]), t, u.dtype, u.device,
+                    _offset(ctx, u.shape[1:]))
     df = -2.0 * nu * torch.einsum("ij...,j...->i...", strain_field(u), nds)
     return psum_all(_grid_sum(df), ctx)
 
@@ -208,20 +212,21 @@ def _rel_coords(shape, x0, dtype, device, offset=None) -> torch.Tensor:
     return x - torch.as_tensor(x0, dtype=dtype, device=device).reshape((D,) + (1,) * D)
 
 
-def pressure_moment(x0, p: torch.Tensor, body: Body, t=0.0, offset=None,
-                    ctx=None) -> torch.Tensor:
+def pressure_moment(x0, p: torch.Tensor, body: Body, t=0.0, ctx=None) -> torch.Tensor:
     """∮ p (x − x0)×n dS (`pressure_moment`, `Metrics.jl:166-173`), a
     float64 tensor on ``p``'s device: ``(1,)`` in 2-D, ``(3,)`` in 3-D."""
+    offset = _offset(ctx, p.shape)
     nds = nds_field(body, tuple(p.shape), t, p.dtype, p.device, offset)
     rel = _rel_coords(p.shape, x0, p.dtype, p.device, offset)
     return psum_all(_grid_sum(p[None] * _cross_field(rel, nds)), ctx)
 
 
-def viscous_moment(x0, u: torch.Tensor, nu, body: Body, t=0.0, offset=None,
+def viscous_moment(x0, u: torch.Tensor, nu, body: Body, t=0.0,
                    ctx=None) -> torch.Tensor:
     """−∮ 2ν (x − x0)×(S·n) dS (`viscous_moment`, `Metrics.jl:179-190`), a
     float64 tensor on ``u``'s device."""
     sp = tuple(u.shape[1:])
+    offset = _offset(ctx, sp)
     nds = nds_field(body, sp, t, u.dtype, u.device, offset)
     Sn = torch.einsum("ij...,j...->i...", strain_field(u), nds)
     rel = _rel_coords(sp, x0, u.dtype, u.device, offset)
