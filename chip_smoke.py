@@ -166,14 +166,42 @@ Phases (each prints its own lines; any failure exits non-zero):
    (both x ghosts from the ring) are kept, and each kernel is held against
    its plain version on them at its phase-3 tolerance; (d) ``torch.cuda.device_count()``, and (c)'s flat
    case on distinct cards when there are at least two (else a line that it
-   was skipped).
+   was skipped); (e) the 256³ PCG sphere of phase 7 on (4,) (3d engine:
+   K16 for every A·x of each shard's conjugate gradient, nothing else), 3
+   steps, after each against the same steps under ``plain_ops()`` and
+   against phase 7's single-device steps, held as phase 7 holds its run
+   (iterations within one, u and p within 1e-4 and 1e-3 of max after step
+   1, after step 3 within those or 4 times phase 7's twin distance), K16
+   launched once per CG iteration and shard; (f) the 256³ LES sphere of
+   4d on (4,) with the flat engine, 3 steps (K14, K11, K16 and K6 on every
+   shard, K7 never) against the same steps under ``plain_ops()`` at (b)'s
+   limits, and the 64³ float64 sphere with the LES against one device
+   (1e-10, equal ``pois_n``); (g) `torch.func.jvp` in ν of one 3d step on
+   (4,), each shard's through `shard_jvp`: float64 64³ against the
+   single-device jvp (1e-10 of max, a non-zero tangent, equal iterations
+   of every primal and tangent solve), then the 256³ float32 sphere's jvp
+   step timed beside its decomposed primal step (K16 on the replicated
+   coarsest level of both solves) and held against the same jvp step under
+   ``plain_ops()``, against the single device's jvp step after the same
+   primal steps of its own, with its kernels and under ``plain_ops()``,
+   and, from the single device's state, against its jvp step (u and p
+   within 1e-4 and 1e-3 of max, the tangents and d(dt)/dν within
+   ``AD_SPHERE_TOL``, iterations within one); (h) the 64³
+   oscillating sphere of 4i in float64 on (4,) with the flat engine,
+   re-measured every step (its surface crosses the shard bound x = 16), 5
+   steps against one device (1e-10, p weighted by each cell's largest face
+   L as in phase 5, equal ``pois_n``), and the single device on the CPU
+   against the card to the same limits (its unweighted p printed: a
+   near-singular cell's p moves with the order of the sums).  Each of (e)-(g) prints its ms/step,
+   collectives and launches per step.
 
 Before its last line it prints one JSON object with each kernel's launches
-(summed over the phase-4 runs a-g and i and the phase-6, 7, 9 and 10 runs), error,
+(summed over the phase-4 runs a-g and i and the phase-6, 7, 9 and 10 (c, e-g) runs), error,
 times, bound, host µs per call, the launches of the 4h table
 (``tool_launches``, kept out of ``launches``), of the PCG run
 (``pcg_launches``), of the AD runs (``ad_launches``) and of the 256³
-distributed runs (``dist_launches``, all three in ``launches``), and the
+distributed runs of 10c and 10e-g (``dist_launches``, all three in
+``launches``), and the
 card's name and power limit;
 the last line is ``{"ok": true, "device": {...}}``.  Needs no JAX and no
 network.
@@ -397,6 +425,13 @@ PATH_KERNELS = {
     # under decomposition but for K16 on the replicated coarsest level
     ("sphere-dist", "flat"): {"bdim_k", "div_k", "mult_k", "incr_gs_k"},
     ("sphere-dist", "3d"): {"mult_k"},
+    # phase 10e-g: PCG on the 3d engine, K16 for every A·x of each shard's
+    # conjugate gradient; the LES on the flat engine, the four kernels of
+    # the flat dist path; the jvp of a 3d step, K16 on the replicated
+    # coarsest level of the primal and tangent solves
+    ("pcg-dist", "3d"): {"mult_k"},
+    ("les-dist", "flat"): {"bdim_k", "div_k", "mult_k", "incr_gs_k"},
+    ("ad-dist", "3d"): {"mult_k"},
     # `tools/launch_cost.py` calls every wrapper
     ("launch", "tool"): set(KERNELS),
 }
@@ -415,7 +450,8 @@ HOST_ROW = {"conv_diff_k": "conv_diff_k", "conv_diff_bdim_k": "conv_diff_bdim_k"
 # the paths of phases 6 and 7
 LATER_PATHS = {("circle", "3d"), ("circle-64", "3d"), ("foil", "3d"), ("pcg", "3d"),
                ("ad-sphere", "3d"), ("ad-tgv", "3d"), ("sphere-dist", "flat"),
-               ("sphere-dist", "3d")}
+               ("sphere-dist", "3d"), ("pcg-dist", "3d"), ("les-dist", "flat"),
+               ("ad-dist", "3d")}
 # (configuration, engine) in the order phase 4 runs them
 MAIN_RUNS = [(c, e) for c in ("sphere", "tgv", "drag", "les", "ramp")
              for e in ("flat", "3d")] + [("sphere-mp", "flat"), ("sphere-s2", "flat"),
@@ -878,11 +914,13 @@ def ramp_sim(torch, wt, n: int, dev, **kw):
                          body=body, dtype=torch.float32, device=dev, **kw)
 
 
-def moving_sim(torch, wt, n: int, dev, **kw):
+def moving_sim(torch, wt, n: int, dev, dtype=None, **kw):
     """`bench.py`'s moving rung: the sphere of `sphere_sim` oscillating in x
-    under the map x − (A sin ωt, 0, 0), A = radius/2, ω = 1/radius."""
+    under the map x − (A sin ωt, 0, 0), A = radius/2, ω = 1/radius (float32
+    unless ``dtype`` is given)."""
     radius = n // 8
-    ctr = torch.tensor([n / 3, n / 2, n / 2], dtype=torch.float32, device=dev)
+    dtype = dtype or torch.float32
+    ctr = torch.tensor([n / 3, n / 2, n / 2], dtype=dtype, device=dev)
     amp, om = radius / 2.0, 1.0 / radius
 
     def sdf(x, t):
@@ -891,8 +929,7 @@ def moving_sim(torch, wt, n: int, dev, **kw):
     def map_fn(x, t):
         return x - torch.stack([amp * torch.sin(om * t), 0 * t, 0 * t])
     return wt.Simulation((n, n, n), (1.0, 0.0, 0.0), radius, nu=radius / 1e3,
-                         body=wt.AutoBody(sdf, map_fn), dtype=torch.float32,
-                         device=dev, **kw)
+                         body=wt.AutoBody(sdf, map_fn), dtype=dtype, device=dev, **kw)
 
 
 def circle_sim(torch, wt, radius: int, dev, **kw):
@@ -1545,7 +1582,9 @@ def phase_pcg(torch, wt, st, dev):
     1e-3·max|p| of the plain run (the phase-5 limits); after step
     ``PCG_STEPS`` within those limits or within ``PCG_SENSITIVITY`` times the
     twin's distance from the plain run.  Returns the run (its sim is the
-    utilities' state)."""
+    utilities' state; ``ref``: u and p after each of the first
+    ``DIST_PCG_STEPS`` steps, and ``sens``: the twin's distance after each
+    step, for phase 10e)."""
     from waterlily_tpu_torch.utils import log
 
     tag = f"phase7 pcg {FINE}^3"
@@ -1583,13 +1622,14 @@ def phase_pcg(torch, wt, st, dev):
 
     def rel(a, b):
         return (a - b).abs().max().item() / b.abs().max().item()
-    failures = []
+    failures, sens = [], []
     for step, (u, p) in enumerate(states, 1):
         with st.plain_ops():
             plain.sim_step(remeasure=False)
             twin.sim_step(remeasure=False)
         du, dp = rel(u, plain.flow.u), rel(p, plain.flow.p)
         su, sp = rel(twin.flow.u, plain.flow.u), rel(twin.flow.p, plain.flow.p)
+        sens.append((su, sp))
         n_ok = all(abs(a - b) <= 1 for a, b in zip(sim.pois_n[:2 * step], plain.pois_n))
         print(f"{tag} step {step}, kernels vs plain_ops(): pois_n {sim.pois_n[2 * step - 2:2 * step]}"
               f" vs {plain.pois_n[-2:]}; max|du|/max|u| {du:.3e}, max|dp|/max|p| {dp:.3e}; "
@@ -1606,10 +1646,11 @@ def phase_pcg(torch, wt, st, dev):
     check(not failures, f"{tag}: kernels and plain versions differ: {failures}")
     check(bool(torch.isfinite(sim.flow.u).all()) and bool(torch.isfinite(sim.flow.p).all()),
           f"{tag}: u or p not finite")
+    ref = states[:DIST_PCG_STEPS]
     del plain, twin, states
     torch.cuda.empty_cache()
     return dict(counts=counts, ms_step=statistics.mean(ms[1:]), pois_n=list(sim.pois_n),
-                peak=peak, sim=sim, log=logger.fname)
+                peak=peak, sim=sim, log=logger.fname, ref=ref, sens=sens)
 
 
 def phase_utils(torch, wt, dev, run):
@@ -2126,6 +2167,375 @@ def phase_dist(torch, wt, st, dev, stats):
     return runs
 
 
+# ------------------------------------------------------------ phase 10e-h
+DIST_PCG_STEPS = 3
+DIST_LES_STEPS = 3
+DIST_MOVING_STEPS = 5
+DIST_AD_STEPS = 2
+
+
+def dist_jvp_step(torch, d, cfg, dt, t0):
+    """`torch.func.jvp` in ν of one `mom_step_impl` of every shard of ``d``
+    (3d engine), each shard's entered with `shard_jvp`: per shard ``((u, p,
+    dt_next), (du, dp, ddt), iterations)``, the iterations of every solve,
+    primal then tangent."""
+    from waterlily_tpu_torch.models import flow as fl
+    from waterlily_tpu_torch.ops import multigrid as mg
+    from waterlily_tpu_torch.ops.dist import shard_jvp
+
+    def one(rank):
+        sh = d.shards[rank]
+
+        def f(nu):
+            st, dt_next, _, _ = fl.mom_step_impl(
+                cfg, dataclasses.replace(sh.state, nu=nu), sh.levels, d.masks, dt, t0,
+                ctx=sh.ctx, n_dist=d.n_dist)
+            return st.u, st.p, dt_next
+        with mg.iteration_log() as log:
+            prim, tan = shard_jvp(sh.ctx, f, (sh.state.nu,),
+                                  (torch.ones_like(sh.state.nu),))
+        return prim, tan, list(log)
+    return d.pool.run(one)
+
+
+def one_jvp_step(torch, sim, dt, t0):
+    """The single-device counterpart of `dist_jvp_step`."""
+    from waterlily_tpu_torch.models import flow as fl
+    from waterlily_tpu_torch.ops import multigrid as mg
+
+    cfg, state = sim.flow.cfg, sim.flow.state
+
+    def f(nu):
+        st, dt_next, _, _ = fl.mom_step_impl(cfg, dataclasses.replace(state, nu=nu),
+                                             sim.levels, sim.masks, dt, t0)
+        return st.u, st.p, dt_next
+    with mg.iteration_log() as log:
+        prim, tan = torch.func.jvp(f, (state.nu,), (torch.ones_like(state.nu),))
+    return prim, tan, list(log)
+
+
+def dist_record(torch, tag, d, ms, counts, steps):
+    """Print the ms per step, collectives and launches of a run; its dict."""
+    ncoll = sum(d.comm.counts.values())
+    per_step = {k: n / steps for k, n in counts.items() if n}
+    mean = statistics.mean(ms[1:] or ms)
+    print(f"{tag} ms/step {[round(t, 3) for t in ms]} (mean after the first "
+          f"{mean:.3f}); collectives per step {ncoll / steps:.1f} "
+          f"({dict(d.comm.counts)}); halo MiB per step "
+          f"{d.comm.halo_bytes / steps / 2**20:.2f}; launches per step {per_step}",
+          flush=True)
+    return dict(counts=counts, ms_step=mean, collectives=ncoll / steps)
+
+
+def phase_dist2(torch, wt, st, dev, pcg):
+    """Phase 10e-h (module docstring): PCG, the LES udf and forward-mode AD
+    on four shards of the card, and the flat engine with a moving body.
+    ``pcg`` is phase 7's run (its states and sensitivities).  Returns the
+    float32 runs' counts as paths; the failures are collected and raised
+    after every case printed."""
+    import copy
+
+    from waterlily_tpu_torch.ops import fused3d as fz
+
+    one_card = lambda shape: wt.make_mesh(shape, [dev] * math.prod(shape))
+    failures, runs = [], {}
+
+    def rel(a, b):
+        return rel_diff(torch, a, b)
+
+    # (e) PCG, 3d engine, (4,): kernels vs plain_ops() and vs one device
+    tag = f"phase10e pcg-dist {FINE}^3 [3d] on (4,)"
+    base = make_sim(torch, wt, "pcg", FINE, dev)[0]
+    k_run = wt.DistSimulation(copy.deepcopy(base), one_card((4,)))
+    p_run = wt.DistSimulation(base, one_card((4,)))
+    check(k_run.engine == "3d" and [len(lv) for lv in k_run.levels] == [1] * 4,
+          f"{tag}: engine {k_run.engine}, levels {[len(lv) for lv in k_run.levels]}")
+    ms, cg = [], 0
+    pois1 = pcg["pois_n"]
+    for step in range(1, DIST_PCG_STEPS + 1):
+        st.reset_launch_counts()
+        k_run.comm.reset_counts()
+        ms += step_events(torch, lambda: k_run.step_once(remeasure=False), 1)
+        counts = st.launch_counts()
+        if step == 1:
+            first = dist_record(torch, f"{tag} step 1", k_run, ms, counts, 1)
+            total = collections.Counter(counts)
+        else:
+            total.update(counts)
+        with st.plain_ops():
+            p_run.step_once(remeasure=False)
+        if st.launch_counts() != counts:
+            failures.append("(e) the plain_ops() run launched a kernel")
+        cg += 6 * sum(k_run.pois_n[-2:])
+        u1, p1 = pcg["ref"][step - 1]
+        su, sp = pcg["sens"][step - 1]
+        du, dp = rel(k_run.u, p_run.u), rel(k_run.p, p_run.p)
+        du1, dp1 = rel(k_run.u, u1.cpu()), rel(k_run.p, p1.cpu())
+        n_plain = all(abs(a - b) <= 1 for a, b in zip(k_run.pois_n, p_run.pois_n))
+        n_one = all(abs(a - b) <= 1 for a, b in zip(k_run.pois_n, pois1))
+        print(f"{tag} step {step}: pois_n {k_run.pois_n[-2:]}, plain_ops() "
+              f"{p_run.pois_n[-2:]}, one device {pois1[2 * step - 2:2 * step]}; vs plain_ops() "
+              f"max|du|/max|u| {du:.3e}, max|dp|/max|p| {dp:.3e}; vs one device {du1:.3e}, "
+              f"{dp1:.3e}; phase 7's twin {su:.3e}, {sp:.3e}", flush=True)
+        if not (n_plain and n_one):
+            failures.append(f"(e) iteration counts at step {step}")
+        lim_u = 1e-4 if step == 1 else max(1e-4, PCG_SENSITIVITY * su)
+        lim_p = 1e-3 if step == 1 else max(1e-3, PCG_SENSITIVITY * sp)
+        if not (du <= lim_u and dp <= lim_p and du1 <= lim_u and dp1 <= lim_p):
+            failures.append(f"(e) u or p after step {step}")
+    counts = dict(total)
+    k16 = counts["mult_k"]
+    print(f"{tag}: ms/step {[round(t, 3) for t in ms]} (steps 2-{DIST_PCG_STEPS} mean "
+          f"{statistics.mean(ms[1:]):.3f}); K16 launches {k16} = {k16 / cg:.2f} per CG "
+          f"iteration and shard ({k16 / (2 * DIST_PCG_STEPS):.1f} a solve on the four "
+          f"shards); step 1's collectives {first['collectives']:.0f}", flush=True)
+    if k16 != 4 * cg:
+        failures.append(f"(e) K16 launched {k16} times for {cg} CG iterations a shard")
+    for k, n in counts.items():
+        if (n > 0) != (k in PATH_KERNELS[("pcg-dist", "3d")]):
+            failures.append(f"(e) launch count of {k} is {n}")
+    if not (bool(torch.isfinite(torch.as_tensor(k_run.u)).all())):
+        failures.append("(e) u not finite")
+    runs[("pcg-dist", "3d")] = dict(counts=counts, ms_step=statistics.mean(ms[1:]),
+                                    collectives=first["collectives"])
+    k_run.close()
+    p_run.close()
+    del base, k_run, p_run
+    torch.cuda.empty_cache()
+
+    # (f) LES, flat engine, (4,): kernels vs plain_ops(); 64³ f64 vs one device
+    tag = f"phase10f les-dist {FINE}^3 [flat] on (4,)"
+    base, udf = make_sim(torch, wt, "les", FINE, dev)
+    k_run = wt.DistSimulation(copy.deepcopy(base), one_card((4,)), engine="flat")
+    p_run = wt.DistSimulation(base, one_card((4,)), engine="flat")
+    tally = collections.Counter()
+    st.reset_launch_counts()
+    k_run.comm.reset_counts()
+    with incr_gs_tally(fz, tally):
+        ms = step_events(torch, lambda: k_run.step_once(remeasure=False, udf=udf),
+                         DIST_LES_STEPS)
+    counts = st.launch_counts()
+    runs[("les-dist", "flat")] = dist_record(torch, tag, k_run, ms, counts,
+                                             DIST_LES_STEPS)
+    with st.plain_ops():
+        p_run.sim_step_n(DIST_LES_STEPS, udf=udf)
+    if st.launch_counts() != counts:
+        failures.append("(f) the plain_ops() run launched a kernel")
+    du, dp = rel(k_run.u, p_run.u), rel(k_run.p, p_run.p)
+    print(f"{tag} after step {DIST_LES_STEPS}, kernels vs plain_ops(): max|du|/max|u| "
+          f"{du:.3e}, max|dp|/max|p| {dp:.3e}; pois_n {k_run.pois_n} vs {p_run.pois_n}; "
+          f"K6 {tally['K6']}, K7 {tally['K7']}", flush=True)
+    if not (du <= 1e-4 and dp <= 1e-3 and all(
+            abs(a - b) <= 1 for a, b in zip(k_run.pois_n, p_run.pois_n))):
+        failures.append("(f) the LES dist kernels differ from plain_ops() beyond the "
+                        "phase-5 limits")
+    for k, n in counts.items():
+        if (n > 0) != (k in PATH_KERNELS[("les-dist", "flat")]):
+            failures.append(f"(f) launch count of {k} is {n}")
+    if tally["K7"] or not tally["K6"]:
+        failures.append("(f) K7 ran or K6 did not")
+    k_run.close()
+    p_run.close()
+    del base, k_run, p_run
+    torch.cuda.empty_cache()
+    ref = dist_sphere(torch, wt, DIST_SMALL, dev, torch.float64, "flat")
+    d = wt.DistSimulation(copy.deepcopy(ref), one_card((4,)), engine="flat")
+    st.reset_launch_counts()
+    for _ in range(DIST_LES_STEPS):
+        ref.sim_step(remeasure=False, udf=udf)
+        d.step_once(remeasure=False, udf=udf)
+    du, dp = rel(d.u, ref.flow.u.cpu()), rel(d.p, ref.flow.p.cpu())
+    print(f"phase10f f64 les flat (4,) {DIST_SMALL}^3 after {DIST_LES_STEPS} steps vs one "
+          f"device: max|du|/max|u| {du:.3e}, max|dp|/max|p| {dp:.3e}, pois_n {d.pois_n} "
+          f"vs {ref.pois_n}", flush=True)
+    if not (du <= 1e-10 and dp <= 1e-10 and d.pois_n == ref.pois_n):
+        failures.append("(f) the float64 LES on (4,) differs from one device")
+    if any(st.launch_counts().values()):
+        failures.append("(f) float64 LES launched a kernel")
+    d.close()
+    del ref, d
+
+    # (g) forward-mode AD of a decomposed 3d step
+    sim = dist_sphere(torch, wt, DIST_SMALL, dev, torch.float64, "3d")
+    sim.sim_step(remeasure=False)
+    cfg = sim.flow.cfg
+    dt = torch.tensor(sim.flow.dt[-1], dtype=cfg.dtype, device=dev)
+    t0 = torch.tensor(sim.time, dtype=cfg.dtype, device=dev)
+    prim1, tan1, log1 = one_jvp_step(torch, sim, dt, t0)
+    d = wt.DistSimulation(copy.deepcopy(sim), one_card((4,)), engine="3d")
+    res = dist_jvp_step(torch, d, cfg, dt, t0)
+    errs = []
+    for k, lead in ((0, 1), (1, 0)):
+        for part, one in ((0, prim1), (1, tan1)):
+            errs.append(rel(d._dense(lambda sh: res[sh.ctx.rank][part][k], lead),
+                            one[k].cpu()))
+    tmax = max(tan1[0].abs().max().item(), tan1[1].abs().max().item())
+    ddt = [r[1][2].item() for r in res]
+    print(f"phase10g f64 jvp in nu of a 3d step, (4,) {DIST_SMALL}^3 vs one device: "
+          f"relative u, du, p, dp {[f'{e:.3e}' for e in errs]}; max|tangent| {tmax:.3e}; "
+          f"d(dt)/d(nu) {ddt[0]:.9e} vs {tan1[2].item():.9e}; iterations "
+          f"{[r[2] for r in res]} vs {log1}", flush=True)
+    if not (max(errs) <= 1e-10 and tmax > 1e-3 and all(r[2] == log1 for r in res)
+            and all(abs(x - tan1[2].item()) <= 1e-10 * abs(tan1[2].item()) for x in ddt)):
+        failures.append("(g) the float64 decomposed jvp differs from one device, or "
+                        "its tangent is zero")
+    d.close()
+    del sim, d, res
+    tag = f"phase10g ad-dist {FINE}^3 [3d] on (4,)"
+    sim = sphere_sim(torch, wt, FINE, dev, engine="3d")
+    one = copy.deepcopy(sim)
+    cfg = sim.flow.cfg
+    d = wt.DistSimulation(sim, one_card((4,)), engine="3d")
+    primal_ms = step_events(torch, lambda: d.step_once(remeasure=False), DIST_AD_STEPS)
+    for _ in range(DIST_AD_STEPS):
+        one.sim_step(remeasure=False)
+    dt = torch.tensor(d.sim.flow.dt[-1], dtype=cfg.dtype, device=dev)
+    t0 = torch.tensor(d.time, dtype=cfg.dtype, device=dev)
+    st.reset_launch_counts()
+    d.comm.reset_counts()
+    res = []
+    ms = step_events(torch, lambda: res.append(dist_jvp_step(torch, d, cfg, dt, t0)),
+                     DIST_AD_STEPS)
+    counts = st.launch_counts()
+    runs[("ad-dist", "3d")] = dist_record(torch, f"{tag} jvp", d, ms, counts,
+                                          DIST_AD_STEPS)
+    last = res[-1]
+    du = torch.as_tensor(d._dense(lambda sh: last[sh.ctx.rank][1][0], 1))
+    print(f"{tag}: primal ms/step {[round(t, 3) for t in primal_ms]}, jvp ms/step "
+          f"{[round(t, 3) for t in ms]}; max|du/dnu| {du.abs().max().item():.3e}, "
+          f"iterations {last[0][2]}", flush=True)
+    if not (bool(torch.isfinite(du).all()) and du.abs().max().item() > 0
+            and all(r[2] == last[0][2] for r in last)):
+        failures.append("(g) the float32 decomposed jvp is not finite, is zero, or its "
+                        "shards took other iterations")
+    for k, n in counts.items():
+        if (n > 0) != (k in PATH_KERNELS[("ad-dist", "3d")]):
+            failures.append(f"(g) launch count of {k} is {n}")
+    # the same jvp step under plain_ops(), and the single device's jvp step
+    # after the same primal steps (its own kernels): the primal to phase
+    # 5's limits, the tangents and d(dt)/d(nu) to phase 9's, the
+    # iterations within one
+    with st.plain_ops():
+        plain = dist_jvp_step(torch, d, cfg, dt, t0)
+    if st.launch_counts() != counts:
+        failures.append("(g) the plain_ops() jvp launched a kernel")
+    dt1 = torch.tensor(one.flow.dt[-1], dtype=cfg.dtype, device=dev)
+    t1 = torch.tensor(one.time, dtype=cfg.dtype, device=dev)
+    single = one_jvp_step(torch, one, dt1, t1)
+    before = st.launch_counts()
+    with st.plain_ops():
+        single_plain = one_jvp_step(torch, one, dt1, t1)
+    if st.launch_counts() != before:
+        failures.append("(g) the single device's plain_ops() jvp launched a kernel")
+
+    def dense_of(r, sharded):
+        """u, p, du/dν, dp/dν (dense, on the host), d(dt)/dν and each
+        shard's iterations of a jvp step's result."""
+        out = {}
+        for k, lead, name in ((0, 1, "u"), (1, 0, "p")):
+            for part, pre in ((0, ""), (1, "d")):
+                out[pre + name] = torch.as_tensor(
+                    d._dense(lambda sh: r[sh.ctx.rank][part][k], lead) if sharded
+                    else r[part][k].cpu())
+        out["d(dt)"] = (r[0] if sharded else r)[1][2].item()
+        out["logs"] = [x[2] for x in r] if sharded else [r[2]] * len(last)
+        return out
+
+    def compare(a, b):
+        errs = {k: rel(a[k], b[k]) for k in ("u", "du", "p", "dp")}
+        errs["d(dt)"] = abs(a["d(dt)"] - b["d(dt)"]) / abs(b["d(dt)"])
+        diff = (a["du"] - b["du"]).abs()
+        at = tuple(int(i) for i in torch.unravel_index(diff.argmax(), diff.shape))
+        it_ok = all(len(x) == len(y) and all(abs(i - j) <= 1 for i, j in zip(x, y))
+                    for x, y in zip(a["logs"], b["logs"]))
+        return errs, at, it_ok
+
+    mine = dense_of(last, True)
+    refs = {"plain_ops()": dense_of(plain, True),
+            "one device, each after its own primal steps": dense_of(single, False),
+            "one device under plain_ops(), each after its own primal steps":
+                dense_of(single_plain, False)}
+    for against, ref in refs.items():
+        errs, at, it_ok = compare(mine, ref)
+        print(f"{tag}: jvp vs {against}: relative "
+              f"{', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (du's largest at "
+              f"{at}; the shards start at x = {[FINE // 4 * i + 1 for i in range(4)]}); d(dt)/d(nu) "
+              f"{mine['d(dt)']:.9e} vs {ref['d(dt)']:.9e}; iterations {mine['logs'][0]} vs "
+              f"{ref['logs'][0]}", flush=True)
+        if not (errs["u"] <= 1e-4 and errs["p"] <= 1e-3 and it_ok
+                and max(errs["du"], errs["dp"], errs["d(dt)"]) <= AD_SPHERE_TOL):
+            failures.append(f"(g) the float32 decomposed jvp differs from {against} "
+                            "beyond the phase-5 and phase-9 limits")
+        runs[("ad-dist", "3d")][f"vs {against}"] = errs
+    one_k, one_p = list(refs.values())[1:]
+    errs, at, _ = compare(one_k, one_p)
+    print(f"{tag}: one device's jvp, kernels vs plain_ops(): relative "
+          f"{', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (du's largest at {at})",
+          flush=True)
+    # the four shards' jvp step from the single device's own state: the
+    # comparison with one device without the primal steps' divergence
+    d.close()
+    del d, res, last, plain, mine
+    d = wt.DistSimulation(copy.deepcopy(one), one_card((4,)), engine="3d")
+    errs, at, it_ok = compare(dense_of(dist_jvp_step(torch, d, cfg, dt1, t1), True), one_k)
+    print(f"{tag}: jvp from the single device's state vs one device: relative "
+          f"{', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (du's largest at {at})",
+          flush=True)
+    if not (errs["u"] <= 1e-4 and errs["p"] <= 1e-3 and it_ok
+            and max(errs["du"], errs["dp"], errs["d(dt)"]) <= AD_SPHERE_TOL):
+        failures.append("(g) the float32 decomposed jvp from the single device's state "
+                        "differs from one device beyond the phase-5 and phase-9 limits")
+    runs[("ad-dist", "3d")]["vs one device, same state"] = errs
+    runs[("ad-dist", "3d")]["primal_ms_step"] = statistics.mean(primal_ms[1:])
+    d.close()
+    del sim, one, d, single, single_plain, refs, one_k, one_p
+    torch.cuda.empty_cache()
+
+    # (h) the flat engine with a moving body, float64, against one device
+    ref = make_sim(torch, wt, "moving", DIST_SMALL, dev, dtype=torch.float64,
+                   engine="flat")[0]
+    d = wt.DistSimulation(copy.deepcopy(ref), one_card((4,)), engine="flat")
+    # the single device on the CPU: the same run in another order of sums
+    host = make_sim(torch, wt, "moving", DIST_SMALL, torch.device("cpu"),
+                    dtype=torch.float64, engine="flat")[0]
+    st.reset_launch_counts()
+    for k in range(1, DIST_MOVING_STEPS + 1):
+        ref.sim_step(remeasure=True)
+        d.step_once(remeasure=True)
+        host.sim_step(remeasure=True)
+    # p weighted by each cell's largest face L, as phase 5 holds a moving
+    # body: a cell that re-enters the fluid has a near-singular row, whose p
+    # moves with the order of the sums (the CPU's single device, printed)
+    w = face_weight(ref.levels[0].L).cpu()
+    pmax = ref.flow.p.abs().max().item()
+
+    def p_diff(p):
+        diff = (torch.as_tensor(p) - ref.flow.p.cpu()).abs()
+        at = tuple(int(i) for i in torch.unravel_index(diff.argmax(), diff.shape))
+        return (diff * w).max().item() / pmax, diff.max().item() / pmax, at
+    du, (dp, dp_all, at) = rel(d.u, ref.flow.u.cpu()), p_diff(d.p)
+    hu, (hp, hp_all, h_at) = rel(host.flow.u, ref.flow.u.cpu()), p_diff(host.flow.p)
+    print(f"phase10h f64 moving sphere, flat (4,) {DIST_SMALL}^3, re-measured every step, "
+          f"after {DIST_MOVING_STEPS} steps vs one device: max|du|/max|u| {du:.3e}, "
+          f"max|dp|/max|p| {dp:.3e} weighted by the cell's largest face L (unweighted "
+          f"{dp_all:.3e}, largest at {at}, where L is {w[at].item():.3g}), pois_n "
+          f"{d.pois_n} vs {ref.pois_n}; the single device on the CPU vs on the card: "
+          f"max|du|/max|u| {hu:.3e}, max|dp|/max|p| weighted {hp:.3e}, unweighted "
+          f"{hp_all:.3e} at {h_at} (L {w[h_at].item():.3g}), pois_n {host.pois_n}; "
+          f"(4,) vs the CPU's single device: max|dp|/max|p| unweighted "
+          f"{rel(d.p, host.flow.p):.3e}", flush=True)
+    if not (du <= 1e-10 and dp <= 1e-10 and d.pois_n == ref.pois_n):
+        failures.append("(h) the float64 moving flat run on (4,) differs from one device")
+    if not (hu <= 1e-10 and hp <= 1e-10 and host.pois_n == ref.pois_n):
+        failures.append("(h) the float64 moving flat run on the CPU differs from the card")
+    if any(st.launch_counts().values()):
+        failures.append("(h) float64 moving run launched a kernel")
+    d.close()
+    del ref, d, host
+    check(not failures, f"phase10e-h: {'; '.join(failures)}")
+    return runs
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import numpy as np
@@ -2181,6 +2591,8 @@ def main() -> int:
     ad = phase_ad(torch, wt, st, dev)
     runs.update(ad)
     dist = phase_dist(torch, wt, st, dev, stats)
+    dist.update(phase_dist2(torch, wt, st, dev, pcg))
+    del pcg["ref"]
     runs.update(dist)
     check(set(runs) | {("launch", "tool")} == set(PATH_KERNELS),
           "phase6-10: a path was not run")

@@ -1107,3 +1107,39 @@ def test_dist_shards_on_their_own_streams(dev):
     assert a.pois_n == b.pois_n and a.sim.flow.dt == b.sim.flow.dt
     a.close()
     b.close()
+
+
+def test_dist_pcg_direction_k16_vs_plain(dev):
+    """K16 on a CG search direction of an inner shard of (4,) on the card
+    (66×258×258, both x ghosts from the ring by `sync_scalar`) against
+    `mult_plain` at 1e-5; then two CG iterations of `poisson.pcg` under
+    the shard ctx on every shard, which launch K16 once per iteration and
+    shard (the launch counts are the process's: summed over the shards),
+    against the same iterations under `plain_ops()`."""
+    from waterlily_tpu_torch.ops import dist as dd
+
+    k, n = 4, 256
+    shape = (n // k + 2, n + 2, n + 2)
+    comm = dd.Communicator((k,), wt.make_mesh((k,), [dev] * k).devices, 60)
+    pool = dd.ShardPool(comm)
+    data = [inputs(shape, 40 + r, dev) for r in range(k)]
+
+    def one(rank):
+        ctx = dd.make_ctx(("x", None, None), (k, 1, 1), shape, comm, rank)
+        d = data[rank]
+        lev = d["lev"]
+        epsb = dd.sync_scalar(d["eps"], ctx)
+        got, want = st.mult_k(epsb, lev.L, lev.D), st.mult_plain(epsb, lev.L, lev.D)
+        xk, rk = ps.pcg(lev, d["x"], d["r"], it=2, ctx=ctx)
+        with st.plain_ops():
+            xp, rp = ps.pcg(lev, d["x"], d["r"], it=2, ctx=ctx)
+        return rel_err(got, want), rel_err(xk, xp), rel_err(rk, rp)
+
+    st.reset_launch_counts()
+    res = pool.run(one)
+    pool.close()
+    counts = st.launch_counts()
+    assert res[1][0] <= 1e-5
+    # one direct launch and one per CG iteration on every shard, no other
+    assert counts["mult_k"] == k * (1 + 2) and sum(counts.values()) == counts["mult_k"]
+    assert all(r[1] <= 1e-5 and r[2] <= 1e-4 for r in res), res

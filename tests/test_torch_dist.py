@@ -1,7 +1,7 @@
 """The port's `DistSimulation` (`waterlily_tpu_torch.parallel.dist`) on CPU
 meshes of at most four shards, float64, case for case with
-`tests/test_dist.py` (LES and PCG under decomposition are ROADMAP [dist-2]:
-here they must raise).
+`tests/test_dist.py` (PCG, the LES udf, the flat engine's moving body and
+forward-mode AD under decomposition: `tests/test_torch_dist2.py`).
 
 Against the JAX package's `DistSimulation` on its virtual CPU devices, 3
 steps: the 32×16×16 sphere on a (2, 2) mesh with the 3d engine and on a (4,)
@@ -34,7 +34,6 @@ from waterlily_tpu.parallel.dist import make_mesh as make_mesh_j
 from waterlily_tpu_torch import AutoBody, Simulation
 from waterlily_tpu_torch.interop import fields_from_blocked
 from waterlily_tpu_torch.parallel import DistSimulation, make_mesh
-from waterlily_tpu_torch.utils import les
 from waterlily_tpu_torch.utils import metrics as mt
 
 F64 = torch.float64
@@ -289,9 +288,3 @@ def test_refused_configurations(sphere_sim):
                        mesh((4,)))
     with pytest.raises(ValueError, match="x mesh axis only"):
         DistSimulation(copy.deepcopy(sphere_sim), mesh((2, 2)), engine="flat")
-    with pytest.raises(NotImplementedError, match=r"\[dist-2\]"):
-        DistSimulation(Simulation((16, 16, 16), (1.0, 0.0, 0.0), 4.0, dtype=F64,
-                                  psolver="pcg", device="cpu"), mesh((2,)))
-    d = DistSimulation(copy.deepcopy(sphere_sim), mesh((2,)), timeout=TIMEOUT)
-    with pytest.raises(NotImplementedError, match=r"\[dist-2\]"):
-        d.step_once(remeasure=False, udf=les.sgs())

@@ -343,6 +343,56 @@ def test_sent_slab_is_a_copy():
     assert torch.all(lo1 == 0.0) and torch.all(hi1 == 0.0)
 
 
+def test_collectives_carry_tangents():
+    """Under `shard_jvp` every collective exchanges the tangents too, in a
+    rendezvous of its own: the ring, the sum and the gather of tangents;
+    the max takes the tangent of the shards that hold it, averaged over
+    them (here shards 1 and 2 tie).  Each is a jvp in one scalar ``s`` on
+    four shards, against the derivative written out; without `shard_jvp`
+    (each shard's `torch.func.jvp` as it is) the first shard to leave
+    would clear the others' tangents.  A shard whose payload carries no
+    tangent (shard 0's last sum and ring) takes the same route as the
+    others and sends zeros."""
+    comm, pool = _pool(4, TIMEOUT)
+    c, d = (1.0, 3.0, 3.0, 2.0), (5.0, 7.0, 11.0, 13.0)
+
+    def fn(r):
+        ctx = dt.make_ctx(("x",), (4,), (6,), comm, r)
+        base = torch.arange(6, dtype=F64) + 10.0 * r
+
+        def f(s):
+            a = base * (1.0 + 2.0 * s)
+            lo, hi = dt.ring_pair(ctx, a, 0, 0, 4, 1)
+            total = dt.psum_all(a.sum(), ctx)
+            top = dt.pmax_all(c[r] + d[r] * s, ctx)
+            whole = dt.gather_scalar(a, ctx)
+            b = base if r == 0 else a
+            mixed = dt.psum_all(b.sum(), ctx)
+            lo2, _ = dt.ring_pair(ctx, b, 0, 0, 4, 1)
+            return lo, hi, total, top, whole, mixed, lo2
+        s = torch.zeros((), dtype=F64)
+        return dt.shard_jvp(ctx, f, (s,), (torch.ones_like(s),))
+
+    try:
+        comm.reset_counts()
+        res = pool.run(fn)
+    finally:
+        pool.close()
+    # a primal and a tangent exchange each (the max's tangent is a sum of
+    # the masked tangents and the mask); the two fences are not counted
+    assert comm.counts == {"ring": 4, "sum": 5, "max": 1, "gather": 2}
+    whole = torch.cat([torch.arange(1, 5, dtype=F64) + 10.0 * r for r in range(4)])
+    for r, (prim, tan) in enumerate(res):
+        left, right = 10.0 * ((r - 1) % 4), 10.0 * ((r + 1) % 4)
+        assert float(prim[0]) == left + 4 and float(tan[0]) == 2 * (left + 4)
+        assert float(prim[1]) == right + 1 and float(tan[1]) == 2 * (right + 1)
+        assert float(prim[2]) == 15.0 * 4 + 60.0 * 6 and float(tan[2]) == 2 * float(prim[2])
+        assert float(prim[3]) == 3.0 and float(tan[3]) == 9.0
+        assert torch.equal(prim[4][1:-1], whole) and torch.equal(tan[4][1:-1], 2 * whole)
+        assert float(prim[5]) == float(prim[2]) and float(tan[5]) == 2 * (float(prim[2]) - 15.0)
+        assert float(prim[6]) == left + 4 and float(tan[6]) == (0.0 if r == 1 else 2 * (left + 4))
+
+
 def test_make_mesh_needs_a_device():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is visible")

@@ -101,6 +101,19 @@ def test_bc_vector(shape, save_exit):
     close(bc_t.per_bc(T(u), per, lead=1), bc_j.per_bc(J(u), per, lead=1), 1e-14)
 
 
+# the 2-D and 3-D fields of `tests/test_grid_bc.py::test_apply_scalar_vector`
+# and `tests/test_metrics.py` (the hydrostatic pressures)
+@pytest.mark.parametrize("case,shape", [("sum3", (4, 5)), ("y", (32, 32)),
+                                        ("y", (32, 32, 32))])
+def test_apply_scalar(case, shape):
+    fns = {"sum3": lambda x: x[0] + x[1] + 3, "y": lambda x: x[1]}
+    p = bc_t.apply_scalar(fns[case], shape, torch.float64, "cpu")
+    assert p.shape == shape and p.dtype == torch.float64
+    close(p, bc_j.apply_scalar(fns[case], shape, jnp.float64), 0.0)
+    if case == "sum3":      # the Julia test: L2 over the inside is 187
+        assert float(torch.sum(grid_t.interior(p) ** 2)) == pytest.approx(187.0)
+
+
 def test_exit_bc():
     u = field((3, 10, 8, 6), 3)
     u_old = field((3, 10, 8, 6), 4)

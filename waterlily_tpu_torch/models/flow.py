@@ -37,9 +37,13 @@ Distributed (``ctx``, ``n_dist``: the per-shard step of
 `parallel.dist.DistSimulation`): the conv–diff's boundary-slab fluxes come
 from the ring neighbours (`_ring_slabs`), `accelerate` and the BCs take
 global coordinates, ``f*`` is halo-refreshed before the BDIM, the solve is
-`multigrid.solve_mg` with ``ctx`` and the CFL a maximum over the shards.
+`multigrid.solve_mg_implicit` with ``ctx`` and the CFL a maximum over the
+shards; a ``udf`` is called as on one device, as the JAX `_phase` calls it.
 Every op is plain PyTorch under ``ctx`` (the JAX gate
-`pallas3d.use_pallas(a, ctx)`); the flat engine keeps four kernels there.
+`pallas3d.use_pallas(a, ctx)`) but the injected PCG's A·x (K16); the flat
+engine keeps four kernels there.  `torch.func.jvp` of the per-shard step,
+each shard's entered with `ops.dist.shard_jvp`, is the decomposed step's
+forward-mode derivative: the collectives carry the tangents.
 """
 from __future__ import annotations
 
@@ -264,7 +268,7 @@ def project(u: torch.Tensor, p: torch.Tensor, levels, masks, dt_w: float,
     tol, itmx, perdir)`` is the pressure-solver injection point (`pois_ctor`,
     `src/WaterLily.jl:96-97`; default the multigrid solve with its implicit
     forward-mode rule, `multigrid.solve_mg_implicit`, as `flow.py:388-394`
-    of the JAX package; under ``ctx`` the distributed `multigrid.solve_mg`).
+    of the JAX package, distributed under ``ctx``).
     ``dt_w`` is a float or a 0-d tensor.  Returns ``(u, p, iters,
     stats)``."""
     z = div_field(u)
@@ -274,10 +278,9 @@ def project(u: torch.Tensor, p: torch.Tensor, levels, masks, dt_w: float,
                 fine_presmooth=cfg.fine_presmooth, perdir=cfg.perdir)
     if solve_fn is not None:
         res = solve_fn(levels, masks, x, z, cfg.tol, cfg.itmx, cfg.perdir)
-    elif ctx is not None:
-        res = mg.solve_mg(levels, masks, x, z, ctx=ctx, n_dist=n_dist, **opts)
     else:
-        res = mg.solve_mg_implicit(levels, masks, x, z, **opts)
+        res = mg.solve_mg_implicit(levels, masks, x, z, ctx=ctx, n_dist=n_dist,
+                                   **opts)
     x = res.x
     u = bc_vector(proj_correct(u, x, levels[0].L), cfg.ubc, t,
                   save_exit=cfg.exit_bc, perdir=cfg.perdir, ctx=ctx)

@@ -35,7 +35,8 @@ Distributed over x (``ctx``, ``n_dist``: the per-shard step of
 `parallel.dist.DistSimulation`'s flat engine, `flowflat.py:71-345` of the
 JAX package under ``ctx``): no K1, K2, K8, K9 or K10 and no body band.  The
 conv–diff is the plain ring variant (`flow.conv_diff` with ``ctx``) with
-the flat ghost rule, `accelerate` takes global coordinates, ``f``'s x
+the flat ghost rule, a udf's ``flat`` form gets the ctx,
+`accelerate` takes global coordinates, ``f``'s x
 ghosts are ring-refreshed (edge ghosts kept) and K14 runs on the whole
 shard; `BC!` is the plain ring `bc_vector` (and the predictor's
 distributed `exitBC!`), the divergence K11, the solve `mgflat`'s
@@ -115,7 +116,13 @@ def _half_step(u_adv, state: FlowState, cfg: FlowCfg, dt: float, f_t: float,
         f = zero_ghost(conv_diff(u_adv, cfg.scheme, state.nu, cfg.perdir, ctx), 3)
         u = u_adv if keep_base else scale_interior(u_adv, 0.0)
         if udf is not None:
-            f = udf(f, dataclasses.replace(state, u=u), u_adv, f_t)
+            # `udf!` (`Flow.jl:255-257`); on a shard, a udf's ``flat`` form
+            # takes the halo ctx (the JAX `_apply_udf_flat`); any other udf
+            # runs on the shard's block, the same decomposed only when it
+            # does not depend on position, as in the JAX package
+            st_u = dataclasses.replace(state, u=u)
+            f = (udf.flat(f, st_u, u_adv, f_t, ctx)
+                 if ctx is not None and hasattr(udf, "flat") else udf(f, st_u, u_adv, f_t))
         f = accelerate(f, f_t, cfg.g, cfg.ubc, cfg.dtype, ctx)
         if ctx is not None:
             # K14 on the whole shard reads f's x ghosts: the ring's (the
@@ -207,10 +214,7 @@ def mom_step_flat_impl(cfg: FlowCfg, state: FlowState, levels, masks,
     host floats rounded to ``cfg.dtype``, ``udf`` the forcing hook, returns
     ``(state', dt_next (0-d tensor), [iters1, iters2], [stats1, stats2])``.
     ``ctx``/``n_dist``: the step of one shard of a flow decomposed over x
-    (no ``udf``: ROADMAP [dist-2])."""
-    if ctx is not None and udf is not None:
-        raise NotImplementedError("the distributed flat engine takes no udf "
-                                  "([dist-2])")
+    (a ``udf`` with a ``flat`` form gets the ctx)."""
     t1 = t0 + dt
     state = dataclasses.replace(state, u0=state.u)
     # predictor (`Flow.jl:157-161`)

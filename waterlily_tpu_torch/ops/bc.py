@@ -19,7 +19,7 @@ from torch.func import vmap
 from .grid import loc_grid, slab
 
 __all__ = ["eval_points", "bc_field", "bc_vector", "per_bc", "exit_bc",
-           "apply_vector"]
+           "apply_scalar", "apply_vector"]
 
 
 def eval_points(f, pts: torch.Tensor, dtype) -> torch.Tensor:
@@ -182,6 +182,15 @@ def exit_bc(u: torch.Tensor, u_old: torch.Tensor, dt, ctx=None) -> torch.Tensor:
     u = u.clone()
     u[exit_ix] = new - corr
     return u
+
+
+def apply_scalar(f, shape: tuple[int, ...], dtype=torch.float32,
+                 device="cuda") -> torch.Tensor:
+    """A scalar field with ``f(x)`` at every cell centre, ghosts included
+    (`apply!`, `src/Flow.jl:81-83`); ``f`` is written with torch ops on a
+    ``(D,)`` point and is batched with `vmap`."""
+    pts = loc_grid(None, shape, dtype, device).reshape(len(shape), -1).T
+    return eval_points(f, pts, dtype).reshape(shape)
 
 
 def apply_vector(f, D: int, shape: tuple[int, ...], dtype, device) -> torch.Tensor:

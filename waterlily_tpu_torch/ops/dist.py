@@ -39,7 +39,12 @@ asynchronously, as it does for one device.
   and `ShardPool.run` re-raises it in the caller's thread;
 * on CUDA every hand-off carries an event: the sender records it on its
   current stream, the receiver's current stream waits on it, so shards on
-  different streams or different cards exchange correctly.
+  different streams or different cards exchange correctly;
+* inside `shard_jvp` a collective exchanges the primals and then the
+  tangents as plain tensors (autograd Functions with a jvp rule: the ring,
+  the sum and the gather are linear, the max takes the tangent of the
+  shards that hold it), and `shard_jvp` keeps the shards' forward-mode
+  levels nested: a dual tensor never crosses threads.
 
 Every function takes a `DistCtx` (one per shard, built by `make_ctx`);
 ``ctx=None`` (or a mesh extent of 1 in a dim) is the single-device
@@ -64,7 +69,7 @@ from .grid import grow, slab
 __all__ = ["DistCtx", "make_ctx", "sharded", "edge_lo", "edge_hi", "offsets",
            "parity_shift", "fetch_lo", "fetch_hi", "ring_pair",
            "sync_scalar", "sync_vector", "psum_all", "pmax_all",
-           "global_inside_count", "gather_scalar", "slice_local",
+           "global_inside_count", "gather_scalar", "slice_local", "shard_jvp",
            "Communicator", "ShardPool", "CollectiveTimeout",
            "DEFAULT_TIMEOUT"]
 
@@ -110,6 +115,9 @@ class Communicator:
         self._holder: Optional[int] = None
         self._slots = ([None] * self.n, [None] * self.n)
         self._seq = [0] * self.n
+        # each shard's open `shard_jvp`: a zero that carries a tangent at
+        # its forward-mode level, or None
+        self._seed = [None] * self.n
         self._failed: Optional[str] = None
         self.reset_counts()
 
@@ -154,6 +162,9 @@ class Communicator:
         self._barrier.reset()
         self._slots = ([None] * self.n, [None] * self.n)
         self._seq = [0] * self.n
+        # each shard's open `shard_jvp`: a zero that carries a tangent at
+        # its forward-mode level, or None
+        self._seed = [None] * self.n
         self._failed = None
 
     def abort(self, reason: str) -> None:
@@ -207,17 +218,20 @@ class Communicator:
         # current streams and them after it
         return c.to(dev, copy=True)
 
-    def _exchange(self, rank: int, kind: str, payload) -> list:
-        """Deposit ``payload`` (a tensor or a tuple of tensors), wait for
-        every shard, return every shard's deposit (as sent: `_recv` each
-        entry used)."""
+    def _exchange(self, rank: int, kind: str, payload, tag: str = "") -> list:
+        """Deposit ``payload`` (a tensor, a tuple of tensors or None), wait
+        for every shard, return every shard's deposit (as sent: `_recv` each
+        entry used).  ``tag`` tells a tangent's exchange from its primal's
+        (`_RingAD`): a shard at another kind or tag than the others raises.
+        A fence (kind "fence") is not counted."""
         seq = self._seq[rank]
         self._seq[rank] = seq + 1
         buf = self._slots[seq % 2]
+        name = kind + tag
         if isinstance(payload, tuple):
-            buf[rank] = (kind, tuple(self._send(t) for t in payload))
+            buf[rank] = (name, tuple(self._send(t) for t in payload))
         else:
-            buf[rank] = (kind, self._send(payload))
+            buf[rank] = (name, self._send(payload))
         self.give_turn(rank)
         t0 = time.monotonic()
         try:
@@ -226,20 +240,32 @@ class Communicator:
             waited = time.monotonic() - t0
             if self._failed is None and waited >= 0.99 * self.timeout:
                 raise CollectiveTimeout(
-                    f"collective {kind} #{seq}: shard {rank} waited {waited:.1f} s "
+                    f"collective {name} #{seq}: shard {rank} waited {waited:.1f} s "
                     f"(limit {self.timeout:g} s) for the other shards") from None
-            raise _Aborted(f"collective {kind} #{seq} of shard {rank} aborted: "
+            raise _Aborted(f"collective {name} #{seq} of shard {rank} aborted: "
                            f"{self._failed or 'another shard timed out'}") from None
-        self.take_turn(rank, f"its turn after collective {kind} #{seq}")
-        kinds = {e[0] for e in buf}
-        if kinds != {kind}:
+        self.take_turn(rank, f"its turn after collective {name} #{seq}")
+        names = {e[0] for e in buf}
+        if names != {name}:
             raise RuntimeError(f"collective mismatch at #{seq}: shard {rank} is at "
-                               f"{kind}, the shards are at {[e[0] for e in buf]}")
-        if rank == 0:
+                               f"{name}, the shards are at {[e[0] for e in buf]}")
+        if rank == 0 and kind != "fence":
             self.counts[kind] += 1
         return [e[1] for e in buf]
 
     # ------------------------------------------------------------ collectives
+    # Each collective is linear in what a shard sends but the max.  Inside
+    # `shard_jvp` a collective of floating tensors runs as an autograd
+    # Function (`_RingAD`, `_ReduceAD`, `_GatherAD`) whose forward exchanges
+    # the primals as plain tensors and whose jvp rule exchanges the tangents
+    # in a second rendezvous of the same kind (tagged ``'``); the receiving
+    # shard rebuilds the dual in its own level.  The Function also takes the
+    # shard's seed (a zero with a tangent, `shard_jvp`), so its jvp rule runs
+    # on every shard, also where what a shard sends carries no tangent (it
+    # sends zeros): every shard takes the same route whatever it sends.  A
+    # tensor that carries a tangent never reaches another thread: one
+    # shard's dual read in another shard's transform loses its tangent or
+    # passes for the receiver's own.
     def ring(self, rank: int, axis: int, to_next: Optional[torch.Tensor],
              to_prev: Optional[torch.Tensor]):
         """One ring exchange along mesh ``axis``: every shard sends
@@ -247,7 +273,15 @@ class Communicator:
         previous one (either may be None: nothing goes that way); returns
         ``(from_prev, from_next)``: the previous shard's ``to_next`` and the
         next shard's ``to_prev``."""
-        got = self._exchange(rank, "ring", (to_next, to_prev))
+        if self._ad(rank, to_next, to_prev):
+            got = iter(_RingAD.apply(self, rank, axis, "", self._seed[rank], to_next,
+                                    to_prev))
+            return (None if to_next is None else next(got),
+                    None if to_prev is None else next(got))
+        return self._ring(rank, axis, to_next, to_prev)
+
+    def _ring(self, rank, axis, to_next, to_prev, tag=""):
+        got = self._exchange(rank, "ring", (to_next, to_prev), tag)
         self.halo_bytes += sum(t.numel() * t.element_size() for t in (to_next, to_prev)
                                if t is not None)
         dev = self.devices[rank]
@@ -259,8 +293,14 @@ class Communicator:
     def allreduce(self, rank: int, t: torch.Tensor, op: str) -> torch.Tensor:
         """``op`` ("sum" or "max") of every shard's ``t``, elementwise,
         combined in shard order on this shard: the same value on every
-        shard, bit for bit."""
-        got = self._exchange(rank, op, t)
+        shard, bit for bit.  The tangent of a max is that of the shards
+        that hold it, averaged over them (`_ReduceAD`)."""
+        if self._ad(rank, t):
+            return _ReduceAD.apply(self, rank, op, "", self._seed[rank], t)
+        return self._allreduce(rank, t, op)
+
+    def _allreduce(self, rank, t, op, tag=""):
+        got = self._exchange(rank, op, t, tag)
         dev = self.devices[rank]
         acc = self._recv(got[0], dev)
         for item in got[1:]:
@@ -272,10 +312,127 @@ class Communicator:
                    dim: int) -> torch.Tensor:
         """The shards' ``t`` of ``rank``'s ring along mesh ``axis``,
         concatenated along tensor dim ``dim`` in ring order."""
-        got = self._exchange(rank, "gather", t)
+        if self._ad(rank, t):
+            return _GatherAD.apply(self, rank, axis, dim, "", self._seed[rank], t)
+        return self._all_gather(rank, t, axis, dim)
+
+    def _all_gather(self, rank, t, axis, dim, tag=""):
+        got = self._exchange(rank, "gather", t, tag)
         dev = self.devices[rank]
         return torch.cat([self._recv(got[s], dev) for s in self.group(rank, axis)],
                          dim=dim)
+
+    def _ad(self, rank: int, *ts) -> bool:
+        """Whether ``rank``'s collective of ``ts`` exchanges tangents: inside
+        its `shard_jvp`, for floating tensors (a decision that is the same
+        on every shard of the collective)."""
+        return self._seed[rank] is not None and any(
+            t is not None and t.is_floating_point() for t in ts)
+
+    def fence(self, rank: int) -> None:
+        """A rendezvous that exchanges nothing: every shard has reached it
+        before any leaves it (`shard_jvp`)."""
+        self._exchange(rank, "fence", None)
+
+
+def _zeros_for(ts, meta):
+    """``ts`` with each None whose primal was a tensor (``meta``: its shape,
+    dtype and device, or None) replaced by zeros: a tangent exchange sends
+    what its primal exchange sent."""
+    return tuple(t if t is not None or m is None
+                 else torch.zeros(m[0], dtype=m[1], device=m[2])
+                 for t, m in zip(ts, meta))
+
+
+def _meta(t):
+    return None if t is None else (tuple(t.shape), t.dtype, t.device)
+
+
+def _present(*ts):
+    return tuple(t for t in ts if t is not None)
+
+
+# The jvp rules exchange the tangents through the Functions again (with no
+# seed): a tangent reaches the rule wrapped by a functorch level of this
+# thread, and `apply` unwraps it before it is sent.
+
+
+class _RingAD(torch.autograd.Function):
+    """`Communicator.ring` under `shard_jvp`: the ring of the primals, then
+    (jvp) the ring of the tangents, a rendezvous of its own.  Returns the
+    received slabs that exist (``from_prev`` when ``to_next`` is sent, then
+    ``from_next`` when ``to_prev`` is).  ``seed``: the shard's (`_ad`)."""
+
+    @staticmethod
+    def forward(comm, rank, axis, tag, seed, to_next, to_prev):
+        return _present(*comm._ring(rank, axis, to_next, to_prev, tag))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        comm, rank, axis, tag, _, to_next, to_prev = inputs
+        ctx.set_materialize_grads(False)
+        ctx.args = (comm, rank, axis, tag + "'", None)
+        ctx.meta = (_meta(to_next), _meta(to_prev))
+
+    @staticmethod
+    def jvp(ctx, _c, _r, _a, _t, _s, d_next, d_prev):
+        return _RingAD.apply(*ctx.args, *_zeros_for((d_next, d_prev), ctx.meta))
+
+
+class _ReduceAD(torch.autograd.Function):
+    """`Communicator.allreduce` under `shard_jvp`.  A sum's tangent is the
+    sum of the tangents.  A max's tangent is the mean of the tangents of
+    the shards whose value equals the max (one more sum, of the masked
+    tangents and of the mask): the per-shard `torch.max` of a field
+    averages the tangents of its tied cells, so this equals the tangent of
+    the max over the whole field when the shards that tie hold as many tied
+    cells each (as mirror images across a shard bound do).  The JAX
+    package's `pmax` has no forward-mode rule: its decomposed step has no
+    jvp to compare with."""
+
+    @staticmethod
+    def forward(comm, rank, op, tag, seed, t):
+        return comm._allreduce(rank, t, op, tag)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        comm, rank, op, tag, _, t = inputs
+        ctx.set_materialize_grads(False)
+        ctx.args = (comm, rank, tag + "'")
+        ctx.op, ctx.meta = op, (_meta(t),)
+        if op == "max":
+            ctx.save_for_forward(t, output)
+
+    @staticmethod
+    def jvp(ctx, _c, _r, _o, _t, _s, dt):
+        comm, rank, tag = ctx.args
+        (dt,) = _zeros_for((dt,), ctx.meta)
+        if ctx.op == "sum":
+            return _ReduceAD.apply(comm, rank, "sum", tag, None, dt)
+        t, top = ctx.saved_tensors
+        hit = (t == top).to(dt.dtype)
+        s = _ReduceAD.apply(comm, rank, "sum", tag, None, torch.stack([hit * dt, hit]))
+        return s[0] / s[1]
+
+
+class _GatherAD(torch.autograd.Function):
+    """`Communicator.all_gather` under `shard_jvp`: the gather of the
+    tangents (linear)."""
+
+    @staticmethod
+    def forward(comm, rank, axis, dim, tag, seed, t):
+        return comm._all_gather(rank, t, axis, dim, tag)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        comm, rank, axis, dim, tag, _, t = inputs
+        ctx.set_materialize_grads(False)
+        ctx.args = (comm, rank, axis, dim, tag + "'", None)
+        ctx.meta = (_meta(t),)
+
+    @staticmethod
+    def jvp(ctx, _c, _r, _a, _d, _t, _s, dt):
+        return _GatherAD.apply(*ctx.args, *_zeros_for((dt,), ctx.meta))
 
 
 class ShardPool:
@@ -539,3 +696,45 @@ def slice_local(g: torch.Tensor, ctx: DistCtx) -> torch.Tensor:
         else:
             ix.append(slice(None))
     return grow(gi[tuple(ix)])
+
+
+def shard_jvp(ctx: Optional[DistCtx], fn: Callable, primals: tuple,
+              tangents: tuple):
+    """`torch.func.jvp` of ``fn`` on one shard of a mesh (in that shard's
+    worker, e.g. through `ShardPool.run`), with the shards' forward-mode
+    levels nested and every collective of ``fn`` exchanging tangents (the
+    shard's seed: a zero primal with a zero tangent, `Communicator._ad`).
+
+    This rests on how torch runs `torch.func.jvp` in several threads:
+    forward mode's dual level is one for the process, made by the first jvp
+    to enter and cleared on leaving, with every tangent of it, also those of
+    the jvps still open in other threads (a jvp that leaves out of order
+    returns a zero tangent, no error).  So shard 0 enters first (the others
+    wait at a fence inside its transform) and leaves last (it waits at a
+    fence inside its transform for the others to have left theirs): two
+    rendezvous more per call.  A torch that keeps a level per jvp or per
+    thread breaks that order's premise: the decomposed jvps of the tests,
+    held against non-zero single-device tangents, show it.  Without a
+    sharded ``ctx`` it is `torch.func.jvp` itself."""
+    if not _any_sharded(ctx):
+        return torch.func.jvp(fn, primals, tangents)
+    comm, rank = ctx.comm, ctx.rank
+
+    def seeded(seed, *args):
+        if rank == 0:
+            comm.fence(rank)
+        outer, comm._seed[rank] = comm._seed[rank], seed
+        try:
+            out = fn(*args)
+        finally:
+            comm._seed[rank] = outer
+        if rank == 0:
+            comm.fence(rank)
+        return out
+    zero = torch.zeros(())
+    if rank != 0:
+        comm.fence(rank)
+    out = torch.func.jvp(seeded, (zero, *primals), (zero, *tangents))
+    if rank != 0:
+        comm.fence(rank)
+    return out

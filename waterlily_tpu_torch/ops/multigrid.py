@@ -32,7 +32,9 @@ through the host loop instead would give lagged tangents (the loop stops
 when the primal converges, `multigrid.py:371-376` of the JAX package).
 Both solves run inside `torch.autograd.Function` forwards, on plain tensors,
 so that on the card they launch the kernels (K15, K16, K13); `iteration_log`
-collects the iteration counts of the primal and tangent solves.
+collects the iteration counts of the primal and tangent solves.  On a shard
+of a decomposed flow (``ctx``, ``n_dist``) the rule is the same with the
+distributed solves (a jvp of a decomposed step: `dist.shard_jvp`).
 """
 from __future__ import annotations
 
@@ -447,7 +449,8 @@ class _TangentSolve(torch.autograd.Function):
     """``A ẋ = ż − Ȧ(L̇, Ḋ)·x`` by `solve_mg` from the warm start ``ẋ0``;
     ``None`` tangents are zeros.  ``A`` is linear in ``(L, D)``, so ``Ȧ·x``
     is the operator of ``(L̇, Ḋ)`` applied to the solution (`_mult_raw`:
-    K16 on the card).  Ends in `canonical_gauge`, as the primal solve."""
+    K16 on the card; on a shard the solution's halo refreshed first and
+    plain PyTorch).  Ends in `canonical_gauge`, as the primal solve."""
 
     @staticmethod
     def forward(xs, dx0, dz, dL, dD, spec, *flat):
@@ -456,7 +459,10 @@ class _TangentSolve(torch.autograd.Function):
             dL = torch.zeros((xs.dim(),) + xs.shape, dtype=xs.dtype,
                              device=xs.device) if dL is None else dL.contiguous()
             dD = torch.zeros_like(xs) if dD is None else dD.contiguous()
-            rhs = rhs - _mult_raw(PoissonLevel(dL, dD, None), xs)
+            ctx = spec.opts["ctx"] if spec.opts["n_dist"] > 0 else None
+            if ctx is not None:
+                xs = sync_scalar(xs, ctx, spec.opts["perdir"])
+            rhs = rhs - _mult_raw(PoissonLevel(dL, dD, None), xs, ctx)
         x0 = torch.zeros_like(xs) if dx0 is None else dx0.contiguous()
         res = solve_mg(_unflatten(flat, spec.layout), spec.masks, x0, rhs, **spec.opts)
         _record(res.iters)
@@ -481,17 +487,14 @@ def solve_mg_implicit(levels, masks, x: torch.Tensor, z: torch.Tensor,
     the same multigrid, tolerance and options (`_TangentSolve`); the warm
     start's tangent warm-starts it without biasing the result.  Without
     forward-mode AD active this is `solve_mg` itself.  The result's
-    ``iters`` and ``stats`` are the primal solve's.  Single-device: under
-    ``ctx`` it raises (the JAX `solve_mg_implicit(ctx, n_dist)`,
-    `multigrid.py:365`, is ROADMAP [dist-2]); the distributed step calls
-    `solve_mg`."""
-    if ctx is not None:
-        raise NotImplementedError(
-            "solve_mg_implicit runs on one device: the distributed implicit "
-            "tangent solve is not ported ([dist-2]); call solve_mg(ctx=, n_dist=)")
+    ``iters`` and ``stats`` are the primal solve's.  On a shard (``ctx``,
+    ``n_dist``) both solves are the distributed `solve_mg` and the
+    solution is halo-refreshed before ``Ȧ·x`` (the JAX `solve_mg_implicit`
+    with ``ctx``); every shard's tangent solve stops where the others'
+    does, its norms being sums over the shards."""
     opts = dict(tol=tol, itmx=itmx, smooth_it=smooth_it,
                 fine_smooth_it=fine_smooth_it, fine_presmooth=fine_presmooth,
-                perdir=perdir)
+                perdir=perdir, ctx=ctx, n_dist=n_dist)
     if not ad_active():
         res = solve_mg(levels, masks, x, z, **opts)
         _record(res.iters)

@@ -23,10 +23,11 @@ injects in place of the multigrid one; its A·x is K16 as well.
 Under domain decomposition (``ctx``, `ops/dist.py`) each op refreshes the
 ghosts of the field it reads by ring halos (`dist.sync_scalar`), the means
 and norms are sums and maxima over the shards, and the red-black colours
-carry the shard's global parity (`dist.parity_shift`).  Under ``ctx`` these
-ops are plain PyTorch, as the JAX gate `pallas3d.use_pallas(a, ctx)` keeps
-the 3d engine's kernels to one device; the flat engine's solve
-(`ops/mgflat.py`) keeps its kernels under ``ctx``.
+carry the shard's global parity (`dist.parity_shift`).  Under ``ctx`` the
+multigrid ops are plain PyTorch, as the JAX gate `pallas3d.use_pallas(a,
+ctx)` keeps the 3d engine's kernels to one device; `pcg` keeps K16 for its
+A·x on every shard, and the flat engine's solve (`ops/mgflat.py`) keeps
+its kernels under ``ctx``.
 """
 from __future__ import annotations
 
@@ -250,7 +251,7 @@ def _pdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def pcg(p: PoissonLevel, x: torch.Tensor, r: torch.Tensor, it: int = 6,
-        perdir: tuple[int, ...] = ()):
+        perdir: tuple[int, ...] = (), ctx=None):
     """Jacobi-preconditioned conjugate gradient with the reference's
     early-exit guards (`pcg!`, `Poisson.jl:166-186`): stop when ρ falls
     below ``10·eps(dtype)``, when α leaves [1e-2, 1e2] (that iteration then
@@ -258,21 +259,28 @@ def pcg(p: PoissonLevel, x: torch.Tensor, r: torch.Tensor, it: int = 6,
     issued with no host read: once the stop flag ``go`` is down, the step
     length is 0 and the search direction restarts from the preconditioned
     residual, so ``x`` and ``r`` stay bit for bit where the JAX
-    `lax.while_loop` stops, with no full-field select."""
+    `lax.while_loop` stops, with no full-field select.
+
+    Under ``ctx`` the search direction's ghosts are halo-refreshed before
+    A·x and the three dot products are sums over the shards, which every
+    shard gets bit for bit, so every shard stops where the others do.  A·x
+    is K16 on every 3-D float32 CUDA field, on one device or on a shard
+    (the direction's ghosts are refreshed: the kernel reads them as
+    given)."""
     tiny = 10 * torch.finfo(x.dtype).eps
     eps = zero_ghost(r * p.iD)
-    rho = torch.sum(r * eps)
+    rho = psum_all(torch.sum(r * eps), ctx)
     go = torch.abs(rho) >= tiny
     for i in range(it):
-        epsb = per_bc(eps, perdir)
+        epsb = sync_scalar(eps, ctx, perdir)
         zz = _mult_raw(p, epsb)
-        alpha = rho / _pdot(zz, epsb)
+        alpha = rho / psum_all(_pdot(zz, epsb), ctx)
         bad = (torch.abs(alpha) < 1e-2) | (torch.abs(alpha) > 1e2)
         a = torch.where(go & ~bad, alpha, 0.0)
         x = x + a * zero_ghost(epsb)
         r = r - a * zz
         z2 = zero_ghost(r * p.iD)
-        rho2 = torch.sum(r * z2)
+        rho2 = psum_all(torch.sum(r * z2), ctx)
         more = go & ~bad & (i + 1 < it) & (torch.abs(rho2) >= tiny)
         eps = zero_ghost(torch.where(more, rho2 / rho, 0.0) * epsb + z2)
         rho = torch.where(go, rho2, rho)
@@ -291,22 +299,25 @@ def stop_tolerances(x: torch.Tensor, tol: float, ctx=None) -> tuple[float, float
 
 
 def solve(p: PoissonLevel, x: torch.Tensor, z: torch.Tensor, tol: float = 2e-3,
-          itmx: int = 1000, perdir: tuple[int, ...] = ()):
+          itmx: int = 1000, perdir: tuple[int, ...] = (), ctx=None):
     """Standalone PCG Poisson solver (`solver!`, `Poisson.jl:212-223`): a
     do-while of `pcg` (6 inner iterations) bounded by ``itmx`` outer
     iterations, stopped by ``L1 < tol/10·N`` ∧ ``Linf < tol`` (both in the
     working dtype), reading the two norms back once per outer iteration.
     Returns ``(x, r, iters, stats)`` with ``x``'s periodic ghosts refreshed
     (no gauge is pinned) and ``stats`` the rows ``(r_inf, r_1, 0.0)``, row 0
-    at entry: the layout of the multigrid rows with ω = 0."""
-    r1tol, rinf_tol = stop_tolerances(x, tol)
-    r = residual(p, x, z, perdir)
-    r1, rinf = torch.stack(norms(r)).tolist()
+    at entry: the layout of the multigrid rows with ω = 0.  Under ``ctx``
+    (one shard of a decomposed level) the norms and ``N`` are global, the
+    same on every shard bit for bit, and ``x``'s ghosts are
+    halo-refreshed."""
+    r1tol, rinf_tol = stop_tolerances(x, tol, ctx)
+    r = residual(p, x, z, perdir, ctx)
+    r1, rinf = torch.stack(norms(r, ctx)).tolist()
     stats = [(rinf, r1, 0.0)]
     n = 0
     while n < itmx and (n == 0 or not (r1 < r1tol and rinf < rinf_tol)):
-        x, r = pcg(p, x, r, it=6, perdir=perdir)
-        r1, rinf = torch.stack(norms(r)).tolist()
+        x, r = pcg(p, x, r, it=6, perdir=perdir, ctx=ctx)
+        r1, rinf = torch.stack(norms(r, ctx)).tolist()
         n += 1
         stats.append((rinf, r1, 0.0))
-    return per_bc(x, perdir), r, n, stats
+    return sync_scalar(x, ctx, perdir), r, n, stats

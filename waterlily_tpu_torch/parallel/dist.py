@@ -21,12 +21,22 @@ JAX `shard_map`) and the collectives are rendezvous points of the in-process
 card) is not in the JAX package and not here (ROADMAP).
 
 ``engine="auto"`` picks the x-decomposed flat engine where the JAX package
-would (a 3-D flow split over x only, `flowflat.flat_supported`) on CUDA
-float32 shards, and the 3d engine elsewhere, as `Simulation` does on one
-device.  On the flat engine four kernels run on every shard after the halo
-refresh: K14 `bdim_k`, K11 `div_k`, K16 `mult_k` and K6
-(`fused3d.incr_gs_k` with no colours); the 3d engine is plain PyTorch under
-decomposition, as the JAX gate `pallas3d.use_pallas(a, ctx)` has it.
+would (a 3-D multigrid flow split over x only, `flowflat.flat_supported`)
+on CUDA float32 shards, and the 3d engine elsewhere, as `Simulation` does on
+one device.  On the flat engine four kernels run on every shard after the
+halo refresh: K14 `bdim_k`, K11 `div_k`, K16 `mult_k` and K6
+(`fused3d.incr_gs_k` with no colours), with a ``udf`` too (the LES `sgs`
+takes the halo ctx there: `utils/les.py`); the 3d engine is plain PyTorch
+under decomposition, as the JAX gate `pallas3d.use_pallas(a, ctx)` has it,
+but for ``psolver="pcg"``, whose solve (`ops/poisson.py` `solve` with the
+shard's ctx, on the fine level alone, as the JAX package injects it) runs
+K16 for every A·x of the conjugate gradient on every shard.
+
+Forward-mode AD of a decomposed step is `torch.func.jvp` of each shard's
+`flow.mom_step_impl(ctx=, n_dist=)` through ``pool.run``, entered with
+`ops.dist.shard_jvp` (which keeps the shards' forward-mode levels nested);
+the collectives carry the tangents (`ops/dist.py`) and the pressure solves
+are `multigrid.solve_mg_implicit(ctx=, n_dist=)`.
 
 The "blocked" host layout concatenates the padded local blocks, so a global
 blocked array has ``k·(N/k + 2)`` cells per sharded dim; `to_blocked` and
@@ -36,6 +46,7 @@ the JAX functions' arithmetic).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import weakref
 from typing import NamedTuple, Optional, Sequence
@@ -49,7 +60,7 @@ from ..models.body import NoBody, measure_fill
 from ..ops import _build
 from ..ops import multigrid as mg
 from ..ops.dist import DEFAULT_TIMEOUT, Communicator, ShardPool, make_ctx
-from ..simulation import ENGINES, Simulation, _as_dtype
+from ..simulation import ENGINES, Simulation, _as_dtype, pcg_solve_fn
 from ..utils import metrics as mt
 
 __all__ = ["Mesh", "make_mesh", "to_blocked", "from_blocked", "DistSimulation"]
@@ -159,18 +170,14 @@ class DistSimulation:
     and at least the finest multigrid level must stay distributable.
     ``engine`` is "auto", "flat" (a 3-D flow split over x only) or "3d".
     ``timeout`` is the seconds a shard waits at a rendezvous before it
-    raises.  ``psolver="pcg"`` and a ``udf`` are not ported ([dist-2]).
-    The wrapped ``sim`` keeps the time-step and iteration history; its
-    fields are the ones it was built with.  ``pool.streams`` (one CUDA
-    stream a shard) runs each shard's work on a stream of its own."""
+    raises.  ``psolver="pcg"`` runs on the 3d engine only, as in the JAX
+    package.  The wrapped ``sim`` keeps the time-step and iteration
+    history; its fields are the ones it was built with.  ``pool.streams``
+    (one CUDA stream a shard) runs each shard's work on a stream of its
+    own."""
 
     def __init__(self, sim: Simulation, mesh: Mesh, engine: str = "auto",
                  timeout: float = DEFAULT_TIMEOUT):
-        if sim.psolver == "pcg":
-            raise NotImplementedError("DistSimulation: psolver='pcg' under domain "
-                                      "decomposition is not ported ([dist-2])")
-        if sim.psolver != "mg":
-            raise ValueError(f"DistSimulation supports psolver='mg' (got {sim.psolver!r})")
         if engine not in ENGINES:
             raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
         cfg = sim.flow.cfg
@@ -185,16 +192,21 @@ class DistSimulation:
             if k > 1 and (n % k != 0 or n // k < 2):
                 raise ValueError(f"dim {d}: interior {n} not evenly divisible over "
                                  f"{k} shards")
-        _, masks, n_dist = mg.dist_n_levels(cfg.shape, self.sizes,
-                                            min_cells=sim._min_coarse)
-        if n_dist < 1:
-            raise ValueError("grid too small to distribute over this mesh")
-        self.masks, self.n_dist = tuple(masks), n_dist
+        self.pcg = sim.psolver == "pcg"
+        if self.pcg:
+            # the fine level alone, distributed (JAX `parallel/dist.py:182-186`)
+            self.masks, self.n_dist = (), 1
+        else:
+            _, masks, n_dist = mg.dist_n_levels(cfg.shape, self.sizes,
+                                                min_cells=sim._min_coarse)
+            if n_dist < 1:
+                raise ValueError("grid too small to distribute over this mesh")
+            self.masks, self.n_dist = tuple(masks), n_dist
         flat_ok = (D == 3 and self.sizes[0] > 1 and all(k == 1 for k in self.sizes[1:])
-                   and ff.flat_supported(cfg))
+                   and not self.pcg and ff.flat_supported(cfg))
         if engine == "flat" and not flat_ok:
-            raise ValueError("the flat dist engine needs a 3-D flow decomposed over "
-                             "the x mesh axis only")
+            raise ValueError("the flat dist engine needs a 3-D multigrid flow "
+                             "decomposed over the x mesh axis only")
         cuda32 = (all(d.type == "cuda" for d in mesh.devices)
                   and cfg.dtype == torch.float32)
         self.engine = ("flat" if engine == "flat" or (engine == "auto" and flat_ok
@@ -349,10 +361,10 @@ class DistSimulation:
     def step_once(self, remeasure: bool = True, udf=None):
         """One CFL-limited time step of the decomposed flow (the distributed
         `mom_step!`); appends dt and the solver iterations to the wrapped
-        sim's history like `Simulation.step_once`."""
-        if udf is not None:
-            raise NotImplementedError("DistSimulation: a udf under domain "
-                                      "decomposition is not ported ([dist-2])")
+        sim's history like `Simulation.step_once`.  ``udf(f, state, u_adv,
+        t)`` runs on every shard's block, as on the JAX package's engines:
+        the 3d engine calls it as on one device, the flat engine hands a
+        udf with a ``flat`` form (`utils.les.sgs`) the shard's ctx."""
         if remeasure:
             self.measure()
         cfg = self.cfg
@@ -364,10 +376,13 @@ class DistSimulation:
             sh = self.shards[rank]
             if flat:
                 out = ff.mom_step_flat_impl(cfg, sh.state, sh.levels, self.masks, dt,
-                                            t0, ctx=sh.ctx, n_dist=self.n_dist)
+                                            t0, udf, ctx=sh.ctx, n_dist=self.n_dist)
             else:
+                # the distributed PCG with this shard's ctx, or the multigrid
+                solve_fn = (functools.partial(pcg_solve_fn, ctx=sh.ctx) if self.pcg
+                            else None)
                 out = fl.mom_step_impl(cfg, sh.state, sh.levels, self.masks, dt, t0,
-                                       ctx=sh.ctx, n_dist=self.n_dist)
+                                       udf, solve_fn, ctx=sh.ctx, n_dist=self.n_dist)
             sh.state = out[0]
             return out[1].item(), out[2], out[3]
         res = self.pool.run(one)

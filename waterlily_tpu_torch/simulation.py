@@ -120,11 +120,13 @@ def _band_box(V: torch.Tensor, mu0: torch.Tensor, mu1: torch.Tensor,
     return torch.stack(out)
 
 
-def pcg_solve_fn(levels, masks, x, z, tol, itmx, perdir):
+def pcg_solve_fn(levels, masks, x, z, tol, itmx, perdir, ctx=None):
     """The standalone PCG `solve` on the fine level in place of the
     multigrid solve (the `pois_ctor` injection hook of the reference,
-    `src/WaterLily.jl:96-97`; ``psolver="pcg"``)."""
-    x, r, n, stats = ps.solve(levels[0], x, z, tol=tol, itmx=itmx, perdir=perdir)
+    `src/WaterLily.jl:96-97`; ``psolver="pcg"``); ``ctx``: on one shard of a
+    decomposed flow (`parallel.dist.DistSimulation` binds it)."""
+    x, r, n, stats = ps.solve(levels[0], x, z, tol=tol, itmx=itmx, perdir=perdir,
+                              ctx=ctx)
     return mg.MGSolveResult(x, r, n, stats)
 
 
