@@ -1,0 +1,5 @@
+"""Process start to the window's first step, in s."""
+
+
+def read(rec):
+    return rec["setup_s"]
