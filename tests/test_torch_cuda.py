@@ -19,6 +19,8 @@ The copy probes: equal.  Forward-mode AD: K12's tangent kernel
 (`conv_diff_jvp_k`) and the rules of K12 and K14 against the derivative of
 their plain versions, 2e-5 of max|plain tangent|; every wrapper without a
 rule raises on a tangent, before it launches."""
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -1143,3 +1145,104 @@ def test_dist_pcg_direction_k16_vs_plain(dev):
     # one direct launch and one per CG iteration on every shard, no other
     assert counts["mult_k"] == k * (1 + 2) and sum(counts.values()) == counts["mult_k"]
     assert all(r[1] <= 1e-5 and r[2] <= 1e-4 for r in res), res
+
+
+def flat_sphere(n, dev):
+    """The flat engine's n³ static sphere (R = n/8, Re_D 2,000), stepped
+    once so that every shape it launches on is warm."""
+    R = n // 8
+    ctr = torch.tensor([n / 3, n / 2, n / 2], device=dev)
+    body = wt.AutoBody(lambda x, t: torch.sqrt(torch.sum((x - ctr) ** 2)) - R)
+    sim = wt.Simulation((n, n, n), (1.0, 0.0, 0.0), R, nu=R / 1e3, body=body,
+                        engine="flat", device=dev)
+    sim.step_once(remeasure=False)
+    torch.cuda.synchronize()
+    return sim
+
+
+def step_cells(sim, iters):
+    """The padded cells each kernel key of `stencil3d._launch` counts over a
+    flat step of a static body, from the level stack and the iterations:
+    K1, K14 on the body's slab, K8, K9 twice; per solve one K16 (the entry
+    residual); per iteration the fused fine tail (K7), on every level but
+    the coarsest the Jacobi pre-smooth (K15, no colours) and on every level
+    below the fine one its coarse smooth (K15, 4 colours; the coarsest:
+    its dense solve's increment, K16) and, but the coarsest, K6."""
+    import collections
+    import math
+
+    cfg, cells = sim.flow.cfg, [p.D.numel() for p in sim.levels]
+    full, (lo, hi), n = math.prod(cfg.shape), cfg.band_x, sum(iters)
+    want = collections.Counter({
+        "cells.conv_diff_bdim_k": 2 * full, "cells.bc_div_k": 2 * full,
+        "cells.projbc_k": 2 * full,
+        "cells.bdim_k": 2 * (hi - lo + 2) * cfg.shape[1] * cfg.shape[2],
+        "cells.mult_k": len(iters) * cells[0], "cells.incr_gs_k.cascade": n * cells[0]})
+    for l, p in enumerate(sim.levels[1:], 1):
+        want["cells.gs_incr_k.jacobi"] += n * cells[l - 1]
+        if p.Ainv is not None:
+            want["cells.mult_k"] += n * cells[l]
+            continue
+        want["cells.incr_gs_k.increment"] += n * cells[l]
+        route = st._rule("wlt_gs_incr_route", *p.D.shape, cfg.smooth_it, 0)
+        want[f"cells.gs_incr_k.{('per_colour', 'cascade')[route]}"] += n * cells[l]
+    return dict(want)
+
+
+def test_cells_counter_of_a_flat_sphere_step(dev):
+    """While recording, each launch adds its padded cells under its wrapper
+    and, for the smoothers, its route: a 64³ sphere step counts each
+    level's cells times its calls per key, and `launch_counts()` counts the
+    same calls as with recording off."""
+    from waterlily_tpu_torch import tracing
+
+    sim = flat_sphere(64, dev)
+    counts = []
+    for on in (False, True):
+        st.reset_launch_counts()
+        k0 = len(sim.pois_n)
+        with tracing.tracing() if on else contextlib.nullcontext():
+            sim.step_once(remeasure=False)
+        counts.append((st.launch_counts(), sim.pois_n[k0:]))
+    (off, iters_off), (on, iters) = counts
+    if iters == iters_off:
+        assert on == off
+    got = tracing.session().counters
+    assert got == step_cells(sim, iters)
+    assert {k.split(".")[1] for k in got} == {k for k, v in on.items() if v}
+
+
+def test_kernels_start_after_the_span_that_launched_them(dev):
+    """In a profiled flat step every kernel launched inside a ``wlt.*``
+    span starts on the device after that span started on the host: the
+    spans and the device intervals share the profiler's clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from waterlily_tpu_torch import tracing
+
+    sim = flat_sphere(64, dev)
+    st.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sim.step_once(remeasure=False)
+        torch.cuda.synchronize()
+    s = tracing.session()
+    (step,) = s.named("wlt.step")
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = list(prof.profiler.kineto_results.events())
+    assert not [e for e in evs if e.name().startswith("wlt.")]
+    launches = {e.correlation_id(): e for e in evs
+                if e.device_type() != cuda and "LaunchKernel" in e.name()}
+    assert launches and all(step.start <= e.start_ns() <= step.end
+                            for e in launches.values())
+    spans = [x for x in s.spans if x.end is not None]
+    checked = 0
+    for k in evs:
+        h = launches.get(k.correlation_id()) if k.device_type() == cuda else None
+        if h is None:
+            continue
+        inner = max((x for x in spans if x.start <= h.start_ns() <= x.end),
+                    key=lambda x: x.start)
+        assert k.start_ns() >= inner.start, (k.name(), inner.name)
+        checked += 1
+    # every call of a hand kernel's wrapper, and torch's kernels besides
+    assert checked > sum(st.launch_counts().values()) > 0

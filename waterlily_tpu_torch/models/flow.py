@@ -52,6 +52,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from .. import tracing
 from ..ops import multigrid as mg
 from ..ops import stencil3d as st
 from ..ops.bc import apply_vector, bc_vector, eval_points, exit_bc
@@ -329,22 +330,24 @@ def mom_step_impl(cfg: FlowCfg, state: FlowState, levels, masks, dt: float,
     t1 = t0 + dt
     u0 = state.u
     state = dataclasses.replace(state, u0=u0)
-    u = scale_interior(u0, 0.0)
-    u = _phase(state, u0, u, t0, dt, cfg, udf, ctx)
-    u = bc_vector(u, cfg.ubc, t1, save_exit=cfg.exit_bc, perdir=cfg.perdir,
-                  ctx=ctx)
-    if cfg.exit_bc:
-        u = exit_bc(u, u0, dt, ctx)
-    u, p, n1, s1 = project(u, state.p, levels, masks, dt, cfg, t1, solve_fn,
-                           ctx, n_dist)
-    u = _phase(state, u, u, t1, dt, cfg, udf, ctx)
-    u = scale_interior(u, 0.5)
-    u = bc_vector(u, cfg.ubc, t1, save_exit=cfg.exit_bc, perdir=cfg.perdir,
-                  ctx=ctx)
-    u, p, n2, s2 = project(u, p, levels, masks, 0.5 * dt, cfg, t1,
-                          solve_fn, ctx, n_dist)
-    state = dataclasses.replace(state, u=u, p=p)
-    dt_next = cfl(u, state.nu, ctx=ctx)
+    with tracing.span("wlt.predict"):
+        u = scale_interior(u0, 0.0)
+        u = _phase(state, u0, u, t0, dt, cfg, udf, ctx)
+        u = bc_vector(u, cfg.ubc, t1, save_exit=cfg.exit_bc, perdir=cfg.perdir,
+                      ctx=ctx)
+        if cfg.exit_bc:
+            u = exit_bc(u, u0, dt, ctx)
+        u, p, n1, s1 = project(u, state.p, levels, masks, dt, cfg, t1, solve_fn,
+                               ctx, n_dist)
+    with tracing.span("wlt.correct"):
+        u = _phase(state, u, u, t1, dt, cfg, udf, ctx)
+        u = scale_interior(u, 0.5)
+        u = bc_vector(u, cfg.ubc, t1, save_exit=cfg.exit_bc, perdir=cfg.perdir,
+                      ctx=ctx)
+        u, p, n2, s2 = project(u, p, levels, masks, 0.5 * dt, cfg, t1,
+                              solve_fn, ctx, n_dist)
+        state = dataclasses.replace(state, u=u, p=p)
+        dt_next = cfl(u, state.nu, ctx=ctx)
     return state, dt_next, [n1, n2], [s1, s2]
 
 

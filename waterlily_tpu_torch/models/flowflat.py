@@ -53,6 +53,7 @@ from typing import Optional
 
 import torch
 
+from .. import tracing
 from ..ops import fused3d as fz
 from ..ops import stencil3d as st
 from ..ops.bc import bc_vector, exit_bc
@@ -217,15 +218,16 @@ def mom_step_flat_impl(cfg: FlowCfg, state: FlowState, levels, masks,
     (a ``udf`` with a ``flat`` form gets the ctx)."""
     t1 = t0 + dt
     state = dataclasses.replace(state, u0=state.u)
-    # predictor (`Flow.jl:157-161`)
-    u = _half_step(state.u0, state, cfg, dt, t0, 0.0, 1.0, udf, ctx)
-    u, z = _bc_div(u, state.u0, dt, t1, cfg, True, ctx)
-    u, p, n1, s1, _ = _project_flat(u, state.p, z, levels, masks, dt, t1, cfg,
-                                    ctx=ctx, n_dist=n_dist)
-    # corrector (`Flow.jl:163-165`)
-    u = _half_step(u, state, cfg, dt, t1, 1.0, 0.5, udf, ctx)
-    u, z = _bc_div(u, state.u0, dt, t1, cfg, False, ctx)
-    u, p, n2, s2, smax = _project_flat(u, p, z, levels, masks, 0.5 * dt, t1,
-                                       cfg, want_cfl=True, ctx=ctx, n_dist=n_dist)
-    dt_next = torch.clamp(1.0 / (smax + 5 * state.nu), max=10.0)
+    with tracing.span("wlt.predict"):      # `Flow.jl:157-161`
+        u = _half_step(state.u0, state, cfg, dt, t0, 0.0, 1.0, udf, ctx)
+        u, z = _bc_div(u, state.u0, dt, t1, cfg, True, ctx)
+        u, p, n1, s1, _ = _project_flat(u, state.p, z, levels, masks, dt, t1,
+                                        cfg, ctx=ctx, n_dist=n_dist)
+    with tracing.span("wlt.correct"):      # `Flow.jl:163-165`
+        u = _half_step(u, state, cfg, dt, t1, 1.0, 0.5, udf, ctx)
+        u, z = _bc_div(u, state.u0, dt, t1, cfg, False, ctx)
+        u, p, n2, s2, smax = _project_flat(u, p, z, levels, masks, 0.5 * dt, t1,
+                                           cfg, want_cfl=True, ctx=ctx,
+                                           n_dist=n_dist)
+        dt_next = torch.clamp(1.0 / (smax + 5 * state.nu), max=10.0)
     return dataclasses.replace(state, u=u, p=p), dt_next, [n1, n2], [s1, s2]

@@ -229,7 +229,7 @@ def conv_diff_bdim_k(u, u0, nu, dt: float, keep_base: float, scale: float,
     _launch("conv_diff_bdim_k", _lib().wlt_conv_diff_bdim(
         u.data_ptr(), u0.data_ptr(), nu.data_ptr(), float(dt), float(keep_base),
         float(scale), lo, hi, u_new.data_ptr(), f.data_ptr(), *shape, scheme_id,
-        _stream(u)))
+        _stream(u)), shape)
     return u_new, f
 
 
@@ -284,7 +284,7 @@ def _incr_gs_launch(x, r, eps, L, D, iD, colors, omega, want_norms=False,
         x.data_ptr(), r.data_ptr(), eps.data_ptr(), L.data_ptr(), D.data_ptr(),
         iD.data_ptr(), e.data_ptr(), x_out.data_ptr(), r_out.data_ptr(), carr,
         ncol, float(omega), partials, nv, route, *shape,
-        _stream(x)))
+        _stream(x)), shape, route, ncol)
     return (x_out, r_out, nv_t) if want_norms else (x_out, r_out)
 
 
@@ -298,7 +298,7 @@ def bc_div_k(u, ubc):
     ub = _ubc3(ubc)
     u_bc, div = torch.empty_like(u), torch.empty(shape, dtype=u.dtype, device=u.device)
     _launch("bc_div_k", _lib().wlt_bc_div(u.data_ptr(), *ub, u_bc.data_ptr(),
-                                          div.data_ptr(), *shape, _stream(u)))
+                                          div.data_ptr(), *shape, _stream(u)), shape)
     return u_bc, div
 
 
@@ -317,7 +317,7 @@ def projbc_k(u, x, L, ubc, want_cfl: bool = False, save_exit: bool = False):
     _launch("projbc_k", _lib().wlt_projbc(
         u.data_ptr(), x.data_ptr(), L.data_ptr(), *ub, int(save_exit),
         u_out.data_ptr(), None if smax is None else smax.data_ptr(), *shape,
-        _stream(u)))
+        _stream(u)), shape)
     return (u_out, smax) if want_cfl else u_out
 
 
@@ -331,7 +331,7 @@ def bc_k(u, ubc, save_exit: bool = False):
     ub = _ubc3(ubc)
     u_bc = torch.empty_like(u)
     _launch("bc_k", _lib().wlt_bc(u.data_ptr(), *ub, int(save_exit),
-                                  u_bc.data_ptr(), *shape, _stream(u)))
+                                  u_bc.data_ptr(), *shape, _stream(u)), shape)
     return u_bc
 
 
@@ -344,5 +344,5 @@ def div_k(u):
     shape = _field_args("div_k", u)
     div = torch.empty(shape, dtype=u.dtype, device=u.device)
     _launch("div_k", _lib().wlt_div(u.data_ptr(), div.data_ptr(), *shape,
-                                    _stream(u)))
+                                    _stream(u)), shape)
     return div

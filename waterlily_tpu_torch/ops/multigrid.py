@@ -46,6 +46,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import tracing
 from .bc import bc_vector
 from .dist import gather_scalar, psum_all, slice_local, sync_scalar
 from .grid import grow, interior
@@ -294,24 +295,29 @@ def solve_loop(p, x: torch.Tensor, z: torch.Tensor, tol: float, itmx: int,
     ctx)`` is the entry residual.  Under ``ctx`` the norms are global and
     the same on every shard, bit for bit, so every shard takes the same
     path; the solution's ghosts are halo-refreshed."""
-    npdt = np.dtype(str(x.dtype).replace("torch.", ""))
-    r1tol, rinf_tol = stop_tolerances(x, tol, ctx)
-    r = resid(p, x, z, perdir, ctx)
-    r1, rinf = torch.stack(norms(r, ctx)).tolist()     # one device→host read
-    omega = npdt.type(1.0)
-    stats = [(rinf, r1, float(omega))]
-    n = 0
-    while n < itmx and (n == 0 or not (r1 < r1tol and rinf < rinf_tol)):
-        x, r, nv = iterate(x, r, float(omega))
-        rnew, rinf = nv.tolist()
-        if rnew >= r1:
-            omega = max(npdt.type(0.2), npdt.type(0.9) * omega)
-        else:
-            omega = min(npdt.type(1.0), npdt.type(1.02) * omega)
-        r1 = rnew
-        n += 1
-        stats.append((rinf, r1, float(omega)))
-    x = sync_scalar(canonical_gauge(x, p.iD, ctx), ctx, perdir)
+    with tracing.span("wlt.solve") as sp:
+        npdt = np.dtype(str(x.dtype).replace("torch.", ""))
+        r1tol, rinf_tol = stop_tolerances(x, tol, ctx)
+        r = resid(p, x, z, perdir, ctx)
+        nv = torch.stack(norms(r, ctx))
+        with tracing.span("wlt.read", what="norms"):
+            r1, rinf = nv.tolist()     # one device→host read
+        omega = npdt.type(1.0)
+        stats = [(rinf, r1, float(omega))]
+        n = 0
+        while n < itmx and (n == 0 or not (r1 < r1tol and rinf < rinf_tol)):
+            x, r, nv = iterate(x, r, float(omega))
+            with tracing.span("wlt.read", what="norms"):
+                rnew, rinf = nv.tolist()
+            if rnew >= r1:
+                omega = max(npdt.type(0.2), npdt.type(0.9) * omega)
+            else:
+                omega = min(npdt.type(1.0), npdt.type(1.02) * omega)
+            r1 = rnew
+            n += 1
+            stats.append((rinf, r1, float(omega)))
+        x = sync_scalar(canonical_gauge(x, p.iD, ctx), ctx, perdir)
+        sp.set(iters=n)
     return MGSolveResult(x, r, n, stats)
 
 

@@ -36,6 +36,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .. import tracing
 from . import stencil3d as st
 from .bc import per_bc
 from .dist import (global_inside_count, parity_shift, pmax_all, psum_all,
@@ -310,14 +311,21 @@ def solve(p: PoissonLevel, x: torch.Tensor, z: torch.Tensor, tol: float = 2e-3,
     (one shard of a decomposed level) the norms and ``N`` are global, the
     same on every shard bit for bit, and ``x``'s ghosts are
     halo-refreshed."""
-    r1tol, rinf_tol = stop_tolerances(x, tol, ctx)
-    r = residual(p, x, z, perdir, ctx)
-    r1, rinf = torch.stack(norms(r, ctx)).tolist()
-    stats = [(rinf, r1, 0.0)]
-    n = 0
-    while n < itmx and (n == 0 or not (r1 < r1tol and rinf < rinf_tol)):
-        x, r = pcg(p, x, r, it=6, perdir=perdir, ctx=ctx)
-        r1, rinf = torch.stack(norms(r, ctx)).tolist()
-        n += 1
-        stats.append((rinf, r1, 0.0))
-    return sync_scalar(x, ctx, perdir), r, n, stats
+    with tracing.span("wlt.solve") as sp:
+        r1tol, rinf_tol = stop_tolerances(x, tol, ctx)
+        r = residual(p, x, z, perdir, ctx)
+        nv = torch.stack(norms(r, ctx))
+        with tracing.span("wlt.read", what="norms"):
+            r1, rinf = nv.tolist()
+        stats = [(rinf, r1, 0.0)]
+        n = 0
+        while n < itmx and (n == 0 or not (r1 < r1tol and rinf < rinf_tol)):
+            x, r = pcg(p, x, r, it=6, perdir=perdir, ctx=ctx)
+            nv = torch.stack(norms(r, ctx))
+            with tracing.span("wlt.read", what="norms"):
+                r1, rinf = nv.tolist()
+            n += 1
+            stats.append((rinf, r1, 0.0))
+        x = sync_scalar(x, ctx, perdir)
+        sp.set(iters=n)
+    return x, r, n, stats

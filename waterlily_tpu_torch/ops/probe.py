@@ -76,12 +76,13 @@ def copy_scale_k(fields: Sequence[torch.Tensor], block: int = 256,
                 or b.get_device() != idx or b.shape != a.shape):
             _refuse(a.device)
         _launch("copy_scale_k", _lib().wlt_copy_scale(
-            pa, pb, a.numel(), int(block), _raw_stream(idx)))
+            pa, pb, a.numel(), int(block), _raw_stream(idx)), a.shape)
         return [b]
     out = [torch.empty_like(t) for t in fields] if out is None else list(out)
     ptrs = [t.data_ptr() for t in (*fields, *out)]
     if any(p % 16 for p in ptrs) or not _fits(a.device, F32, a.shape, *fields, *out):
         _refuse(a.device)
     _launch("copy_scale6_k", _lib().wlt_copy_scale6(
-        _PTRS6(*ptrs[:6]), _PTRS6(*ptrs[6:]), a.numel(), int(block), _stream(a)))
+        _PTRS6(*ptrs[:6]), _PTRS6(*ptrs[6:]), a.numel(), int(block), _stream(a)),
+        a.shape)
     return out

@@ -87,11 +87,13 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import ctypes
+import math
 from typing import Callable, Optional, Sequence
 
 import torch
 from torch.autograd import forward_ad as _fwad
 
+from .. import tracing
 from . import _build
 from .bc import per_bc
 from .grid import index_sum_parity, inside_mask, shift, zero_ghost
@@ -527,13 +529,28 @@ def _no_tangent(name: str, *ts) -> None:
                 "the plain versions on the CPU; the flat engine is not differentiable")
 
 
-def _launch(name: str, err: int) -> None:
+def _launch(name: str, err: int, shape, route: Optional[int] = None,
+            ncol: int = 1) -> None:
     """Count a launch of the wrapper ``name`` whose entry returned ``err``,
-    or raise."""
+    or raise.  While `tracing` records, also add the call's padded cells
+    (the product of ``shape``) to the session counter ``cells.<name>``, or
+    for a smoother (``route``, ``ncol`` given) ``cells.<name>.<form>``:
+    ``cascade``, ``per_colour``, or with no colours ``increment`` (K6) and
+    ``jacobi`` (K15)."""
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err} "
                            f"({_lib().wlt_error_string(err).decode()})")
     _LAUNCHES[name] += 1
+    if tracing.recording:
+        form = ("" if route is None else "." + (
+            _ROUTES[route] if ncol else _NO_COLOURS.get(name, "no_colours")))
+        tracing.count(f"cells.{name}{form}", math.prod(shape))
+
+
+# the forms of the smoothers' cell counters: by route, and with no colours
+_ROUTES = ("per_colour", "cascade")
+_NO_COLOURS = {"incr_gs_k": "increment", "gs_incr_k": "jacobi",
+               "gs_incr_mp_k": "jacobi"}
 
 
 # the C rules asked once per arguments: (entry, *its int arguments) -> value
@@ -631,7 +648,7 @@ def _conv_diff_launch(u, nu, scheme_id, perdir):
     out = torch.empty_like(u)
     _launch("conv_diff_k", _lib().wlt_conv_diff(
         u.data_ptr(), nu.data_ptr(), out.data_ptr(), *shape, scheme_id, per,
-        _stream(u)))
+        _stream(u)), shape)
     return out
 
 
@@ -655,7 +672,7 @@ def conv_diff_jvp_k(u: torch.Tensor, du: torch.Tensor, nu, dnu, scheme_id: int,
     out = torch.empty_like(u)
     _launch("conv_diff_jvp_k", _lib().wlt_conv_diff_jvp(
         u.data_ptr(), du.data_ptr(), nu.data_ptr(), dnu.data_ptr(), out.data_ptr(),
-        *shape, scheme_id, per, _stream(u)))
+        *shape, scheme_id, per, _stream(u)), shape)
     return out
 
 
@@ -744,7 +761,8 @@ def bdim_band_k(u, u0, f, V, mu0, mu1, dt: float, band: tuple[int, int],
     out = torch.empty_like(u)
     _launch("bdim_band_k", _lib().wlt_bdim_band(
         u.data_ptr(), u0.data_ptr(), f.data_ptr(), V.data_ptr(), mu0.data_ptr(),
-        mu1.data_ptr(), float(dt), lo, hi, per, out.data_ptr(), *shape, _stream(u)))
+        mu1.data_ptr(), float(dt), lo, hi, per, out.data_ptr(), *shape, _stream(u)),
+        shape)
     return out
 
 
@@ -766,7 +784,7 @@ def _bdim_launch(u, u0, f, V, mu0, mu1, dt: float) -> torch.Tensor:
     out = torch.empty_like(u)
     _launch("bdim_k", _lib().wlt_bdim(
         u.data_ptr(), u0.data_ptr(), f.data_ptr(), V.data_ptr(), mu0.data_ptr(),
-        mu1.data_ptr(), dt, out.data_ptr(), *shape, _stream(u)))
+        mu1.data_ptr(), dt, out.data_ptr(), *shape, _stream(u)), shape)
     return out
 
 
@@ -850,7 +868,7 @@ def mult_k(x: torch.Tensor, L: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
                  ("L", L, F32, (3,)), ("D", D, F32, ()))
     out = torch.empty_like(x)
     _launch("mult_k", _lib().wlt_mult(x.data_ptr(), L.data_ptr(), D.data_ptr(),
-                                      out.data_ptr(), *shape, _stream(x)))
+                                      out.data_ptr(), *shape, _stream(x)), shape)
     return out
 
 
@@ -907,7 +925,7 @@ def _gs_incr_launch(x, r, L, D, iD, colors, omega, mp, route=None):
     _launch(name, (lib.wlt_gs_incr_mp if mp else lib.wlt_gs_incr)(
         x.data_ptr(), r.data_ptr(), L.data_ptr(), D.data_ptr(), iD.data_ptr(),
         eps.data_ptr(), x_out.data_ptr(), r_out.data_ptr(), carr, ncol,
-        float(omega), route, *shape, _stream(x)))
+        float(omega), route, *shape, _stream(x)), shape, route, ncol)
     return x_out, r_out
 
 
@@ -943,5 +961,5 @@ def _gauss_sweeps_launch(eps, r, L, iD, colors, perdir, route=None):
     out = torch.empty_like(eps)        # every cell is written on either route
     _launch("gauss_sweeps_k", _lib().wlt_gauss_sweeps(
         eps.data_ptr(), out.data_ptr(), r.data_ptr(), L.data_ptr(), iD.data_ptr(),
-        carr, ncol, parr, nper, route, *shape, _stream(eps)))
+        carr, ncol, parr, nper, route, *shape, _stream(eps)), shape, route, ncol)
     return out

@@ -54,6 +54,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import tracing
 from ..models import flow as fl
 from ..models import flowflat as ff
 from ..models.body import NoBody, measure_fill
@@ -364,35 +365,41 @@ class DistSimulation:
         sim's history like `Simulation.step_once`.  ``udf(f, state, u_adv,
         t)`` runs on every shard's block, as on the JAX package's engines:
         the 3d engine calls it as on one device, the flat engine hands a
-        udf with a ``flat`` form (`utils.les.sgs`) the shard's ctx."""
-        if remeasure:
-            self.measure()
-        cfg = self.cfg
-        dt = _as_dtype(self.sim.flow.dt[-1], cfg.dtype)
-        t0 = _as_dtype(self.time, cfg.dtype)
-        flat = self.engine == "flat"
+        udf with a ``flat`` form (`utils.les.sgs`) the shard's ctx.  The
+        shards' spans nest in this step's ``wlt.step``."""
+        with tracing.span("wlt.step", step=len(self.sim.flow.dt), engine=self.engine):
+            if remeasure:
+                self.measure()
+            cfg = self.cfg
+            dt = _as_dtype(self.sim.flow.dt[-1], cfg.dtype)
+            t0 = _as_dtype(self.time, cfg.dtype)
+            flat = self.engine == "flat"
 
-        def one(rank):
-            sh = self.shards[rank]
-            if flat:
-                out = ff.mom_step_flat_impl(cfg, sh.state, sh.levels, self.masks, dt,
-                                            t0, udf, ctx=sh.ctx, n_dist=self.n_dist)
-            else:
-                # the distributed PCG with this shard's ctx, or the multigrid
-                solve_fn = (functools.partial(pcg_solve_fn, ctx=sh.ctx) if self.pcg
-                            else None)
-                out = fl.mom_step_impl(cfg, sh.state, sh.levels, self.masks, dt, t0,
-                                       udf, solve_fn, ctx=sh.ctx, n_dist=self.n_dist)
-            sh.state = out[0]
-            return out[1].item(), out[2], out[3]
-        res = self.pool.run(one)
-        dt_next, iters, stats = res[0]
-        if any(r[0] != dt_next or r[1] != iters for r in res):
-            raise RuntimeError(f"DistSimulation: the shards disagree on dt or the "
-                               f"iterations: {[r[:2] for r in res]}")
-        self.sim.flow.dt.append(dt_next)
-        self.sim.flow.pois_n += iters
-        self.solver_stats = stats
+            def one(rank):
+                sh = self.shards[rank]
+                if flat:
+                    out = ff.mom_step_flat_impl(cfg, sh.state, sh.levels, self.masks,
+                                                dt, t0, udf, ctx=sh.ctx,
+                                                n_dist=self.n_dist)
+                else:
+                    # the distributed PCG with this shard's ctx, or the multigrid
+                    solve_fn = (functools.partial(pcg_solve_fn, ctx=sh.ctx)
+                                if self.pcg else None)
+                    out = fl.mom_step_impl(cfg, sh.state, sh.levels, self.masks, dt,
+                                           t0, udf, solve_fn, ctx=sh.ctx,
+                                           n_dist=self.n_dist)
+                sh.state = out[0]
+                with tracing.span("wlt.read", what="dt"):
+                    dt_next = out[1].item()
+                return dt_next, out[2], out[3]
+            res = self.pool.run(one)
+            dt_next, iters, stats = res[0]
+            if any(r[0] != dt_next or r[1] != iters for r in res):
+                raise RuntimeError(f"DistSimulation: the shards disagree on dt or the "
+                                   f"iterations: {[r[:2] for r in res]}")
+            self.sim.flow.dt.append(dt_next)
+            self.sim.flow.pois_n += iters
+            self.solver_stats = stats
         return self
 
     def sim_step_n(self, n: int, *, udf=None, remeasure: bool = False):

@@ -42,6 +42,7 @@ from typing import Callable, Optional
 
 import torch
 
+from . import tracing
 from .models import flow as fl
 from .models import flowflat as ff
 from .models.body import Body, NoBody, measure_fill, measure_sdf
@@ -175,53 +176,54 @@ class Simulation:
                  min_coarse_cells: Optional[int] = None,
                  flow_ctor: Optional[Callable] = None, psolver: str = "mg",
                  engine: str = "auto", device="cuda"):
-        D = len(dims)
-        if engine not in ENGINES:
-            raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
-        check_fn(ubc, D, dtype, 3, "ubc")
-        check_fn(g, D, dtype, 3, "g")
-        check_fn(u0, D, dtype, 2, "u0")
-        if psolver not in ("mg", "pcg"):
-            raise ValueError(f"unknown psolver {psolver!r}")
-        if U is None:
-            if callable(ubc):
-                raise ValueError("U (velocity scale) must be given when ubc "
-                                 "is a function")
-            U = math.sqrt(sum(float(v) ** 2 for v in ubc))
-        self.U, self.L, self.eps = U, L, eps
-        self.device = torch.device(device)
-        tuning = {} if flow_ctor is not None else dict(
-            smooth_it=smooth_it, fine_smooth_it=fine_smooth_it,
-            mp_smooth=mp_smooth, fine_presmooth=fine_presmooth)
-        self.flow = (flow_ctor or fl.Flow)(
-            tuple(dims), ubc, dt=dt, nu=nu, g=g, u0=u0, perdir=tuple(perdir),
-            exit_bc=exit_bc, scheme=scheme, dtype=dtype, tol=tol, itmx=itmx,
-            device=self.device, **tuning)
-        self.body = body if body is not None else NoBody()
-        self.psolver = psolver
-        cfg = self.flow.cfg
-        if engine == "auto":
-            engine = ("flat" if self.device.type == "cuda" and psolver == "mg"
-                      and dtype == torch.float32 and ff.flat_supported(cfg)
-                      else "3d")
-        if engine == "flat" and (psolver != "mg" or not ff.flat_supported(cfg)):
-            raise ValueError("flat engine needs psolver='mg' and D=3")
-        self.engine = engine
-        self.solver_stats = None   # last step's per-projection residual logs
-        self._min_coarse = (mg.MIN_COARSE_CELLS if min_coarse_cells is None
-                            else min_coarse_cells)
-        if psolver == "pcg":
-            self.masks, self.solve_fn = (), pcg_solve_fn
-        else:
-            self.masks = tuple(mg.level_shapes(
-                cfg.shape, min_cells=self._min_coarse)[1])
-            self.solve_fn = None
-        self.band_measure = True
-        self.measure_rounds = 0
-        if isinstance(self.body, NoBody):
-            self.levels = self._levels(self.flow.state.mu0)
-        else:
-            self.measure(t=0.0)
+        with tracing.span("wlt.build"):
+            D = len(dims)
+            if engine not in ENGINES:
+                raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
+            check_fn(ubc, D, dtype, 3, "ubc")
+            check_fn(g, D, dtype, 3, "g")
+            check_fn(u0, D, dtype, 2, "u0")
+            if psolver not in ("mg", "pcg"):
+                raise ValueError(f"unknown psolver {psolver!r}")
+            if U is None:
+                if callable(ubc):
+                    raise ValueError("U (velocity scale) must be given when ubc "
+                                     "is a function")
+                U = math.sqrt(sum(float(v) ** 2 for v in ubc))
+            self.U, self.L, self.eps = U, L, eps
+            self.device = torch.device(device)
+            tuning = {} if flow_ctor is not None else dict(
+                smooth_it=smooth_it, fine_smooth_it=fine_smooth_it,
+                mp_smooth=mp_smooth, fine_presmooth=fine_presmooth)
+            self.flow = (flow_ctor or fl.Flow)(
+                tuple(dims), ubc, dt=dt, nu=nu, g=g, u0=u0, perdir=tuple(perdir),
+                exit_bc=exit_bc, scheme=scheme, dtype=dtype, tol=tol, itmx=itmx,
+                device=self.device, **tuning)
+            self.body = body if body is not None else NoBody()
+            self.psolver = psolver
+            cfg = self.flow.cfg
+            if engine == "auto":
+                engine = ("flat" if self.device.type == "cuda" and psolver == "mg"
+                          and dtype == torch.float32 and ff.flat_supported(cfg)
+                          else "3d")
+            if engine == "flat" and (psolver != "mg" or not ff.flat_supported(cfg)):
+                raise ValueError("flat engine needs psolver='mg' and D=3")
+            self.engine = engine
+            self.solver_stats = None   # last step's per-projection residual logs
+            self._min_coarse = (mg.MIN_COARSE_CELLS if min_coarse_cells is None
+                                else min_coarse_cells)
+            if psolver == "pcg":
+                self.masks, self.solve_fn = (), pcg_solve_fn
+            else:
+                self.masks = tuple(mg.level_shapes(
+                    cfg.shape, min_cells=self._min_coarse)[1])
+                self.solve_fn = None
+            self.band_measure = True
+            self.measure_rounds = 0
+            if isinstance(self.body, NoBody):
+                self.levels = self._levels(self.flow.state.mu0)
+            else:
+                self.measure(t=0.0)
 
     # ------------------------------------------------------------- time
     @property
@@ -259,13 +261,16 @@ class Simulation:
         band = None
         for rounds in range(1, 9):
             box = cfg.band_box if flat and self.band_measure else None
-            V, mu0, mu1, _ = measure_fill(self.body, cfg.shape, t,
-                                          float(self.eps), cfg.dtype,
-                                          self.device, cfg.perdir, cfg.exit_bc,
-                                          band_box=box)
+            with tracing.span("wlt.measure", round=rounds):
+                V, mu0, mu1, _ = measure_fill(self.body, cfg.shape, t,
+                                              float(self.eps), cfg.dtype,
+                                              self.device, cfg.perdir,
+                                              cfg.exit_bc, band_box=box)
             if not flat:
                 break
-            band = _band_box(V, mu0, mu1, cfg.perdir, box).tolist()
+            band = _band_box(V, mu0, mu1, cfg.perdir, box)
+            with tracing.span("wlt.read", what="band"):
+                band = band.tolist()
             if box is None:
                 break
             if band[0][1] <= band[0][0]:
@@ -325,23 +330,28 @@ class Simulation:
     def step_once(self, remeasure: bool = True, udf=None):
         """One `mom_step` (+ optional body re-measure) with the host
         bookkeeping of the Δt history and solver iteration counts.  ``udf(f,
-        state, u_adv, t)`` returns the forced momentum RHS of each phase."""
-        if remeasure:
-            self.measure()
-        cfg = self.flow.cfg
-        dt = _as_dtype(self.flow.dt[-1], cfg.dtype)
-        t0 = _as_dtype(self.time, cfg.dtype)
-        if self.engine == "flat":
-            state, dt_next, iters, stats = ff.mom_step_flat_impl(
-                cfg, self.flow.state, self.levels, self.masks, dt, t0, udf)
-        else:
-            state, dt_next, iters, stats = fl.mom_step_impl(
-                cfg, self.flow.state, self.levels, self.masks, dt, t0, udf,
-                self.solve_fn)
-        self.flow.state = state
-        self.flow.dt.append(dt_next.item())
-        self.flow.pois_n += iters
-        self.solver_stats = stats
+        state, u_adv, t)`` returns the forced momentum RHS of each phase.
+        The span ``wlt.step`` carries the step's index, ``len(flow.dt)`` at
+        its start."""
+        with tracing.span("wlt.step", step=len(self.flow.dt), engine=self.engine):
+            if remeasure:
+                self.measure()
+            cfg = self.flow.cfg
+            dt = _as_dtype(self.flow.dt[-1], cfg.dtype)
+            t0 = _as_dtype(self.time, cfg.dtype)
+            if self.engine == "flat":
+                state, dt_next, iters, stats = ff.mom_step_flat_impl(
+                    cfg, self.flow.state, self.levels, self.masks, dt, t0, udf)
+            else:
+                state, dt_next, iters, stats = fl.mom_step_impl(
+                    cfg, self.flow.state, self.levels, self.masks, dt, t0, udf,
+                    self.solve_fn)
+            self.flow.state = state
+            with tracing.span("wlt.read", what="dt"):
+                dt_next = dt_next.item()
+            self.flow.dt.append(dt_next)
+            self.flow.pois_n += iters
+            self.solver_stats = stats
         return self
 
     def sim_step_n(self, n: int, *, udf=None, remeasure: bool = False):

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..models.body import Body, _interior_points, _measure_points, kern
 from ..ops.dist import offsets, psum_all
 from ..ops.grid import grow, loc_grid, shift
@@ -155,13 +156,14 @@ def nds_field(body: Body, shape: tuple[int, ...], t=0.0, dtype=torch.float32,
     (`nds`, `Metrics.jl:116-119`); ghosts zero.  Shape ``(D, *shape)``.
     ``offset`` shifts a shard's local indices to global coordinates under
     domain decomposition."""
-    D = len(shape)
-    t = torch.as_tensor(t, dtype=dtype, device=device)
-    d, n, _ = _measure_points(body, _interior_points(None, shape, dtype, device,
-                                                     offset=offset), t, 1.0)
-    vals = (n * kern(torch.clamp(d, -1.0, 1.0))[:, None]).T
-    vals = vals.reshape((D,) + tuple(k - 2 for k in shape)).to(dtype)
-    return torch.stack([grow(vals[i]) for i in range(D)])
+    with tracing.span("wlt.nds_field"):
+        D = len(shape)
+        t = torch.as_tensor(t, dtype=dtype, device=device)
+        d, n, _ = _measure_points(body, _interior_points(None, shape, dtype, device,
+                                                         offset=offset), t, 1.0)
+        vals = (n * kern(torch.clamp(d, -1.0, 1.0))[:, None]).T
+        vals = vals.reshape((D,) + tuple(k - 2 for k in shape)).to(dtype)
+        return torch.stack([grow(vals[i]) for i in range(D)])
 
 
 def _offset(ctx, shape):
@@ -191,11 +193,12 @@ def total_force(sim) -> torch.Tensor:
     """Pressure + viscous force on the body of a `Simulation`
     (`total_force`, `Metrics.jl:160`); a `DistSimulation` sums its shards'
     (`DistSimulation.total_force`)."""
-    if hasattr(sim, "shards"):
-        return sim.total_force()
-    st = sim.flow.state
-    return (pressure_force(st.p, sim.body, sim.time)
-            + viscous_force(st.u, st.nu, sim.body, sim.time))
+    with tracing.span("wlt.force"):
+        if hasattr(sim, "shards"):
+            return sim.total_force()
+        st = sim.flow.state
+        return (pressure_force(st.p, sim.body, sim.time)
+                + viscous_force(st.u, st.nu, sim.body, sim.time))
 
 
 def _cross_field(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
