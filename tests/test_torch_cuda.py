@@ -18,7 +18,8 @@ rounding that flips), both expected to be met exactly; their norms 1e-5.
 The copy probes: equal.  Forward-mode AD: K12's tangent kernel
 (`conv_diff_jvp_k`) and the rules of K12 and K14 against the derivative of
 their plain versions, 2e-5 of max|plain tangent|; every wrapper without a
-rule raises on a tangent, before it launches."""
+rule raises on a tangent, before it launches.  The force's normals measured
+on the body's shell alone against the dense measure: 1e-6 of max."""
 import contextlib
 
 import numpy as np
@@ -1246,3 +1247,36 @@ def test_kernels_start_after_the_span_that_launched_them(dev):
         checked += 1
     # every call of a hand kernel's wrapper, and torch's kernels besides
     assert checked > sum(st.launch_counts().values()) > 0
+
+
+class _Dense(wt.Body):
+    """A port body behind a type of its own: `metrics.nds_field` measures it
+    at every cell, as it measured every body before the shell."""
+
+    def __init__(self, body):
+        self.body = body
+
+    def measure_at(self, x, t, fastd2=float("inf")):
+        return self.body.measure_at(x, t, fastd2)
+
+
+def test_force_on_the_bodys_shell(dev):
+    """The 128³ sphere's normals measured on the body's shell alone
+    (`nds_field`'s path for the port's bodies) against the dense measure of
+    the same body: the field and `total_force` within 1e-6 of max, float32,
+    at under 1 % of the cells."""
+    from waterlily_tpu_torch import tracing
+
+    sim = flat_sphere(128, dev)
+    body, shape = sim.body, tuple(sim.flow.p.shape)
+    with tracing.tracing():
+        got = wt.metrics.nds_field(body, shape, sim.time, torch.float32, dev)
+        counts = dict(tracing.session().counters)
+    want = wt.metrics.nds_field(_Dense(body), shape, sim.time, torch.float32, dev)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert rel_err(got, want) <= 1e-6
+    force = wt.metrics.total_force(sim)
+    sim.body = _Dense(body)
+    assert rel_err(force, wt.metrics.total_force(sim)) <= 1e-6
+    assert counts["nds.points"] == 128 ** 3
+    assert 0 < counts["nds.measured"] < 128 ** 3 // 100

@@ -81,6 +81,16 @@ class SetBody(Body):
             raise ValueError(f"SetBody op must be 'min', 'max' or 'neg', got {op!r}")
         self.op, self.a, self.b = op, a, b
 
+    def sdf_at(self, x, t):
+        """Distance only, from the children's `sdf_at`: ``measure_at(x, t,
+        0.0)[0]`` without the children's normals and velocities."""
+        da = self.a.sdf_at(x, t)
+        if self.op == "neg":
+            return -da
+        db = self.b.sdf_at(x, t)
+        pick_a = (da <= db) if self.op == "min" else (da >= db)
+        return torch.where(pick_a, da, db)
+
     def measure_at(self, x, t, fastd2=INF):
         da, na, Va = self.a.measure_at(x, t, fastd2)
         if self.op == "neg":

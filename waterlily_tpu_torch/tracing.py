@@ -6,7 +6,9 @@ solve ``wlt.solve``, every device→host read ``wlt.read``, the body measure
 ``wlt.measure``, the output's ``wlt.force`` and ``wlt.nds_field``, the
 constructor's ``wlt.build``) and counts the padded cells of each kernel
 call (``cells.<wrapper>[.<route>]``, added where `ops.stencil3d.launch_counts`
-counts the call).  README.md ("Tracing") lists every span and counter.
+counts the call) and the cells each `nds_field` call measures
+(``nds.points``, ``nds.measured``).  README.md ("Tracing") lists every span
+and counter.
 
 Recording is on while a `torch.profiler` session runs (any profiler that
 goes through `torch.autograd.profiler`'s start and stop) or inside

@@ -3,8 +3,9 @@ moments, running means.
 
 PyTorch counterpart of `waterlily_tpu/utils/metrics.py` (the port of
 `src/Metrics.jl`).  Pointwise metrics are whole-tensor shift expressions;
-the surface integrals evaluate the body normal at every interior cell with
-one vmapped sweep (`models.body` chunks it) and sum in float64 on either
+the surface integrals evaluate the body normal with vmapped sweeps
+(`models.body` chunks them), on the port's own bodies only where the
+distance is within one cell (`nds_field`), and sum in float64 on either
 device, as the reference does (`Metrics.jl:127`).  The JAX package sums in
 float32 with a Neumaier-compensated scan on the TPU only because the TPU has
 no fast float64; the card has it.  `lambda2_field` takes the eigenvalues of
@@ -13,9 +14,12 @@ no fast float64; the card has it.  `lambda2_field` takes the eigenvalues of
 from __future__ import annotations
 
 import torch
+from torch.func import vmap
 
 from .. import tracing
-from ..models.body import Body, _interior_points, _measure_points, kern
+from ..models.autobody import AutoBody
+from ..models.body import (MEASURE_CHUNK, Body, NoBody, SetBody, _interior_points,
+                           _measure_points, kern)
 from ..ops.dist import offsets, psum_all
 from ..ops.grid import grow, loc_grid, shift
 
@@ -25,8 +29,13 @@ __all__ = [
     "vorticity",
     "nds_field", "pressure_force", "viscous_force", "total_force",
     "pressure_moment", "viscous_moment", "total_moment", "MeanFlow",
-    "LAMBDA2_CHUNK",
+    "LAMBDA2_CHUNK", "SDF_CHUNK",
 ]
+
+# points per vmapped distance batch of `nds_field`'s shell pass: the
+# distance alone keeps no autodiff temporaries, so four times
+# `MEASURE_CHUNK` fit the memory of one measure batch
+SDF_CHUNK = 4 * MEASURE_CHUNK
 
 # cells per batched `eigvalsh` call of `lambda2_field`: cuSOLVER's batched
 # symmetric solver refuses 32,768 3×3 matrices and more in one call
@@ -150,19 +159,56 @@ def _grid_sum(a: torch.Tensor) -> torch.Tensor:
     return torch.sum(a.to(torch.float64), dim=tuple(range(1, a.dim())))
 
 
+def _shell_body(body: Body) -> bool:
+    """Whether `nds_field` may measure ``body`` on its shell ``sdf_at² ≤ 1``
+    alone: an `AutoBody`, a `NoBody`, or a `SetBody` of them."""
+    if type(body) is SetBody:
+        return _shell_body(body.a) and _shell_body(body.b)
+    return type(body) in (AutoBody, NoBody)
+
+
 def nds_field(body: Body, shape: tuple[int, ...], t=0.0, dtype=torch.float32,
               device="cuda", offset=None) -> torch.Tensor:
     """BDIM-masked surface normal n·K(d) at every interior cell centre
     (`nds`, `Metrics.jl:116-119`); ghosts zero.  Shape ``(D, *shape)``.
     ``offset`` shifts a shard's local indices to global coordinates under
-    domain decomposition."""
+    domain decomposition.
+
+    The port's own bodies (`AutoBody`, `NoBody` and `SetBody`s of them) are
+    measured only where ``sdf_at² ≤ 1`` (or the distance is NaN), found by a
+    distance-only pass and one device→host read (``wlt.read``, ``nds``);
+    every other cell is zero, as in the dense measure.  Why that is exact:
+    n·K(d) is nonzero only where the returned |d| < 1, since K(±1) = 0.  An
+    `AutoBody` returns its raw distance wherever d² > ``fastd2`` = 1, so
+    sdf > 1 gives d > 1 and sdf < −1 gives d < −1; a `SetBody`'s min, max and
+    negation keep both implications.  Any other `Body` may not follow that
+    rule and is measured at every cell.  The counters ``nds.points`` and
+    ``nds.measured`` count the interior cells and the cells measured."""
     with tracing.span("wlt.nds_field"):
         D = len(shape)
         t = torch.as_tensor(t, dtype=dtype, device=device)
-        d, n, _ = _measure_points(body, _interior_points(None, shape, dtype, device,
-                                                         offset=offset), t, 1.0)
-        vals = (n * kern(torch.clamp(d, -1.0, 1.0))[:, None]).T
-        vals = vals.reshape((D,) + tuple(k - 2 for k in shape)).to(dtype)
+        pts = _interior_points(None, shape, dtype, device, offset=offset)
+        N = pts.shape[0]
+        tracing.count("nds.points", N)
+        idx = None
+        if _shell_body(body):
+            sdf = vmap(lambda x: body.sdf_at(x, t))
+            # the cells that `measure_at(…, fastd2=1.0)` does not skip
+            near = torch.cat([~(d * d > 1.0) for d in map(sdf, pts.split(SDF_CHUNK))])
+            with tracing.span("wlt.read", what="nds"):
+                idx = torch.nonzero(near).squeeze(1)
+            # gathered in the dense sweep's layout (rows of a (D, N) block):
+            # a map's batched matmul then takes the same BLAS path, same bits
+            pts = pts.T[:, idx].T
+        tracing.count("nds.measured", pts.shape[0])
+        if pts.shape[0] == 0:
+            return torch.zeros((D,) + tuple(shape), dtype=dtype, device=device)
+        d, n, _ = _measure_points(body, pts, t, 1.0)
+        vals = n * kern(torch.clamp(d, -1.0, 1.0))[:, None]
+        if idx is not None:
+            vals = torch.zeros((N, D), dtype=vals.dtype, device=device).index_put(
+                (idx,), vals)
+        vals = vals.T.reshape((D,) + tuple(k - 2 for k in shape)).to(dtype)
         return torch.stack([grow(vals[i]) for i in range(D)])
 
 
