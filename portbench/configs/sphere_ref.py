@@ -31,8 +31,9 @@ def case(p: dict, n: int) -> solver.Case:
     return solver.Case(tuple(p["ubc"]), nu, (), p["tol"], p["itmx"])
 
 
-def moments(p: dict, n: int, dtype, device):
-    """``(V, mu0, mu1)`` measured from the signed distance."""
+def moments(p: dict, n: int, dtype, device, at=None):
+    """``(V, mu0, mu1)`` measured from the signed distance; the body is
+    static, so the time of the measure, ``at``, is not needed."""
     return measure.measure(sdf(p, n), (n + 2,) * 3, dtype, device, p["eps"],
                            stated=getattr(torch, p["dtype"]))
 
@@ -48,5 +49,7 @@ def initial_u(p: dict, n: int, dtype, device) -> torch.Tensor:
     return solver.exit_plane_start(solver.bc_vector(u, tuple(p["ubc"])))
 
 
-def output(u, pr, p: dict, n: int) -> list[float]:
+def output(u, pr, p: dict, n: int, t=None) -> list[float]:
+    """The force on the body; static, so the state's time ``t`` is not
+    needed."""
     return outputs.force(u, pr, case(p, n).nu, sdf(p, n))

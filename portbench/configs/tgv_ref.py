@@ -25,7 +25,8 @@ def velocity_scale(p: dict) -> float:
     return 1.0
 
 
-def moments(p: dict, n: int, dtype, device):
+def moments(p: dict, n: int, dtype, device, at=None):
+    """An empty box's moments, the same at every time ``at``."""
     return measure.empty_box((n + 2,) * 3, dtype, device, tuple(p["perdir"]))
 
 
@@ -55,5 +56,5 @@ def initial_u(p: dict, n: int, dtype, device) -> torch.Tensor:
     return solver.exit_plane_start(u)
 
 
-def output(u, pr, p: dict, n: int) -> list[float]:
+def output(u, pr, p: dict, n: int, t=None) -> list[float]:
     return outputs.ke_enstrophy(u)

@@ -119,6 +119,15 @@ def host(t):
     return t.detach().to("cpu", copy=True)
 
 
+def last_step(sim) -> tuple[float, float]:
+    """The state time and Δt of the last step taken, as the program held
+    them when the step began (`Flow.time`: the sum of the Δt history but
+    its newest entry); a step that re-measures takes the body at their
+    sum (`Simulation.measure`)."""
+    dts = sim.flow.dt
+    return float(sum(dts[:-2])), float(dts[-2])
+
+
 def snapshot(sim) -> dict:
     st = sim.flow.state
     return dict(u=host(st.u), p=host(st.p), dt=float(sim.flow.dt[-1]),
@@ -225,9 +234,11 @@ def drive(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float,
                window_s=window_s, interval_ms=[w * 1e3 for w in walls],
                peak_bytes=peak, setup_s=setup_s, sim_build_s=sim_build_s,
                trace=trace_rec)
+    # the moments the window's last step left, and the (t0, Δt) of that step
     snap = dict(start_rows=rows, start_u=start_u, samples=samples,
                 moments=tuple(host(t) for t in (sim.flow.state.V, sim.flow.state.mu0,
-                                                sim.flow.state.mu1)))
+                                                sim.flow.state.mu1)),
+                moments_at=last_step(sim))
     del sim, out
     gc.collect()
     if cuda:

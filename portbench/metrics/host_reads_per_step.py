@@ -1,6 +1,10 @@
 """Step: the program's device→host reads (spans ``wlt.read``) over the
-traced stretch's steps: 1 + Σ(1 + iterations) over a step's two solves on
-a static body, so 3 + `pois_iters_per_step`."""
+traced stretch's steps.  A step on a static body reads its Δt and, in each
+of its two solves, the residual's norms 1 + iterations times: 3 +
+`pois_iters_per_step`.  Each output call that measures the force reads the
+shell of its two normals' fields (``what="nds"``), so the sphere cells read
+2 more an output interval; a step that re-measures a body reads its band
+once a round (``what="band"``)."""
 from portbench import spans
 
 

@@ -10,17 +10,23 @@ the start and what a single step skips:
   the seed, copied at set-up) against the configuration's initial field
   plus the same noise, ``noise·U·N(0, 1)`` drawn on the device from the seed
   (`Simulation.perturb`'s generator);
-* ``moments``: the BDIM moments μ0, μ1 and V the program measured, against
-  the configuration's own (``ref.moments``: a measure from the signed
-  distance, or an empty box's; largest absolute gap);
+* ``moments``: the BDIM moments μ0, μ1 and V the program held at the end
+  of its window, against the configuration's own (``ref.moments``: a
+  measure from the signed distance, or an empty box's; largest absolute
+  gap) at the time the program measured them: ``at = (t0, Δt)``, the state
+  time and Δt of the window's last step, whose re-measure, for a body that
+  moves, took the body at t0 + Δt (a static body ignores it);
 * for each sampled step of the window, from the program's state before it
   (u, p, Δt and the time), the configuration's step (``ref.step``):
   ``u`` and ``p`` after the step (largest gap over the
-  largest value; p weighted by each cell's largest face coefficient, as a
-  pressure moves the flow only through L·∇p), ``dt`` the next Δt (relative
-  gap), ``iters`` the pressure iterations of its two projections (largest
-  difference), and ``output`` the output the program read on that state at
-  the end of the interval before (largest gap over the largest value).
+  largest value; p weighted by each cell's largest face coefficient in
+  the fine level the reference's own step used, as a pressure moves the
+  flow only through L·∇p: the configuration's levels for a static body,
+  those of the step's own measure for a moving one), ``dt`` the
+  next Δt (relative gap), ``iters`` the pressure iterations of its two
+  projections (largest difference), and ``output`` the output the program
+  read on that state at the end of the interval before, at the state's
+  time (largest gap over the largest value).
 
 The reference runs in float64 (`REFERENCE`); its control is the same code
 in bfloat16 (`CONTROL`), the precision below the configuration's float32,
@@ -63,23 +69,26 @@ def _moment_gap(prog, mine) -> float:
 
 
 class Side:
-    """The reference at one dtype: the configuration's moments
+    """The reference at one dtype: the configuration's moments at ``at``
     (``ref.moments``) and their multigrid levels, and one step of the
     configuration (``ref.step``) from a given state."""
 
-    def __init__(self, ref, params: dict, n: int, dtype, device):
+    def __init__(self, ref, params: dict, n: int, dtype, device, at):
         self.ref, self.params, self.n = ref, params, n
         self.dtype, self.device = dtype, device
         self.case = ref.case(params, n)
-        self.moments = ref.moments(params, n, dtype, device)
+        self.moments = ref.moments(params, n, dtype, device, at=at)
         self.levels, self.masks = sv.make_levels(self.moments[1], self.case.perdir)
 
     def step(self, u, p, dt: float, t: float):
+        """The step from the state at time ``t``, the output on that state,
+        and the pressure's weight from the fine level the step used."""
         u = u.to(self.device, self.dtype)
         p = p.to(self.device, self.dtype)
-        out = self.ref.output(u, p, self.params, self.n)
-        u1, p1, dt1, iters = self.ref.step(self, u, p, dt, t)
-        return dict(u=u1, p=p1, dt=dt1, iters=iters, output=out)
+        out = self.ref.output(u, p, self.params, self.n, t=t)
+        u1, p1, dt1, iters, levels = self.ref.step(self, u, p, dt, t)
+        return dict(u=u1, p=p1, dt=dt1, iters=iters, output=out,
+                    weight=face_weight(levels[0].L))
 
 
 def start_rows(ref, params: dict, n: int, seed: int, noise: float, rows, dtype,
@@ -95,9 +104,10 @@ def start_rows(ref, params: dict, n: int, seed: int, noise: float, rows, dtype,
     return u[:, list(rows)].clone()
 
 
-def numbers(prog_sample: dict, mine: dict, weight: torch.Tensor) -> dict:
-    """The step's numbers of one sample: ``prog_sample`` against ``mine``."""
-    dev = mine["u"].device
+def numbers(prog_sample: dict, mine: dict) -> dict:
+    """The step's numbers of one sample: ``prog_sample`` against ``mine``,
+    the pressure weighted by ``mine``'s weight."""
+    dev, weight = mine["u"].device, mine["weight"]
     pa = prog_sample["p"].to(dev, REFERENCE) * weight
     pb = mine["p"].to(REFERENCE) * weight
     oa, ob = prog_sample["output"], mine["output"]
@@ -117,7 +127,7 @@ def _merge(acc: dict, new: dict) -> None:
 def check(ref, params: dict, n: int, snap: dict, seed: int, noise: float, device,
           control: bool = False):
     """The numbers of the program's run (``snap``: what the harness kept,
-    `harness.Snapshots`), and with ``control`` those of the reference at
+    `harness.drive`), and with ``control`` those of the reference at
     `CONTROL` in its place, both against the reference at `REFERENCE`.
     Frees each sample's tensors as it goes."""
     rows = snap["start_rows"]
@@ -128,19 +138,19 @@ def check(ref, params: dict, n: int, snap: dict, seed: int, noise: float, device
         ctl["start"] = _gap(start_rows(ref, params, n, seed, noise, rows, CONTROL,
                                        device), hi)
     del hi
-    side = Side(ref, params, n, REFERENCE, device)
+    at = snap["moments_at"]
+    side = Side(ref, params, n, REFERENCE, device, at)
     prog["moments"] = _moment_gap(snap["moments"], side.moments)
-    low = Side(ref, params, n, CONTROL, device) if control else None
+    low = Side(ref, params, n, CONTROL, device, at) if control else None
     if low is not None:
         ctl["moments"] = _moment_gap(low.moments, side.moments)
-    weight = face_weight(side.levels[0].L)
     for s in snap["samples"]:
         mine = side.step(s["u0"], s["p0"], s["dt0"], s["t0"])
         _merge(prog, numbers(dict(u=s["u1"], p=s["p1"], dt=s["dt1"], iters=s["iters"],
-                                  output=s["out0"]), mine, weight))
+                                  output=s["out0"]), mine))
         if low is not None:
             theirs = low.step(s["u0"], s["p0"], s["dt0"], s["t0"])
-            _merge(ctl, numbers(theirs, mine, weight))
+            _merge(ctl, numbers(theirs, mine))
             del theirs
         del mine
     return prog, ctl

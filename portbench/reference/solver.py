@@ -468,6 +468,8 @@ def mom_step(u, p, V, mu0, mu1, levels, masks, dt: float, case: Case):
 def static_step(side, u, p, dt: float, t: float):
     """`mom_step` on the moments and levels of ``side`` (`compare.Side`),
     for a configuration whose body does not move: ``t``, the time before
-    the step, is not needed."""
+    the step, is not needed.  Returns `mom_step`'s result and the levels
+    it stepped on."""
     V, mu0, mu1 = side.moments
-    return mom_step(u, p, V, mu0, mu1, side.levels, side.masks, dt, side.case)
+    return (*mom_step(u, p, V, mu0, mu1, side.levels, side.masks, dt, side.case),
+            side.levels)

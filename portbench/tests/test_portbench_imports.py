@@ -22,7 +22,8 @@ print(json.dumps(sorted({{m.split('.')[0] for m in sys.modules}})))
 
 PACKAGE = ["portbench.run", "portbench.readings", "portbench.trace",
            "portbench.reference.compare", "portbench.reference.measure",
-           "portbench.reference.outputs", "portbench.reference.solver"]
+           "portbench.reference.moving", "portbench.reference.outputs",
+           "portbench.reference.solver"]
 
 
 def top_level(files, modules):

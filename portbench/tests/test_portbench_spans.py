@@ -2,6 +2,7 @@
 (`portbench/spans.py`), from traced 16³ runs of each cell on the CPU and a
 32³ run of each on the card."""
 import time
+from collections import Counter
 
 import pytest
 from conftest import small_cell
@@ -18,12 +19,30 @@ def listed(cell) -> set[str]:
     return {m["name"] for m in cell.per_layer} & NEW
 
 
+def reads_by_what() -> tuple[dict[str, int], int]:
+    """The program's device→host reads in the newest session (the traced
+    stretch) by their ``what``, and the session's steps."""
+    from waterlily_tpu_torch import tracing
+    s = tracing.session()
+    by = Counter(r.attrs.get("what") for r in s.named("wlt.read"))
+    return dict(by), len(s.named("wlt.step"))
+
+
 def check(line: dict, cell, want: set[str]) -> None:
     got = line["metrics"]
     assert line["correct"] is True, line["checks"]
     assert set(got) & NEW == want
-    reads = got["host_reads_per_step"]["value"]
-    assert reads == pytest.approx(3 + got["pois_iters_per_step"]["value"], rel=1e-12)
+    # a step reads its Δt and, in each of its two solves, the residual's
+    # norms once before the first iteration and once after every one; each
+    # output call on a sphere reads the shell of its two normals' fields
+    by, steps = reads_by_what()
+    assert set(by) <= {"norms", "dt", "nds"}, by
+    per_step = (by.get("norms", 0) + by.get("dt", 0)) / steps
+    assert per_step == pytest.approx(3 + got["pois_iters_per_step"]["value"], rel=1e-12)
+    outputs = cell.traffic["trace_intervals"]
+    assert by.get("nds", 0) == (2 * outputs if cell.name.startswith("sphere") else 0), by
+    assert got["host_reads_per_step"]["value"] == pytest.approx(sum(by.values()) / steps,
+                                                                rel=1e-12)
     for name in ("step_self_share", "solve_share", "read_wait_share", "nds_share"):
         if name in got:
             assert 0 < got[name]["value"] < 100, name
